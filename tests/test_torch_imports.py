@@ -1,0 +1,55 @@
+"""The port stands alone: no module of `repro_torch` and nothing that
+`chip_smoke.py` imports pulls in jax or the JAX package, and the port's
+entry points refuse to fall back to the CPU silently."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _foreign(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_modules_import_without_jax_or_reference():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.decision_megakernel" in mods
+    assert not [m for m in mods if _foreign(m)]
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "repro_torch.core" in names
+    assert not [n for n in names if _foreign(n)]
+
+
+def test_train_without_device_needs_cuda(monkeypatch):
+    from repro_torch.core import EstimatorBundle
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EstimatorBundle.train(None, [], [])
+    assert torch.backends.cuda.matmul.allow_tf32 is False
