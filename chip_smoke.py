@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check exits nonzero:
+Phases, each printing one JSON line; any failed check exits nonzero
+(phases 4b, 5b and 5c drive the KNN lookup kernel K2 and its paths):
 
   1. device — the card, `nvidia-smi`'s name and power limit, TF32 flags;
   2. build  — compile the CUDA sources of `src/repro_torch/csrc/`;
@@ -17,10 +18,28 @@ Phases, each printing one JSON line; any failed check exits nonzero:
   4. times  — kernel and plain version, median of 50 CUDA-event-timed
      calls after warm-up, beside the least time the card could take, and
      the profiler's device time of each of the kernel's two functions;
+  3b. knn check — the KNN lookup kernel against its plain version on the
+     main-path index (N=14,886 x E=128, k=10) at B in {1, 8, 64, 256},
+     plus N=1,000 with k=32 and bf16 input: on dyadic inputs idx and d2
+     identical; on random normal inputs idx agreeing on >= 99% of rows
+     and d2 within rtol 1e-5;
+  4b. knn times — as phase 4 for B in {1, 8, 64, 256}, beside the time
+     of the composite PyTorch expression (matmul + torch.topk) that a
+     later kernel is held to;
   5. main path — the README quickstart on the port at the paper's sizes
      (18,608 prompts, the 13-instance pool, 300 requests at 12 req/s,
      then 600 at 30 req/s): every request served, none failed, one
      kernel launch per fired batch and no plain-version call;
+  5b. staged — the same 300 requests through the staged numpy and torch
+     decision backends, both fed by the KNN kernel, with
+     `charge_compute=False` so that the two see the same batches: the
+     per-request choices must be identical;
+  5c. baselines — BEST-Route, Avengers-Pro and passthrough (sq / rr /
+     sq dispatch) on the windowed engine, then BEST-Route under the
+     serial_published, concurrent and microbatch deployments, the
+     bundle's KNN on the kernel. For 5b and 5c: every request served,
+     none failed, one KNN-kernel launch per scoring call, no plain
+     call, no decision-kernel launch;
   6. the kernels line, then the card's `nvidia-smi` line, then the last
      line `{"ok": true, "device": {...}}`.
 
@@ -40,6 +59,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 N_INDEX, E, M, N_TIERS, N_TREES, DEPTH = 14886, 128, 4, 4, 60, 3
+K_NN = 10
 
 
 def emit(phase, **kw):
@@ -159,8 +179,8 @@ def neighbour_rows(tensors, k=10):
     return int(torch.sort(d2, dim=1, stable=True)[1][:, :k].unique().numel())
 
 
-def device_split_ms(fn, n=20):
-    """Device time per call of each __global__ function, from the
+def device_split_ms(fn, names=("knn_partial_topk", "decision_scan"), n=20):
+    """Device time per call of each named __global__ function, from the
     profiler's CUDA activity (empty when the profiler sees no device
     time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -172,7 +192,7 @@ def device_split_ms(fn, n=20):
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        for name in ("knn_partial_topk", "decision_scan"):
+        for name in names:
             if name in ev.key:
                 us = getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
@@ -291,6 +311,83 @@ def phase_times(mk):
     return rows
 
 
+def knn_inputs(seed, B, N, dyadic, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    if dyadic:
+        q, x = rng.integers(-8, 9, (B, E)) / 8, rng.integers(-8, 9, (N, E)) / 8
+    else:
+        q, x = rng.normal(size=(B, E)), rng.normal(size=(N, E))
+    return (torch.tensor(q, dtype=dtype, device="cuda"),
+            torch.tensor(x, dtype=dtype, device="cuda"))
+
+
+def phase_knn_check(kt):
+    cases = [dict(B=B, N=N_INDEX, k=K_NN) for B in (1, 8, 64, 256)]
+    cases += [dict(B=8, N=1000, k=32), dict(B=8, N=N_INDEX, k=K_NN,
+                                            dtype=torch.bfloat16)]
+    max_abs, agreements = 0.0, []
+    for seed, case in enumerate(cases):
+        dtype = case.get("dtype", torch.float32)
+        for dyadic in (True, False):
+            q, x = knn_inputs(300 + seed, case["B"], case["N"], dyadic, dtype)
+            d, i = kt.knn_topk(q, x, case["k"])
+            torch.cuda.synchronize()
+            pd, pi = kt.knn_topk_plain(q, x, case["k"])
+            check(int(i.max()) < case["N"] and int(i.min()) >= 0,
+                  f"{case}: index out of range")
+            row = dict(B=case["B"], N=case["N"], k=case["k"],
+                       dtype=str(dtype).split(".")[-1])
+            if dyadic:
+                check(torch.equal(i, pi) and torch.equal(d, pd),
+                      f"{case}: dyadic idx/d2 differ from the plain version")
+                emit("knn_check", inputs="dyadic", **row, exact=True)
+                continue
+            agree = float((i == pi).all(1).float().mean())
+            rel = float(((d - pd).abs() / pd.abs().clamp_min(1e-30)).max())
+            max_abs = max(max_abs, float((d - pd).abs().max()))
+            agreements.append(agree)
+            emit("knn_check", inputs="normal", **row, idx_row_agreement=agree,
+                 d2_max_rel_err=rel)
+            check(agree >= 0.99, f"{case}: idx agreement {agree} < 0.99")
+            check(rel <= 1e-5, f"{case}: d2 relative error {rel} > 1e-5")
+    return max_abs, min(agreements)
+
+
+def knn_bound_ms(B, N, k):
+    """Least time: q, x and |x|^2 read once, d2 and idx written once, over
+    the memory rate; or 2*B*N*E + 3*B*N float32 operations over the
+    CUDA-core peak; whichever is larger."""
+    nbytes = B * E * 4 + N * E * 4 + N * 4 + B * k * 8
+    flops = 2 * B * N * E + 3 * B * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_knn_times(kt):
+    rows = {}
+    for B in (1, 8, 64, 256):
+        q, x = knn_inputs(400 + B, B, N_INDEX, dyadic=False)
+        xsq = (x * x).sum(1)            # the estimator passes |x|^2 in
+        def kernel():
+            return kt.knn_topk(q, x, K_NN, xsq=xsq)
+        def composite():
+            d2 = xsq[None] - 2 * (q @ x.T) + (q * q).sum(1, keepdim=True)
+            return torch.topk(d2, K_NN, largest=False)
+        b_ms, by, nbytes, flops = knn_bound_ms(B, N_INDEX, K_NN)
+        rows[B] = dict(
+            ms=time_ms(kernel),
+            plain_ms=time_ms(lambda: kt.knn_topk_plain(q, x, K_NN, xsq)),
+            composite_ms=time_ms(composite), bound_ms=b_ms, bound_by=by,
+            bytes=nbytes, flops=flops, library_ms=None,
+            device_ms_by_function=device_split_ms(
+                kernel, names=("knn_topk_partial", "knn_topk_merge"))
+            or "not measured", splits=kt.n_splits(B, N_INDEX, q.device))
+        emit("knn_times", B=B, N=N_INDEX, E=E, k=K_NN, **rows[B],
+             calls_timed=50, tf32=torch.backends.cuda.matmul.allow_tf32)
+    return rows
+
+
 def phase_main_path(mk):
     from repro_torch.core import (EstimatorBundle, RBConfig, RouteBalance,
                                   make_requests, run_cell)
@@ -322,7 +419,8 @@ def phase_main_path(mk):
         emit("main_path", rate=lam, requests=n, served=m["n"],
              failed=m["failed"], fired_batches=fired, launches=got[0],
              plain_calls=got[1], quality=m["quality"],
-             mean_e2e=m["mean_e2e"], cost_per_req=m["cost_per_req"],
+             mean_e2e=m["mean_e2e"], p99_e2e=m["p99_e2e"],
+             cost_per_req=m["cost_per_req"],
              measured_decide_ms_mean=m["measured_decide_ms_mean"],
              measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
              mean_batch_size=m["mean_batch_size"],
@@ -340,17 +438,101 @@ def phase_main_path(mk):
               f"{lam} req/s: implausible metrics {m}")
         check(all(r.instance is not None for r in reqs),
               f"{lam} req/s: a request was never dispatched")
+    return launches, dict(ds=ds, tiers=tiers, names=names, bundle=bundle)
+
+
+def served_through_knn(label, eng, m, n, counts, kt, mk, **extra):
+    """Check one staged/baseline run and emit its row; returns the KNN
+    kernel's launches in it."""
+    launches = kt.knn_topk.launches
+    calls = len(eng.compute_log)
+    emit("staged", run=label, requests=n, served=m["n"], failed=m["failed"],
+         scoring_calls=calls, knn_launches=launches,
+         knn_plain_calls=kt.knn_topk.plain_calls,
+         decision_kernel_launches=mk.decision_megakernel.launches,
+         quality=m["quality"], mean_e2e=m["mean_e2e"],
+         p99_e2e=m["p99_e2e"], cost_per_req=m["cost_per_req"],
+         measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
+         mean_batch_size=m["mean_batch_size"],
+         deployment=m.get("deployment"), **extra)
+    check(m["n"] == n and m["failed"] == 0,
+          f"{label}: served {m['n']} of {n}, failed {m['failed']}")
+    check(launches == calls > 0,
+          f"{label}: {launches} KNN launches for {calls} scoring calls")
+    check(kt.knn_topk.plain_calls == 0, f"{label}: plain KNN calls")
+    check(mk.decision_megakernel.launches == 0,
+          f"{label}: the decision kernel ran")
+    check(np.isfinite(m["mean_e2e"]) and 0.0 < m["quality"] < 1.0,
+          f"{label}: implausible metrics {m}")
+    counts[label] = launches
     return launches
+
+
+def phase_staged(ctx, kt, mk):
+    """The staged decision backends and the baselines, the KNN on the
+    kernel, at the quickstart's sizes (12 req/s, 300 requests)."""
+    from repro_torch.core import (EngineConfig, RBConfig, RouteBalance,
+                                  ServingEngine, fit_policy, make_requests,
+                                  run_cell)
+    from repro_torch.serving.workload import poisson_arrivals
+    ds, tiers, names = ctx["ds"], ctx["tiers"], ctx["names"]
+    bundle = ctx["bundle"].with_knn_backend("kernel")
+    n = 300
+
+    def stream():
+        return make_requests(ds, "test", poisson_arrivals(12.0, n, seed=0))
+
+    def reset():
+        kt.reset_counts()
+        mk.reset_counts()
+
+    counts, choices = {}, {}
+    for backend in ("numpy", "torch"):
+        reqs = stream()
+        rb = RouteBalance(RBConfig(decision_backend=backend,
+                                   knn_backend="kernel",
+                                   charge_compute=False),
+                          ctx["bundle"], tiers)
+        reset()
+        m = run_cell(rb, tiers, names, reqs)
+        served_through_knn(f"routebalance-{backend}", rb, m, n, counts, kt,
+                           mk, charge_compute=False)
+        choices[backend] = [r.instance for r in reqs]
+    same = choices["numpy"] == choices["torch"]
+    emit("staged_parity", runs=["routebalance-numpy", "routebalance-torch"],
+         identical_choices=same,
+         differing=sum(a != b for a, b in zip(choices["numpy"],
+                                               choices["torch"])))
+    check(same, "staged numpy and torch backends chose differently")
+    runs = [(name, "windowed") for name in ("bestroute-sq", "avengers-rr",
+                                            "passthrough-sq")]
+    runs += [("bestroute-sq", dep) for dep in ("serial_published",
+                                               "concurrent", "microbatch")]
+    for name, dep in runs:
+        reqs = stream()
+        # BEST-Route's own quality scorer sits beside the bundle
+        kw = ({"device": bundle.device} if name.startswith("bestroute")
+              else {})
+        eng = ServingEngine(fit_policy(name, bundle, tiers, names, ds, **kw),
+                            bundle, tiers, EngineConfig(deployment=dep))
+        reset()
+        m = run_cell(eng, tiers, names, reqs)
+        served_through_knn(f"{name}/{dep}", eng, m, n, counts, kt, mk)
+    return counts
 
 
 def main():
     smi_line = phase_device()
     phase_build()
     from repro_torch.kernels import decision_megakernel as mk
+    from repro_torch.kernels import knn_topk as kt
     max_abs, min_agree = phase_check(mk)
+    knn_abs, knn_agree = phase_knn_check(kt)
     times = phase_times(mk)
-    launches = phase_main_path(mk)
-    main8 = times[8]
+    knn_times = phase_knn_times(kt)
+    launches, ctx = phase_main_path(mk)
+    knn_counts = phase_staged(ctx, kt, mk)
+    main8, knn1 = times[8], knn_times[1]
     print(json.dumps({"kernels": [{
         "name": "decision_megakernel", "route": "cuda",
         "source": "src/repro_torch/csrc/decision_megakernel.cu",
@@ -363,7 +545,19 @@ def main():
         "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
         "library_ms": None, "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
                                       "E": E, "M": M},
-        "by_R": {str(R): v for R, v in times.items()}}]}), flush=True)
+        "by_R": {str(R): v for R, v in times.items()}}, {
+        "name": "knn_topk", "route": "cuda",
+        "source": "src/repro_torch/csrc/knn_topk.cu",
+        "replaces": "src/repro/kernels/knn_topk.py:83",
+        "function": "knn_topk",
+        "launches": sum(knn_counts.values()), "launches_by_run": knn_counts,
+        "checked_against_plain": True, "max_abs_err": knn_abs,
+        "min_idx_row_agreement_normal": knn_agree,
+        "ms": knn1["ms"], "plain_ms": knn1["plain_ms"],
+        "bound_ms": knn1["bound_ms"], "bound_by": knn1["bound_by"],
+        "library_ms": None, "composite_ms": knn1["composite_ms"],
+        "shape": {"B": 1, "N": N_INDEX, "E": E, "k": K_NN},
+        "by_B": {str(B): v for B, v in knn_times.items()}}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 time, worst-case enforcement at dispatch (max_tokens clamp) (§4.1, §6.4).
 
 Port of `repro.core.budget` (lines 17-76): `cost_matrix` and
-`admission_math` in torch with the reference's operation order,
+`admission_math` in torch with the reference's operation order (the
+former is operators only, so it takes numpy arrays as well),
+`admission_mask` a numpy copy for the host greedy loop, and
 `max_tokens_clamp` unchanged (host-side, per dispatch).
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 
-def cost_matrix(len_in, pred_len, price_in, price_out) -> torch.Tensor:
+def cost_matrix(len_in, pred_len, price_in, price_out):
     """Ĉ(r,i) = (ℓ_in c_in + L̂ c_out) · 1e-6 over (R, I). The per-token
     scale is a reciprocal multiply, as in the reference."""
     return (len_in[:, None] * price_in[None, :]
@@ -40,6 +42,25 @@ def admission_math(budgets, len_in, pred_len, price_in, price_out,
     cheapest = (torch.arange(I, device=c_hat.device)[None, :]
                 == c_sel.argmin(dim=1)[:, None])     # one-hot fallback
     allowed = torch.where(none_fit[:, None], cheapest, constrained)
+    return allowed, c_hat
+
+
+def admission_mask(budgets: np.ndarray, len_in: np.ndarray,
+                   pred_len: np.ndarray, price_in: np.ndarray,
+                   price_out: np.ndarray):
+    """Eq. 2 in numpy: (R,) budgets (nan = none), (R,) len_in, (R, I)
+    pred_len per instance's model, (I,) prices -> (allowed (R, I) bool,
+    c_hat (R, I)). Requests whose budget excludes every candidate keep
+    their single cheapest candidate (first index on ties)."""
+    I = pred_len.shape[1]
+    c_hat = cost_matrix(len_in, pred_len, price_in, price_out)
+    has_budget = ~np.isnan(budgets)
+    constrained = np.where(has_budget[:, None],
+                           c_hat <= budgets[:, None], True)
+    none_fit = ~constrained.any(axis=1)
+    cheapest = (np.arange(I)[None, :]
+                == c_hat.argmin(axis=1)[:, None])    # one-hot fallback
+    allowed = np.where(none_fit[:, None], cheapest, constrained)
     return allowed, c_hat
 
 

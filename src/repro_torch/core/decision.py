@@ -1,18 +1,27 @@
 """The LPT greedy scan with dead reckoning: the per-step arithmetic of
 the RouteBalance decision (§4).
 
-Port of `repro.core.decision_jax` (lines 46-142): `LATENCY_MODES`,
-`bucket_pow2`, `greedy_step` and the scan. The reference runs the scan
-as a `lax.scan`; here it is a Python loop over the R rows on torch
-tensors. It is the stage-4 body of the decision kernel's plain version
+Port of `repro.core.decision_jax` (lines 46-241): `LATENCY_MODES`,
+`bucket_pow2`, `greedy_step` and the scan, and the staged tensor core
+that `RBConfig(decision_backend="torch")` runs (the reference's
+`decision_backend="jax"`): `greedy_core` (the scan over a precomputed
+order and admission mask), `decide_batch` (LPT order + Eq. 2 admission
++ scan) and `decide`, its numpy-in / numpy-out wrapper. The reference
+runs the scan as a `lax.scan` under `jit`; here it is a Python loop over
+the R rows on torch tensors. It is also the stage-4 body of the decision
+kernel's plain version
 (`repro_torch.kernels.decision_megakernel.decision_megakernel_plain`),
 and it never reads a value back to the host, so on a CUDA tensor the
 loop only enqueues work.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
+from .budget import admission_math, cost_matrix
 from .scoring import affinity_discount, masked_score
 
 LATENCY_MODES = ("full", "off_reactive", "off_predictive", "static_prior")
@@ -98,3 +107,95 @@ def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
         choice.index_copy_(0, order, torch.cat(picks))
         est_T.index_copy_(0, order, torch.cat(ests))
     return choice, est_T, (d, b, free)
+
+
+def greedy_core(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
+                free, max_batch, weights, allowed,
+                latency_mode: str = "full", affinity=None):
+    """The greedy pass over a precomputed order + admission mask, on
+    float32 tensors of one device. Returns (choice (R,) int64, est_T
+    (R,) float32)."""
+    choice, est_T, _ = greedy_scan(order, q_inst, c_hat, l_inst, tpot,
+                                   nominal_tpot, d, b, free, max_batch,
+                                   weights, allowed, latency_mode,
+                                   affinity=affinity)
+    return choice, est_T
+
+
+def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
+                 free, max_batch, budgets, len_in, price_in, price_out,
+                 weights, latency_mode: str = "full", lpt: bool = True,
+                 budget_filter: bool = True, affinity=None):
+    """The whole per-batch decision on float32 tensors of one device.
+
+    q_inst/l_inst: (R, I) per-instance quality / predicted length;
+    pred_len_max: (R,) max predicted length over *models* (LPT key);
+    tpot/nominal_tpot/d/b/free/max_batch: (I,) instance state;
+    budgets (R,) with nan = unconstrained; len_in (R,);
+    price_in/price_out (I,); affinity optionally (R, I) prefix-reuse
+    discount. Returns (choice (R,), est_T (R,), c_hat (R, I),
+    allowed (R, I))."""
+    R = q_inst.shape[0]
+    if lpt:
+        order = torch.argsort(-pred_len_max, stable=True)
+    else:
+        order = torch.arange(R, device=q_inst.device)
+    if budget_filter:
+        allowed, c_hat = admission_math(budgets, len_in, l_inst, price_in,
+                                        price_out)
+    else:
+        c_hat = cost_matrix(len_in, l_inst, price_in, price_out)
+        allowed = torch.ones(c_hat.shape, dtype=torch.bool,
+                             device=c_hat.device)
+    choice, est_T = greedy_core(order, q_inst, c_hat, l_inst, tpot,
+                                nominal_tpot, d, b, free, max_batch,
+                                weights, allowed, latency_mode, affinity)
+    return choice, est_T, c_hat, allowed
+
+
+def decide(q_inst: np.ndarray, l_inst: np.ndarray,
+           pred_len_max: np.ndarray, tpot: np.ndarray,
+           nominal_tpot: np.ndarray, d: np.ndarray, b: np.ndarray,
+           free: np.ndarray, max_batch: np.ndarray,
+           budgets: np.ndarray, len_in: np.ndarray,
+           price_in: np.ndarray, price_out: np.ndarray, weights,
+           latency_mode: str = "full", lpt: bool = True,
+           budget_filter: bool = True,
+           affinity: Optional[np.ndarray] = None,
+           device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """numpy-in / numpy-out wrapper for the scheduler's staged path: every
+    input cast to float32 on `device` (None means the card), the batch
+    padded to the next power of two (>= 8), as the reference pads it
+    for its jit cache. Pad rows carry a -1e30 LPT key, so they scan
+    strictly after every real request, a NaN budget and zero `len_in`;
+    their choices are dropped. Returns (choice (R,) int64, est_T (R,)
+    float64)."""
+    from .device import resolve_device
+    dev = resolve_device(device)
+    R = q_inst.shape[0]
+    Rp = bucket_pow2(R)
+    if Rp != R:
+        pad = Rp - R
+        q_inst = np.pad(np.asarray(q_inst, float), ((0, pad), (0, 0)))
+        l_inst = np.pad(np.asarray(l_inst, float), ((0, pad), (0, 0)))
+        pred_len_max = np.concatenate(
+            [np.asarray(pred_len_max, float), np.full(pad, -1e30)])
+        budgets = np.concatenate(
+            [np.asarray(budgets, float), np.full(pad, np.nan)])
+        len_in = np.concatenate(
+            [np.asarray(len_in, float), np.zeros(pad)])
+        if affinity is not None:
+            affinity = np.pad(np.asarray(affinity, np.float32),
+                              ((0, pad), (0, 0)))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    choice, est_T, _, _ = decide_batch(
+        f32(q_inst), f32(l_inst), f32(pred_len_max), f32(tpot),
+        f32(nominal_tpot), f32(d), f32(b), f32(free), f32(max_batch),
+        f32(budgets), f32(len_in), f32(price_in), f32(price_out),
+        tuple(float(w) for w in weights), latency_mode=latency_mode,
+        lpt=lpt, budget_filter=budget_filter,
+        affinity=None if affinity is None else f32(affinity))
+    return (choice[:R].cpu().numpy().astype(np.int64),
+            est_T[:R].cpu().numpy().astype(np.float64))

@@ -3,7 +3,7 @@
 Port of `repro.core.driver` (lines 21-123). One ``run_cell`` = one
 configuration cell of the paper's evaluation (fixed scheduler, weights,
 arrival rate, prompt set). Scenario schedules (`schedule=`) wait for the
-scenario port (ROADMAP queue 1, item 3).
+scenario port (ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def run_cell(scheduler, tiers: Sequence[Tier], model_names: List[str],
     if schedule:
         raise NotImplementedError(
             "scenario schedules are not ported yet (ROADMAP queue 1, "
-            "item 3)")
+            "item 2)")
     sim = ClusterSim(list(tiers), model_names, seed=seed)
     if setup is not None:
         setup(sim)

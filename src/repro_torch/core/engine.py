@@ -1,17 +1,28 @@
-"""The policy-agnostic serving engine, windowed deployment.
+"""The policy-agnostic serving engine.
 
-Port of `repro.core.engine` (lines 58-441): `EngineConfig`,
+Port of `repro.core.engine` (lines 52-499): `EngineConfig`,
 `BatchView`, `Ready`, `AssignmentResult`, the `SchedulingPolicy`
-protocol and `ServingEngine` with the windowed deployment RouteBalance
-runs on — adaptive-window batch formation, the SoA row-index ring over
-the request stream's `RequestColumns`, async dispatch with the residual
-decomposition, and decision-time measurement (`compute_log`, which
-feeds `charge_compute`). The engine reaches `sim.recovery` and
-`sim.overload` through `getattr`, so it runs without them.
+protocol and `ServingEngine` with its four deployments, the §6.3 ladder
+axis, orthogonal to the policy:
 
-Not ported yet (ROADMAP queue 1): the §6.3 station deployments
-(`serial_published`, `microbatch`, `concurrent`), which serve the
-baseline policies, and checkpoint/restore.
+  * "windowed" — RouteBalance's amortized batch scoring: adaptive-window
+    batch formation, the SoA row-index ring over the request stream's
+    `RequestColumns`, async dispatch with the residual decomposition;
+  * "serial_published" — one scoring call per request on one server,
+    each charged the policy's `serial_scoring_s` (the baselines as
+    published; alias "serial");
+  * "microbatch" — a co-located collector scoring up to
+    `microbatch_size` requests per `microbatch_time`, one batch at a
+    time;
+  * "concurrent" — groups of up to 8 scored on `n_workers` workers.
+
+The station deployments charge the router queue wait and drop arrivals
+beyond a bounded `queue_capacity`. Every deployment measures decision
+time per call (`compute_log`, which feeds `charge_compute` in the
+windowed one). The engine reaches `sim.recovery` and `sim.overload`
+through `getattr`, so it runs without them.
+
+Not ported yet (ROADMAP queue 1): checkpoint/restore.
 """
 from __future__ import annotations
 
@@ -27,18 +38,26 @@ from ..serving.tiers import Tier
 
 from .budget import max_tokens_clamp
 
-DEPLOYMENTS = ("windowed",)
+DEPLOYMENTS = ("windowed", "concurrent", "serial_published", "microbatch")
+# legacy PipelineConfig spelling, accepted as an alias
+_DEPLOYMENT_ALIASES = {"serial": "serial_published"}
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Policy-agnostic engine knobs: the windowed deployment's batch
-    formation (amortized batch scoring)."""
+    """Policy-agnostic engine knobs. `deployment` is the §6.3 ladder
+    axis (see the module docstring)."""
     deployment: str = "windowed"
+    # windowed-deployment knobs (RouteBalance's batch formation)
     base_window: float = 0.10
     adaptive: bool = True
     fixed_batch: Optional[int] = None
     charge_compute: bool = True
+    # scoring-station knobs (§6.3 ladder deployments)
+    n_workers: int = 32            # concurrent scoring workers
+    microbatch_size: int = 64
+    microbatch_time: float = 1.72  # padded batch service time (§6.3)
+    queue_capacity: Optional[int] = None   # bounded => drops (vLLM-SR)
 
 
 class BatchView:
@@ -122,9 +141,14 @@ class SchedulingPolicy:
     """The pluggable decision layer. Subclasses override `assign`;
     `prepare`/`on_attach`/`fit` are optional hooks.
 
-    Class attribute consumed by the engine: `budget_clamp` — whether
-    dispatch applies the runtime max-tokens budget clamp (Eq. 2's
-    execution-side half).
+    Class attributes consumed by the engine:
+
+      * `serial_scoring_s` — per-request scoring service time charged
+        by the `serial_published` deployment. Policies that batch by
+        construction keep the default; decoupled baselines surface
+        their router's serial forward.
+      * `budget_clamp` — whether dispatch applies the runtime
+        max-tokens budget clamp (Eq. 2's execution-side half).
 
     `engine_overrides()` lets a policy pin `EngineConfig` fields its
     own config owns (RouteBalance's batch-formation knobs live in
@@ -135,6 +159,7 @@ class SchedulingPolicy:
     """
 
     name = "policy"
+    serial_scoring_s = 0.0
     budget_clamp = True
 
     def engine_overrides(self) -> dict:
@@ -178,7 +203,8 @@ class ServingEngine:
 
     The windowed deployment is the zero-allocation serving path: SoA
     ingest ring, adaptive batch window, async dispatch with residual
-    accounting."""
+    accounting. The station deployments queue arrivals in front of
+    `n_servers` scoring servers (see the module docstring)."""
 
     def __init__(self, policy: SchedulingPolicy, bundle,
                  tiers: Sequence[Tier],
@@ -187,10 +213,12 @@ class ServingEngine:
         overrides = policy.engine_overrides()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        if cfg.deployment not in DEPLOYMENTS:
-            raise NotImplementedError(
-                f"deployment={cfg.deployment!r}: the station deployments "
-                "are not ported yet (ROADMAP queue 1, item 3)")
+        dep = _DEPLOYMENT_ALIASES.get(cfg.deployment, cfg.deployment)
+        if dep not in DEPLOYMENTS:
+            raise ValueError(f"deployment={cfg.deployment!r} not in "
+                             f"{DEPLOYMENTS}")
+        if dep != cfg.deployment:
+            cfg = dataclasses.replace(cfg, deployment=dep)
         self.policy = policy
         self.ecfg = cfg
         self.tiers = list(tiers)
@@ -221,6 +249,11 @@ class ServingEngine:
         self._wait_start = 0
         self._wait_n = 0
         self._wait_cols = None
+        # station deployments: scoring queue + worker occupancy
+        self.queue: List[Request] = []
+        self.busy_servers = 0
+        self.n_servers = (cfg.n_workers if cfg.deployment == "concurrent"
+                          else 1)
 
     # -- wiring ---------------------------------------------------------------
     def attach(self, sim: ClusterSim):
@@ -229,6 +262,8 @@ class ServingEngine:
         mgr = getattr(sim, "recovery", None)
         if mgr is not None:
             mgr.bind(self)       # retries requeue into us; watchdog starts
+        if self.ecfg.deployment != "windowed":
+            return                            # station mode drains on arrival
         self._wait_start = self._wait_n = 0
         # requests queued from before a re-attach have no rows in the
         # (just-cleared) ring, so the ring is no longer parallel to
@@ -267,6 +302,9 @@ class ServingEngine:
 
     def enqueue(self, req: Request, t: float):
         if self._maybe_shed(req, t):
+            return
+        if self.ecfg.deployment != "windowed":
+            self._enqueue_station(req, t)
             return
         # a retry delivered after the fire loop parked (expected count
         # met before the failure) must revive it, or the request waits
@@ -383,3 +421,61 @@ class ServingEngine:
             if mgr is not None:
                 mgr.watch_dispatch(req, inst, now)
         self.batches += 1
+
+    # -- station deployments (§6.3 ladder) ------------------------------------
+    def _enqueue_station(self, req: Request, t: float):
+        cap = self.ecfg.queue_capacity
+        if cap is not None and len(self.queue) >= cap:
+            req.failed = True
+            req.finish_time = t   # terminal-state invariant: failures
+            self.sim.completed.append(req)   # carry a terminal timestamp
+            return
+        self.queue.append(req)
+        self._drain(t)
+
+    def _service_time(self) -> float:
+        if self.ecfg.deployment == "microbatch":
+            return self.ecfg.microbatch_time
+        return self.policy.serial_scoring_s
+
+    def _drain(self, t: float):
+        while self.queue and self.busy_servers < self.n_servers:
+            dep = self.ecfg.deployment
+            if dep == "microbatch":
+                n = min(len(self.queue), self.ecfg.microbatch_size)
+            elif dep == "concurrent":
+                # micro-batched off the scheduling loop: each worker
+                # takes a small group; workers overlap
+                n = min(len(self.queue),
+                        max(1, len(self.queue) // self.n_servers))
+                n = min(n, 8)
+            else:
+                n = 1
+            group = self.queue[:n]
+            self.queue = self.queue[n:]
+            self.busy_servers += 1
+            dt = self._service_time()
+            self.sim.push(t + dt, lambda tt, g=group: self._scored(g, tt))
+
+    def _scored(self, group: List[Request], t: float):
+        self.busy_servers -= 1
+        t0 = time.perf_counter()
+        res = self._assign(BatchView(group, t=t))
+        choice, l_chosen = res.fetch()
+        instances = res.instances
+        clamp = self.policy.budget_clamp
+        mgr = getattr(self.sim, "recovery", None)
+        for j, req in enumerate(group):
+            req.router_queue_wait = t - req.arrival
+            inst = instances[int(choice[j])]
+            mt = (max_tokens_clamp(req.budget, req.prompt.len_in,
+                                   inst.tier.price_in,
+                                   inst.tier.price_out)
+                  if clamp else None)
+            inst.submit(req, t, float(l_chosen[j]), mt)
+            self.decisions += 1
+            if mgr is not None:
+                mgr.watch_dispatch(req, inst, t)
+        self.batches += 1
+        self.compute_log.append((len(group), time.perf_counter() - t0))
+        self._drain(t)

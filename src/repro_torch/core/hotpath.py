@@ -37,7 +37,9 @@ import numpy as np
 import torch
 
 from ..estimators.gbm import pack_ensemble
-from ..kernels.decision_megakernel import decision_megakernel, dummy_gbm
+# a module import: `kernels.decision_megakernel` imports `core`, which
+# imports this module
+from ..kernels import decision_megakernel as k1
 from ..serving.affinity import SIG_WIDTH, SKETCH_SLOTS
 from .decision import bucket_pow2
 
@@ -176,7 +178,7 @@ class FusedHotPath:
                          put(st["base"]))
             self._depth, self._lr = int(st["depth"]), float(st["lr"])
         else:
-            self._gbm = tuple(t.to(dev) for t in dummy_gbm())
+            self._gbm = tuple(t.to(dev) for t in k1.dummy_gbm())
             self._depth, self._lr = 1, 0.1
         # delta lanes: one fixed capacity >= the mostly-dirty threshold
         # where _sync_state reseeds instead
@@ -340,7 +342,7 @@ class FusedHotPath:
         t1 = time.perf_counter()
         d, b, free, ctx, alive = self._sync_state(tel)
         t2 = time.perf_counter()
-        choice, est_T, l_chosen, d1, b1, f1 = decision_megakernel(
+        choice, est_T, l_chosen, d1, b1, f1 = k1.decision_megakernel(
             self._up(s["emb"]), self._up(s["rv"]), self._up(s["budgets"]),
             self._up(s["len_in"]), psig_d, d, b, free, ctx, alive,
             self._x, self._xsq, self._qual, self._leng,

@@ -22,7 +22,8 @@
 //      index). Each CTA streams its slice of x through shared memory in
 //      32-row tiles, one warp per query row; each lane keeps a sorted
 //      top-k of its columns, and the warp merges its 32 lists into the
-//      split's k best, ordered by (distance, index), written to scratch.
+//      split's k best, ordered by (distance, index), written to scratch
+//      (knn_common.cuh, shared with knn_topk.cu).
 //   2. decision_scan: one CTA per window. It merges the S*k candidates
 //      of each row (one warp per row, one lane per split), forms the
 //      inverse-distance label mixes, evaluates each instance's GBM
@@ -43,13 +44,14 @@
 
 #include <climits>
 
+#include "knn_common.cuh"
+
 namespace {
 
-constexpr int KMAX = 32;          // largest k (one lane per neighbour)
-constexpr int KNN_ROWS = 8;       // query rows per CTA (one warp each)
-constexpr int KNN_TILE = 32;      // index rows per shared-memory tile
-constexpr int THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
+using knn::FULL;
+using knn::lex_less;
+using knn::warp_argmin;
+constexpr int THREADS = knn::THREADS;
 constexpr float QUANTUM = 1.220703125e-4f;   // 2^-13
 constexpr float INV_QUANTUM = 8192.0f;
 
@@ -104,22 +106,9 @@ struct RtDecisionParams {
 
 namespace {
 
-__device__ __forceinline__ bool lex_less(float av, int ai, float bv,
-                                         int bi) {
-  return av < bv || (av == bv && ai < bi);
-}
-
 __device__ __forceinline__ bool lex_greater(float av, int ai, float bv,
                                             int bi) {
   return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-  for (int off = 16; off; off >>= 1) {
-    float ov = __shfl_xor_sync(FULL, v, off);
-    int oi = __shfl_xor_sync(FULL, i, off);
-    if (lex_less(ov, oi, v, i)) { v = ov; i = oi; }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -130,89 +119,8 @@ knn_partial_topk(const float* __restrict__ q, const float* __restrict__ x,
                  const float* __restrict__ xsq, int KR, int N, int E,
                  int k, int S, float* __restrict__ cand_d,
                  int* __restrict__ cand_i) {
-  extern __shared__ float4 smem4[];
-  const int E4 = E >> 2;
-  float4* qs = smem4;                          // KNN_ROWS x E4
-  float4* xs = smem4 + KNN_ROWS * E4;          // KNN_TILE x (E4 + 1)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * KNN_ROWS;
-  const int row = row0 + warp;
-  const int split = blockIdx.y;
-  const int chunk = (N + S - 1) / S;
-  const int j0 = split * chunk;
-  const int j1 = min(N, j0 + chunk);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const float4* q4 = reinterpret_cast<const float4*>(q);
-  for (int t = tid; t < KNN_ROWS * E4; t += THREADS) {
-    int r = t / E4;
-    qs[t] = (row0 + r < KR) ? q4[(size_t)(row0 + r) * E4 + (t % E4)]
-                            : zero4;
-  }
-  __syncthreads();
-
-  // |q|^2 for this warp's row: lane partial sums, then a shuffle tree
-  float qsq = 0.f;
-  for (int e4 = lane; e4 < E4; e4 += 32) {
-    float4 a = qs[warp * E4 + e4];
-    qsq = fmaf(a.x, a.x, qsq); qsq = fmaf(a.y, a.y, qsq);
-    qsq = fmaf(a.z, a.z, qsq); qsq = fmaf(a.w, a.w, qsq);
-  }
-  for (int off = 16; off; off >>= 1)
-    qsq += __shfl_xor_sync(FULL, qsq, off);
-
-  float kd[KMAX];
-  int ki[KMAX];
-  int cnt = 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  for (int t0 = j0; t0 < j1; t0 += KNN_TILE) {
-    for (int t = tid; t < KNN_TILE * E4; t += THREADS) {
-      int c = t / E4, e4 = t % E4, j = t0 + c;
-      xs[c * (E4 + 1) + e4] = (j < j1) ? x4[(size_t)j * E4 + e4] : zero4;
-    }
-    __syncthreads();
-    const int j = t0 + lane;
-    if (row < KR && j < j1) {
-      float dot = 0.f;
-      const float4* xr = xs + lane * (E4 + 1);
-      const float4* qr = qs + warp * E4;
-      for (int e4 = 0; e4 < E4; ++e4) {
-        float4 a = xr[e4], c = qr[e4];
-        dot = fmaf(c.x, a.x, dot); dot = fmaf(c.y, a.y, dot);
-        dot = fmaf(c.z, a.z, dot); dot = fmaf(c.w, a.w, dot);
-      }
-      // (xsq - 2 q.x) + qsq: the reference's association
-      float d2 = __fadd_rn(__fsub_rn(xsq[j], __fmul_rn(2.f, dot)), qsq);
-      // sorted insert by (distance, index); this lane's columns arrive in
-      // ascending index, so an equal distance goes after its ties
-      if (cnt < k || d2 < kd[cnt - 1]) {
-        int p = (cnt < k) ? cnt : k - 1;
-        while (p > 0 && kd[p - 1] > d2) {
-          kd[p] = kd[p - 1]; ki[p] = ki[p - 1]; --p;
-        }
-        kd[p] = d2; ki[p] = j;
-        if (cnt < k) ++cnt;
-      }
-    }
-    __syncthreads();
-  }
-  if (row >= KR) return;
-
-  // merge the warp's 32 sorted lists into the split's k best
-  int head = 0;
-  for (int rnd = 0; rnd < k; ++rnd) {
-    float hv = head < cnt ? kd[head] : INFINITY;
-    int hi = head < cnt ? ki[head] : INT_MAX;
-    float bv = hv;
-    int bi = hi;
-    warp_argmin(bv, bi);
-    if (head < cnt && hi == bi) ++head;        // column indices are unique
-    if (lane == 0) {
-      size_t o = ((size_t)row * S + split) * k + rnd;
-      cand_d[o] = bv;
-      cand_i[o] = bi;
-    }
-  }
+  knn::split_topk<knn::XSQ_FIRST>(q, nullptr, x, xsq, KR, N, E, k, S,
+                                  cand_d, cand_i);
 }
 
 // ---------------------------------------------------------------------------
@@ -536,21 +444,10 @@ decision_scan(RtDecisionParams p) {
   // by neighbour
   for (int r = warp; r < R; r += nwarps) {
     const size_t row = (size_t)w * R + r;
-    const float* cd = p.cand_d + row * S * k;
-    const int* ci = p.cand_i + row * S * k;
-    int ptr = 0;
-    float my_d = INFINITY;
-    int my_i = 0;
-    for (int rnd = 0; rnd < k; ++rnd) {
-      float hv = INFINITY;
-      int hi = INT_MAX;
-      if (lane < S && ptr < k) { hv = cd[lane * k + ptr]; hi = ci[lane * k + ptr]; }
-      float bv = hv;
-      int bi = hi;
-      warp_argmin(bv, bi);
-      if (lane < S && ptr < k && hi == bi) ++ptr;
-      if (lane == rnd) { my_d = bv; my_i = bi; }
-    }
+    float my_d;
+    int my_i;
+    knn::merge_splits(p.cand_d + row * S * k, p.cand_i + row * S * k, S, k,
+                      lane, my_d, my_i);
     float wgt = (lane < k)
         ? __fdiv_rn(1.f, __fadd_rn(__fsqrt_rn(fmaxf(my_d, 0.f)), p.eps))
         : 0.f;
@@ -621,11 +518,6 @@ decision_scan(RtDecisionParams p) {
 
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 
-size_t knn_smem_bytes(int E) {
-  const int E4 = E / 4;
-  return sizeof(float4) * ((size_t)KNN_ROWS * E4 + (size_t)KNN_TILE * (E4 + 1));
-}
-
 }  // namespace
 
 extern "C" {
@@ -635,13 +527,13 @@ size_t rt_decision_scan_smem(int R, int M, int I) {
   return sizeof(float) * scan_smem_words(R, M, I);
 }
 
-size_t rt_knn_smem(int E) { return knn_smem_bytes(E); }
+size_t rt_knn_smem(int E) { return knn::smem_bytes(E); }
 
 // Both kernels on `stream`; returns the first cudaError_t (0 = success).
 int rt_decision_megakernel(const RtDecisionParams* p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int KR = p->K * p->R;
-  const size_t sm1 = knn_smem_bytes(p->E);
+  const size_t sm1 = knn::smem_bytes(p->E);
   cudaError_t err;
   if (sm1 > SMEM_DEFAULT) {
     err = cudaFuncSetAttribute(knn_partial_topk,
@@ -649,7 +541,7 @@ int rt_decision_megakernel(const RtDecisionParams* p, void* stream) {
                                (int)sm1);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 g1((KR + KNN_ROWS - 1) / KNN_ROWS, p->S);
+  dim3 g1((KR + knn::ROWS - 1) / knn::ROWS, p->S);
   knn_partial_topk<<<g1, THREADS, sm1, st>>>(p->emb, p->x, p->xsq, KR, p->N,
                                               p->E, p->k, p->S, p->cand_d,
                                               p->cand_i);

@@ -22,7 +22,8 @@ from .latency import LatencyHead
 def bundle_from_arrays(encoder_params: Dict, knn_x: np.ndarray,
                        knn_quality: np.ndarray, knn_length: np.ndarray,
                        heads: Sequence[Dict], model_names: List[str],
-                       device=None, k: int = 10, eps: float = 1e-6):
+                       device=None, k: int = 10, eps: float = 1e-6,
+                       backend: str = "torch"):
     """The port's `EstimatorBundle` from numpy weights.
 
     encoder_params: the encoder's tree — {"embed", "pos", "out",
@@ -30,6 +31,7 @@ def bundle_from_arrays(encoder_params: Dict, knn_x: np.ndarray,
     knn_quality / knn_length (N, M): the KNN index and its labels;
     heads: one {"name", "nominal_tpot", "packed"} per tier, where
     "packed" is a booster's `pack()` output (None for an unfitted head).
+    `backend` is the KNN estimator's ("numpy", "torch" or "kernel").
     `device=None` means the card."""
     from ..core.scheduler import EstimatorBundle
     dev = resolve_device(device)
@@ -38,9 +40,9 @@ def bundle_from_arrays(encoder_params: Dict, knn_x: np.ndarray,
     enc = SentenceEncoder(
         dim=np.asarray(p["out"]).shape[1], hidden=hidden,
         n_layers=len(p["layers"]), hash_vocab=np.asarray(p["embed"]).shape[0],
-        max_len=np.asarray(p["pos"]).shape[0]).load_params(p).to(dev)
-    knn = KNNEstimator(k=k, eps=eps, device=dev).fit(knn_x, knn_quality,
-                                                     knn_length)
+        max_len=np.asarray(p["pos"]).shape[0], device=dev).load_params(p)
+    knn = KNNEstimator(k=k, backend=backend, eps=eps, device=dev).fit(
+        knn_x, knn_quality, knn_length)
     out = {}
     for h in heads:
         model = (None if h["packed"] is None

@@ -7,7 +7,8 @@ transformers preserve input similarity structure, which is all the KNN
 estimator needs.
 
 `SentenceEncoder` is an `nn.Module` whose weights come from a seeded
-`torch.Generator`, so they are not the reference's (which come from
+`torch.Generator` and live on the card unless `device="cpu"` is given;
+they are not the reference's (which come from
 `jax.random`); `load_params` installs the reference's weights from
 numpy arrays when the two must be compared. The forward pass spells the
 reference's: masked attention scores at -1e30, `gelu` with the tanh
@@ -74,8 +75,8 @@ class SentenceEncoder(nn.Module):
                              * s)
         self.layers = nn.ModuleList(_Layer(hidden, g)
                                     for _ in range(n_layers))
-        if device is not None:
-            self.to(device)
+        from ..core.device import resolve_device   # core imports this module
+        self.to(resolve_device(device))             # None -> the card
 
     @property
     def device(self) -> torch.device:

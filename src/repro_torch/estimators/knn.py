@@ -1,10 +1,18 @@
 """Distance-weighted KNN quality + output-length estimator (FAISS stand-in).
 
-Port of `repro.estimators.knn` (lines 22-66) in torch. One lookup over
-the training split returns, for every candidate model, a predicted
-quality in [0,1] and an expected output length (§4.2).
+Port of `repro.estimators.knn` (lines 22-151). One lookup over the
+training split returns, for every candidate model, a predicted quality
+in [0,1] and an expected output length (§4.2).
 
-The plain lookup orders neighbours by (distance, index) with a stable
+Backends, each the counterpart of one of the reference's:
+  * numpy  — exact brute force on the host (a copy of `_query_np`);
+  * torch  — `topk_soft_lookup` on the estimator's device (the
+             reference's jitted "jax" backend), the batch pow2-padded to
+             the buckets the decision kernel is called at;
+  * kernel — the K2 kernel `repro_torch.kernels.knn_topk` through
+             `kernels.ops.build_query` (the reference's "pallas").
+
+The torch lookup orders neighbours by (distance, index) with a stable
 sort — `lax.top_k`'s order; `torch.topk` does not order ties — and sums
 the k weights and the label mixes one neighbour at a time, which is the
 order XLA reduces them in and the order the decision kernel uses. The
@@ -14,10 +22,15 @@ agree with the reference's to float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+BACKENDS = ("numpy", "torch", "kernel")
+# the reference's backend names, with the port's counterpart
+REFERENCE_NAMES = {"jax": "torch", "pallas": "kernel"}
 
 
 def _seq_sum(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -57,16 +70,32 @@ def topk_soft_lookup(q, x, xsq, quality, length, k: int, eps: float):
     return label_mix(quality, idx, w), label_mix(length, idx, w)
 
 
+def check_backend(backend: str) -> str:
+    """`backend` if the port has it; the reference's names raise
+    ValueError naming the port's counterpart."""
+    if backend in REFERENCE_NAMES:
+        raise ValueError(f"KNN backend {backend!r} is the reference's; the "
+                         f"port's counterpart is {REFERENCE_NAMES[backend]!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"KNN backend {backend!r} not in {BACKENDS}")
+    return backend
+
+
 class KNNEstimator:
-    def __init__(self, k: int = 10, eps: float = 1e-6, device=None):
+    def __init__(self, k: int = 10, backend: str = "torch",
+                 eps: float = 1e-6, device=None):
+        """`device=None` means the card (RuntimeError without one)."""
+        from ..core.device import resolve_device   # core imports this module
         self.k = k
+        self.backend = check_backend(backend)
         self.eps = eps
-        self.device = torch.device(device) if device is not None else None
+        self.device = resolve_device(device)
         self._x: Optional[np.ndarray] = None          # (N, E)
         self._quality: Optional[np.ndarray] = None    # (N, M)
         self._length: Optional[np.ndarray] = None     # (N, M)
         self._sq: Optional[np.ndarray] = None         # (N,)
         self._dev = None
+        self._kq = None
 
     # -- index build ---------------------------------------------------------
     def fit(self, embeddings: np.ndarray, quality: np.ndarray,
@@ -76,11 +105,20 @@ class KNNEstimator:
         self._length = np.asarray(lengths, np.float32)
         self._sq = (self._x ** 2).sum(-1)
         self._dev = None
+        self._kq = None
         return self
 
     @property
     def n_models(self) -> int:
         return self._quality.shape[1]
+
+    def with_backend(self, backend: str) -> "KNNEstimator":
+        """Copy sharing the fitted index (and its device copy) but
+        querying via `backend`."""
+        knn = copy.copy(self)
+        knn.backend = check_backend(backend)
+        knn._kq = None
+        return knn
 
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         """(x, xsq, quality, length) resident on the estimator's device,
@@ -95,7 +133,52 @@ class KNNEstimator:
     @torch.no_grad()
     def query(self, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """q: (B, E) -> (quality (B, M), length (B, M)) as numpy."""
+        q = np.asarray(q, np.float32)
+        if self.backend == "numpy":
+            return self._query_np(q)
+        if self.backend == "torch":
+            return self._query_torch(q)
+        return self._query_kernel(q)
+
+    def _query_np(self, q):
+        d2 = self._sq[None, :] - 2.0 * q @ self._x.T \
+            + (q ** 2).sum(-1, keepdims=True)
+        idx = np.argpartition(d2, self.k, axis=1)[:, :self.k]
+        d2k = np.take_along_axis(d2, idx, axis=1)
+        order = np.argsort(d2k, axis=1)
+        idx = np.take_along_axis(idx, order, axis=1)
+        d2k = np.take_along_axis(d2k, order, axis=1)
+        w = 1.0 / (np.sqrt(np.maximum(d2k, 0.0)) + self.eps)
+        w = w / w.sum(-1, keepdims=True)
+        qual = (self._quality[idx] * w[..., None]).sum(1)
+        leng = (self._length[idx] * w[..., None]).sum(1)
+        return qual, leng
+
+    def _query_torch(self, q):
+        # pow2-pad the batch (>= 8) as the reference's jax backend does,
+        # so the staged lookup sees the decision kernel's matmul shapes
+        B = q.shape[0]
+        Bb = max(1 << (B - 1).bit_length(), 8) if B else 8
+        if Bb != B:
+            q = np.concatenate(
+                [q, np.zeros((Bb - B, q.shape[1]), np.float32)])
         x, sq, qual, leng = self.tensors()
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=x.device)
-        qa, la = topk_soft_lookup(qt, x, sq, qual, leng, self.k, self.eps)
+        qa, la = topk_soft_lookup(torch.as_tensor(q, device=self.device),
+                                  x, sq, qual, leng, self.k, self.eps)
+        return qa[:B].cpu().numpy(), la[:B].cpu().numpy()
+
+    def _query_kernel(self, q):
+        if self._kq is None:
+            from ..kernels.ops import build_query
+            x, sq, qual, leng = self.tensors()
+            self._kq = build_query(x, qual, leng, self.k, self.eps, xsq=sq)
+        # a fresh tensor: the kernel wants 16-byte aligned rows, which a
+        # view into a caller's array need not have
+        qa, la = self._kq(torch.tensor(q, device=self.device))
         return qa.cpu().numpy(), la.cpu().numpy()
+
+    # -- diagnostics ----------------------------------------------------------
+    def best_model_accuracy(self, q_emb, true_quality) -> float:
+        qual, _ = self.query(q_emb)
+        return float((qual.argmax(1)
+                      == np.asarray(true_quality).argmax(1)).mean())

@@ -3,8 +3,10 @@
 Each `src/repro_torch/csrc/<name>.cu` is compiled by `nvcc` into its own
 shared library with a plain C interface, loaded with `ctypes`. The
 libraries go to `build/repro_torch_kernels/<hash>/` under the checkout;
-the directory name is a hash of every source and of the flags, so an
-unchanged tree reuses its build and an edited one rebuilds. All sources
+the directory name is a hash of every file under `csrc/` (the `.cu`
+sources and the headers they share) and of the flags, so an unchanged
+tree reuses its build and an edit anywhere, a header included,
+rebuilds. All sources
 compile in parallel, one `nvcc` each. Nothing builds at import time: the
 first CUDA call does, so the package imports on hosts without CUDA.
 
@@ -53,8 +55,8 @@ def _sources():
 
 def _tree_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 

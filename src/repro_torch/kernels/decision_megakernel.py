@@ -41,11 +41,10 @@ from ..core.decision import LATENCY_MODES, greedy_scan
 from ..estimators.gbm import predict_packed_gathered
 from ..estimators.knn import topk_soft_lookup
 from ..serving.affinity import hit_fraction
+from .knn_topk import SMEM_LIMIT, n_splits
 
 MAX_I = 4096            # instances the kernel's shared-memory carry takes
 MAX_K_NEIGHBOURS = 32   # one lane per neighbour in the merge
-MAX_SPLITS = 32         # one lane per index split in the merge
-SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -161,15 +160,6 @@ def _check(t, name, dtype, shape=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def n_splits(rows: int, n_index: int, device) -> int:
-    """Index splits of stage 1: enough CTAs for two waves over the SMs,
-    at most one per merge lane, and no more than 32-row tiles exist."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-rows // 8)
-    want = -(-2 * sms // tiles)
-    return max(1, min(MAX_SPLITS, want, -(-n_index // 32)))
 
 
 def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,

@@ -3,7 +3,7 @@ cluster (the vLLM-analogue substrate).
 
 Port of `repro.serving.cluster` (numpy), the paths the quickstart
 runs: recovery, quarantine, hedging and straggler injection come with
-the scenario port (ROADMAP queue 1, item 3), and the recovery and
+the scenario port (ROADMAP queue 1, item 2), and the recovery and
 overload managers the code reaches through `getattr(sim, ...)` are
 None until then.
 

@@ -2,7 +2,7 @@
 
 Port of `repro.serving.workload` (numpy, unchanged); the bursty,
 square-wave and flash-crowd processes come with the scenario port
-(ROADMAP queue 1, item 3)."""
+(ROADMAP queue 1, item 2)."""
 from __future__ import annotations
 
 import numpy as np

@@ -53,3 +53,18 @@ def test_train_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         EstimatorBundle.train(None, [], [])
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("which", ["knn", "encoder", "bestroute"])
+def test_estimators_without_device_need_cuda(monkeypatch, which):
+    """`device=None` means the card: without one these raise instead of
+    landing on the CPU; `device="cpu"` still works."""
+    from repro_torch.core.routers import BestRouteRouter
+    from repro_torch.estimators.embedding import SentenceEncoder
+    from repro_torch.estimators.knn import KNNEstimator
+    make = {"knn": KNNEstimator, "encoder": SentenceEncoder,
+            "bestroute": BestRouteRouter}[which]
+    assert make(device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
