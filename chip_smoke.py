@@ -40,6 +40,30 @@ Phases, each printing one JSON line; any failed check exits nonzero
      bundle's KNN on the kernel. For 5b and 5c: every request served,
      none failed, one KNN-kernel launch per scoring call, no plain
      call, no decision-kernel launch;
+  3c. k3 check — the decode-attention kernel K3 against its plain version
+     at the dense serving shape (B=8, H=16, K=2, d=128, C=1,024) with the
+     cache full, partly empty and windowed, and at the smoke shape, in
+     bf16 and float32: float32 within 1e-5 of the output's scale, bf16
+     within one unit in the last place (2^-7 relative) plus that;
+  3d. k4 check — the SSD scan kernel K4 against its plain version at the
+     SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128)
+     and at the smoke shape, in bf16 and float32: y and the final state
+     within 1e-4 of their scale (bf16 y within 2^-7 relative plus that);
+  4c/4d. k3/k4 times — as phase 4 at the serving shapes, beside the bound
+     and, for K3, `F.scaled_dot_product_attention` on pre-laid-out
+     tensors (the port never calls it);
+  5d. dense serving — `qwen2.5-3b` at full width (36 layers, random
+     seeded bf16 weights): 8 prompts of 512 tokens, `pad_to` 1,024, 64
+     greedy decode steps; finite logits, K3 launches = 36 x 64, no plain
+     call; then the card against the CPU (plain versions) at 2 layers in
+     float32 on the same weights: identical greedy tokens over a
+     64-token prompt and 8 steps, logits within 1e-3 (cuBLAS and the
+     CPU's BLAS sum float32 in other orders); after the counted run, one
+     prefill and one decode step under the profiler (device time, kernel
+     launches, the device's busy share, the top kernels);
+  5e. SSM serving — `mamba2-1.3b` at full width (48 layers): 4 prompts
+     of 1,024 tokens, 32 decode steps; K4 launches = 48, no plain call;
+     the same 2-layer card-against-CPU check;
   6. the kernels line, then the card's `nvidia-smi` line, then the last
      line `{"ok": true, "device": {...}}`.
 
@@ -58,6 +82,7 @@ import torch
 # published H100 SXM peaks (the bound uses them; see the printed name)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 N_INDEX, E, M, N_TIERS, N_TREES, DEPTH = 14886, 128, 4, 4, 60, 3
 K_NN = 10
 
@@ -76,7 +101,7 @@ def check(cond, msg):
         fail(msg)
 
 
-# -- synthetic decision inputs at the main path's shapes -----------------------
+# -- synthetic decision inputs at the main path's shapes ----------------------
 
 def make_case(seed, R, I, n_alive, K=1, dyadic=True, w_aff=0.0,
               use_gbm=True, mode="full", lpt=True, budget_filter=True,
@@ -216,7 +241,7 @@ def time_ms(fn, n=50, warm=5):
     return float(np.median(times))
 
 
-# -- phases -----------------------------------------------------------------------
+# -- phases -------------------------------------------------------------------
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -521,6 +546,298 @@ def phase_staged(ctx, kt, mk):
     return counts
 
 
+# -- model-zoo kernels: K3 decode attention, K4 SSD scan ----------------------
+
+DEV = "cuda"
+K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
+K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
+
+
+def k3_inputs(seed, B, K, g, d, C, valid, window=0, dtype=torch.bfloat16):
+    """q (B, H, d), caches (B, C, K, d), positions 0..valid-1 then -1,
+    pos = valid - 1: the cache of a decode step at position `valid - 1`."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    H = K * g
+    q, kc, vc = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                 for shape in ((B, H, d), (B, C, K, d), (B, C, K, d)))
+    cpos = torch.arange(C, dtype=torch.int32, device=DEV)
+    cpos[valid:] = -1
+    return (q, kc, vc, cpos), valid - 1, window
+
+
+def close(got, want, rtol, atol_rel):
+    """|got - want| <= rtol |want| + atol_rel * max(1, max |want|);
+    returns (ok, max abs error)."""
+    got, want = got.float(), want.float()
+    atol = atol_rel * max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    return bool((err <= rtol * want.abs() + atol).all()), float(err.max())
+
+
+def phase_k3_check(k3):
+    S = K3_SERVE
+    cases = [dict(S, valid=1024), dict(S, valid=540),
+             dict(S, valid=1024, window=256), dict(S, valid=700, window=100),
+             dict(B=2, K=2, g=2, d=16, C=40, valid=36),
+             dict(B=2, K=2, g=2, d=16, C=16, valid=16, window=16)]
+    max_abs = 0.0
+    for seed, case in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, pos, window = k3_inputs(500 + seed, dtype=dtype, **case)
+            got = k3.decode_attention(*args, pos, window)
+            torch.cuda.synchronize()
+            want = k3.decode_attention_plain(*args, pos, window)
+            rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+            ok, err = close(got, want, rtol, 1e-5)
+            max_abs = max(max_abs, err)
+            emit("k3_check", **case, dtype=str(dtype).split(".")[-1],
+                 max_abs_err=err, tolerance=f"rtol {rtol}, atol 1e-5 x scale")
+            check(ok, f"K3 {case} {dtype}: error {err} outside tolerance")
+    return max_abs
+
+
+def k4_inputs(seed, B, S, nh, P, N, G, chunk, dtype=torch.bfloat16):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    xh = rnd(B, S, nh, P).to(dtype)
+    Bm, Cm = rnd(B, S, G, N) * 0.5, rnd(B, S, G, N) * 0.5
+    dt = torch.nn.functional.softplus(rnd(B, S, nh))
+    A = -torch.exp(rnd(nh) * 0.3)
+    return (xh, Bm, Cm, dt, A), chunk
+
+
+def phase_k4_check(k4):
+    cases = [K4_SERVE, dict(B=2, S=32, nh=16, P=8, N=16, G=1, chunk=16),
+             dict(B=2, S=64, nh=4, P=16, N=16, G=2, chunk=16)]
+    max_abs = 0.0
+    for seed, case in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, chunk = k4_inputs(600 + seed, dtype=dtype, **case)
+            y, st = k4.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            yp, sp = k4.ssd_scan_plain(*args, chunk=chunk)
+            rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+            ok_y, err_y = close(y, yp, rtol, 1e-4)
+            ok_s, err_s = close(st, sp, 0.0, 1e-4)
+            max_abs = max(max_abs, err_y, err_s)
+            emit("k4_check", **case, dtype=str(dtype).split(".")[-1],
+                 y_max_abs_err=err_y, state_max_abs_err=err_s,
+                 tolerance=f"y: rtol {rtol}, atol 1e-4 x scale; "
+                           f"state: atol 1e-4 x scale")
+            check(ok_y and ok_s, f"K4 {case} {dtype}: error y {err_y}, "
+                                 f"state {err_s} outside tolerance")
+    return max_abs
+
+
+def k3_bound_ms(B, K, g, d, C, valid, itemsize):
+    """Least time: q, the valid K and V rows, the positions and the output
+    moved once over the memory rate; or 4 B H C_valid d operations (the
+    two dots) over the float32 CUDA-core peak the kernel computes at
+    (the bf16 tensor-core peak would only lower this side)."""
+    H = K * g
+    nbytes = (2 * B * H * d * itemsize + 2 * B * valid * K * d * itemsize
+              + C * 4)
+    flops = 4 * B * H * valid * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_k3_times(k3):
+    import torch.nn.functional as F
+    S = K3_SERVE
+    valid = 544                      # mid-way through the 64 decode steps
+    args, pos, window = k3_inputs(700, valid=valid, **S)
+    q, kc, vc, cpos = args
+
+    def kernel():
+        return k3.decode_attention(q, kc, vc, cpos, pos)
+    # the library call on tensors laid out for it beforehand: (B, H, 1, d)
+    # query, (B, K, C, d) cache, a (1, 1, 1, C) mask broadcast over heads
+    ql = q[:, :, None, :]
+    kl, vl = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                              enable_gqa=True)
+    torch.testing.assert_close(library()[:, :, 0].float(), kernel().float(),
+                               rtol=2 ** -7, atol=2e-2)
+    b_ms, by, nbytes, flops = k3_bound_ms(valid=valid, itemsize=2, **S)
+    row = dict(ms=time_ms(kernel),
+               plain_ms=time_ms(lambda: k3.decode_attention_plain(
+                   q, kc, vc, cpos, pos)),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=by,
+               peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
+               bytes=nbytes, flops=flops,
+               device_ms_by_function=device_split_ms(
+                   kernel, names=("decode_attention_partial",
+                                  "decode_attention_merge"))
+               or "not measured")
+    emit("k3_times", **S, valid=valid, dtype="bfloat16", **row,
+         calls_timed=50)
+    return row
+
+
+def k4_bound_ms(B, S, nh, P, N, G, chunk, itemsize):
+    """Least time: x and y in their dtype, B/C/dt/A and the final state in
+    float32, moved once; or, per (row, head, chunk), the lower triangle
+    of C.B^T (Q(Q+1)/2 x N), its product with x (Q(Q+1)/2 x P), the
+    state read-out (Q x P x N) and update (P x N x Q), two operations a
+    term, over the float32 CUDA-core peak (the precision the scan keeps)."""
+    Q = chunk
+    T = Q * (Q + 1) // 2
+    nbytes = (2 * B * S * nh * P * itemsize + 2 * B * S * G * N * 4
+              + B * S * nh * 4 + nh * 4 + B * nh * P * N * 4)
+    flops = 2 * B * nh * (S // Q) * (T * N + T * P + 2 * Q * P * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_k4_times(k4):
+    args, chunk = k4_inputs(800, **K4_SERVE)
+
+    def kernel():
+        return k4.ssd_scan(*args, chunk=chunk)
+    b_ms, by, nbytes, flops = k4_bound_ms(itemsize=2, **K4_SERVE)
+    row = dict(ms=time_ms(kernel, n=20),
+               plain_ms=time_ms(lambda: k4.ssd_scan_plain(*args, chunk=chunk),
+                                n=20),
+               library_ms=None, bound_ms=b_ms, bound_by=by,
+               peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
+               bytes=nbytes, flops=flops,
+               device_ms_by_function=device_split_ms(
+                   kernel, names=("ssd_scan_kernel",), n=5)
+               or "not measured")
+    emit("k4_times", **K4_SERVE, dtype="bfloat16", **row, calls_timed=20)
+    return row
+
+
+def serve(model, tokens, pad_to, steps):
+    """`Model.prefill`, then `steps` greedy `Model.decode` steps; returns
+    (prefill ms, decode ms per step, every step's logits finite, the last
+    logits and cache)."""
+    from repro_torch.models import greedy_sample
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": tokens}, pad_to=pad_to)
+    finite = torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode(cache, greedy_sample(logits)[:, None])
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps, bool(finite), logits,
+            cache)
+
+
+def device_profile(fn, wall_ms):
+    """One call of `fn` under torch.profiler: its device time, its kernel
+    launches, the device's busy share of `wall_ms` (the same work timed
+    without the profiler) and the six kernels with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():          # device rows: kernels, copies
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+            rows.append((us / 1e3, ev.key[:90], ev.count))
+    rows.sort(reverse=True)
+    launches = sum(r[2] for r in rows)
+    device_ms = sum(r[0] for r in rows)
+    return dict(device_ms=device_ms, kernel_launches=launches,
+                device_busy_share=device_ms / wall_ms if wall_ms else None,
+                top=[dict(ms=ms, name=name, count=n)
+                     for ms, name, n in rows[:6]])
+
+
+def card_against_cpu(cfg, prompt_len, steps, tol=1e-3):
+    """The same 2-layer float32 model on the card (kernels) and on the CPU
+    (plain versions): identical greedy tokens, logits within `tol`."""
+    from repro_torch.models import Model, greedy_sample
+    cfg2 = cfg.replace(n_layers=2, dtype=torch.float32)
+    cpu = Model(cfg2, device="cpu", seed=1)
+    gpu = Model(cfg2)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, prompt_len)).astype(np.int32))
+    gl, gc = gpu.prefill({"tokens": toks}, pad_to=prompt_len + steps)
+    cl, cc = cpu.prefill({"tokens": toks}, pad_to=prompt_len + steps)
+    worst, same = 0.0, True
+    for step in range(steps + 1):
+        worst = max(worst, float((gl.cpu() - cl).abs().max()))
+        gt, ct = greedy_sample(gl)[:, None], greedy_sample(cl)[:, None]
+        same &= torch.equal(gt.cpu(), ct)
+        if step == steps or not same:
+            break
+        gl, gc = gpu.decode(gc, gt)
+        cl, cc = cpu.decode(cc, ct)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return same, worst, tol
+
+
+def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
+                      want_k3, want_k4):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(DEV)
+    k3.reset_counts()
+    k4.reset_counts()
+    pre_ms, dec_ms, finite, logits, cache = serve(model, tokens, pad_to,
+                                                  steps)
+    counts = dict(k3_launches=k3.decode_attention.launches,
+                  k3_plain_calls=k3.decode_attention.plain_calls,
+                  k4_launches=k4.ssd_scan.launches,
+                  k4_plain_calls=k4.ssd_scan.plain_calls)
+    # where a step's time goes, after the counted run
+    from repro_torch.models import greedy_sample
+    decode_profile = device_profile(
+        lambda: model.decode(cache, greedy_sample(logits)[:, None]), dec_ms)
+    del cache
+    prefill_profile = device_profile(
+        lambda: model.prefill({"tokens": tokens}, pad_to=pad_to), pre_ms)
+    params = sum(p.numel() for p in model.parameters())
+    del model, logits
+    torch.cuda.empty_cache()
+    same, worst, tol = card_against_cpu(cfg, 64, 8)
+    emit(label, model=name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=params, dtype=str(cfg.dtype).split(".")[-1], batch=batch,
+         prompt=prompt_len, pad_to=pad_to, decode_steps=steps, init_s=init_s,
+         prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+         logits_finite=finite, **counts,
+         prefill_profile=prefill_profile, decode_step_profile=decode_profile,
+         cpu_check=dict(layers=2, dtype="float32", prompt=64, steps=8,
+                        identical_tokens=same, logits_max_abs_err=worst,
+                        tolerance=tol))
+    check(finite, f"{name}: non-finite logits")
+    check(counts["k3_launches"] == want_k3
+          and counts["k4_launches"] == want_k4,
+          f"{name}: launches {counts}, want K3 {want_k3}, K4 {want_k4}")
+    check(counts["k3_plain_calls"] == counts["k4_plain_calls"] == 0,
+          f"{name}: plain-version calls {counts}")
+    check(same and worst <= tol,
+          f"{name}: card vs CPU tokens identical={same}, logits error {worst}")
+    return counts
+
+
 def main():
     smi_line = phase_device()
     phase_build()
@@ -530,8 +847,19 @@ def main():
     knn_abs, knn_agree = phase_knn_check(kt)
     times = phase_times(mk)
     knn_times = phase_knn_times(kt)
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import ssd_scan as k4
+    k3_abs = phase_k3_check(k3)
+    k4_abs = phase_k4_check(k4)
+    k3_times = phase_k3_times(k3)
+    k4_times = phase_k4_times(k4)
     launches, ctx = phase_main_path(mk)
     knn_counts = phase_staged(ctx, kt, mk)
+    del ctx
+    dense = phase_zoo_serving("dense_serving", "qwen2.5-3b", 8, 512, 1024,
+                              64, k3, k4, want_k3=36 * 64, want_k4=0)
+    ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
+                            k3, k4, want_k3=0, want_k4=48)
     main8, knn1 = times[8], knn_times[1]
     print(json.dumps({"kernels": [{
         "name": "decision_megakernel", "route": "cuda",
@@ -557,7 +885,29 @@ def main():
         "bound_ms": knn1["bound_ms"], "bound_by": knn1["bound_by"],
         "library_ms": None, "composite_ms": knn1["composite_ms"],
         "shape": {"B": 1, "N": N_INDEX, "E": E, "k": K_NN},
-        "by_B": {str(B): v for B, v in knn_times.items()}}]}), flush=True)
+        "by_B": {str(B): v for B, v in knn_times.items()}}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:87",
+        "function": "decode_attention",
+        "launches": dense["k3_launches"], "checked_against_plain": True,
+        "max_abs_err": k3_abs, "ms": k3_times["ms"],
+        "plain_ms": k3_times["plain_ms"], "bound_ms": k3_times["bound_ms"],
+        "bound_by": k3_times["bound_by"],
+        "library_ms": k3_times["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "device_ms_by_function": k3_times["device_ms_by_function"],
+        "shape": dict(K3_SERVE, valid=544, dtype="bfloat16")}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:87",
+        "function": "ssd_scan",
+        "launches": ssm["k4_launches"], "checked_against_plain": True,
+        "max_abs_err": k4_abs, "ms": k4_times["ms"],
+        "plain_ms": k4_times["plain_ms"], "bound_ms": k4_times["bound_ms"],
+        "bound_by": k4_times["bound_by"], "library_ms": None,
+        "device_ms_by_function": k4_times["device_ms_by_function"],
+        "shape": dict(K4_SERVE, dtype="bfloat16")}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,103 @@
+"""The Model facade: one module per architecture config.
+
+Port of `repro.models.api` (lines 18-63) for the decoder-only families.
+`Model` is an `nn.Module` that holds its parameter tree (the reference
+passes the tree to every call instead), built on the card unless the
+caller asks for the CPU:
+
+    model = Model(get_config("qwen2.5-3b"))        # device=None: cuda
+    logits, cache = model.prefill({"tokens": tokens}, pad_to=1024)
+    logits, cache = model.decode(cache, greedy_sample(logits)[:, None])
+
+The encoder-decoder family and the vision frontend raise
+NotImplementedError (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from . import model
+from .config import ModelConfig
+
+
+def flatten_tree(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(dotted path, leaf) pairs of a nested dict/list tree: the
+    state-dict keys of the `Params` built from it."""
+    items = (tree.items() if isinstance(tree, dict)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            yield from flatten_tree(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+class Params(nn.Module):
+    """A nested dict/list of tensors as modules: `p[name]` reads a leaf
+    or a subtree, and the state-dict keys are the tree's dotted paths.
+    Parameters do not require gradients (serving)."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(Params(t) for t in v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class Model(Params):
+    """Decoder-only zoo model. `device=None` means the card (RuntimeError
+    without one); weights are drawn from `torch.Generator(device)` seeded
+    with `seed`, or carried over with `load_state_dict` (see
+    `bridge.params_from_jax`)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+        model._check_supported(cfg)
+        dev = resolve_device(device)
+        super().__init__(model.init_params(cfg, self._generator(dev, seed)))
+        self.cfg = cfg
+        self.device = dev
+
+    @staticmethod
+    def _generator(dev, seed: int) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def init(self, seed: int) -> "Model":
+        """Draw every parameter anew from `seed`, in place."""
+        tree = model.init_params(self.cfg, self._generator(self.device,
+                                                           seed))
+        self.load_state_dict(dict(flatten_tree(tree)))
+        return self
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device)
+
+    def prefill(self, batch: Dict, pad_to: int = 0):
+        """batch["tokens"]: (B, S) integer. Returns (logits (B, V)
+        float32, cache sized for max(pad_to, S))."""
+        return model.prefill(self, self.cfg, self._tokens(batch["tokens"]),
+                             pad_to=pad_to)
+
+    def decode(self, cache, tokens):
+        """tokens: (B, 1). Returns (logits (B, V) float32, new cache); the
+        given cache's attention tensors are updated in place."""
+        return model.decode_step(self, self.cfg, cache, self._tokens(tokens))
+
+    def init_cache(self, batch: int, ctx: int):
+        return model.init_cache(self.cfg, batch, ctx, self.device)
+
+
+def greedy_sample(logits) -> torch.Tensor:
+    """Temperature-0 decoding (the paper's determinism contract, §4.2)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,0 +1,67 @@
+"""Carry the reference's zoo weights and caches across, as numpy.
+
+The reference draws its weights from `jax.random`, which torch cannot
+re-sample, so runs that compare the two packages load the reference's
+parameter tree into the port. Nothing here imports the reference:
+callers hand over its tree with numpy leaves (`jax.tree.map(np.asarray,
+params)`).
+
+  * The reference stacks the layers of pattern slot s over cycles as
+    `slot{s}` (leading axis n_cycles) and keeps the remainder layers as
+    `rem{r}`; layer c * len(pattern) + s is `slot{s}[c]`, then come the
+    `rem{r}` in order, as the reference's scan runs them.
+  * Weights keep the reference's `x @ W` layout, (in, out): nothing is
+    transposed.
+  * bfloat16 leaves arrive as `ml_dtypes.bfloat16` arrays, which
+    `torch.from_numpy` refuses; they are read through a 16-bit integer
+    view of the same bits.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .api import flatten_tree
+from .config import ModelConfig
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")     # writable, contiguous
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layers(tree: Dict, cfg: ModelConfig):
+    """The per-layer subtrees in the reference's execution order."""
+    layers = []
+    for c in range(cfg.n_cycles):
+        for s in range(len(cfg.pattern)):
+            layers.append(_map(tree[f"slot{s}"], lambda a, c=c: a[c]))
+    layers += [tree[f"rem{r}"] for r in range(cfg.n_rem)]
+    return layers
+
+
+def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The reference's decoder-only parameter tree (numpy leaves) as the
+    port's state dict (CPU tensors, for `Model.load_state_dict`)."""
+    port = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
+            if k in tree}
+    port["layers"] = _layers(tree, cfg)
+    return {k: _tensor(v) for k, v in flatten_tree(port)}
+
+
+def cache_from_jax(cache: Dict, cfg: ModelConfig, device="cpu") -> Dict:
+    """The reference's decoder-only cache (numpy leaves) as the port's:
+    {"pos": int, "layers": [per-layer dict of tensors on `device`]}."""
+    layers = [_map(layer, lambda a: _tensor(a).to(device))
+              for layer in _layers(cache, cfg)]
+    return {"pos": int(np.asarray(cache["pos"])), "layers": layers}

@@ -1,0 +1,104 @@
+"""Decoder-only model over a repeating block pattern: init, caches,
+prefill and decode.
+
+Port of `repro.models.model` (lines 30-215, serving entry points). The
+reference scans per-slot parameters stacked over `n_cycles` and then
+runs `n_rem` remainder layers; here the same layers, in the same order
+(`cfg.layer_types`), are one list that a Python loop walks. Parameters
+are a tree {"embed", "final_norm", ["lm_head",] "layers": [block, ...]}
+(a nested dict or `api.Model`, which holds the same tree as modules);
+caches are {"pos": int, "layers": [per-layer dict]}. The reference's
+sharding constraints and rematerialisation are no-ops on one device and
+are dropped; `loss_fn` is training and waits for that slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from .blocks import block_cache_spec, block_forward, block_params
+from .config import ModelConfig
+from .layers import apply_norm, dense_init, norm_params
+
+
+def _embed(tokens, table, scale: float):
+    """Table rows of the tokens times `scale` rounded to the table's
+    dtype (the reference's one-hot matmul returns the same rows)."""
+    x = table[tokens]
+    s = float(torch.tensor(scale, dtype=table.dtype))
+    return x * s
+
+
+def _unembed_table(params, cfg: ModelConfig):
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(h_last, params, cfg: ModelConfig):
+    """(B, D) -> (B, V) float32 with padded-vocab columns at -1e30."""
+    table = _unembed_table(params, cfg)
+    logits = h_last.float() @ table.float().T
+    if cfg.padded_vocab > cfg.vocab:
+        logits[:, cfg.vocab:] = -1e30
+    return logits
+
+
+def _check_supported(cfg: ModelConfig):
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder and the vision/audio "
+            f"frontends are not ported yet (ROADMAP queue 1)")
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator):
+    """The parameter tree, drawn from `gen` on its device."""
+    _check_supported(cfg)
+    params = {
+        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                            scale=0.02, dtype=cfg.dtype),
+        "final_norm": norm_params(cfg.d_model, cfg.norm, cfg.dtype,
+                                  gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                       scale=0.02, dtype=cfg.dtype)
+    params["layers"] = [block_params(gen, cfg, blk)
+                        for blk in cfg.layer_types]
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None):
+    return {"pos": 0,
+            "layers": [block_cache_spec(cfg, blk, batch, ctx, device)
+                       for blk in cfg.layer_types]}
+
+
+def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
+            pad_to: int = 0):
+    """tokens: (B, S) integer. Returns (hidden (B, S, D), new cache)."""
+    pos = cache["pos"] if mode == "decode" else 0
+    x = _embed(tokens, params["embed"], cfg.embed_scale)
+    new_layers = []
+    for i, blk in enumerate(cfg.layer_types):
+        c = cache["layers"][i] if mode == "decode" else None
+        x, nc = block_forward(x, params["layers"][i], cfg, blk, mode, c, pos,
+                              pad_to)
+        new_layers.append(nc)
+    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return x, {"pos": pos, "layers": new_layers}
+
+
+def prefill(params, cfg: ModelConfig, tokens, pad_to: int = 0):
+    """pad_to: the context the caches are sized for (>= the prompt).
+    Returns (logits (B, V) float32 at the last prompt token, cache)."""
+    ctx = tokens.shape[1]
+    h, cache = forward(params, cfg, tokens, mode="prefill",
+                       pad_to=max(pad_to, ctx))
+    cache["pos"] = ctx
+    return _logits(h[:, -1], params, cfg), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """tokens: (B, 1). Returns (logits (B, V) float32, new cache); the
+    attention caches are written in place (see `blocks`)."""
+    h, new_cache = forward(params, cfg, tokens, mode="decode", cache=cache)
+    new_cache["pos"] = cache["pos"] + 1
+    return _logits(h[:, 0], params, cfg), new_cache

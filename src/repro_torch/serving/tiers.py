@@ -1,11 +1,11 @@
 """Heterogeneous serving tiers: (model, TPU-slice) pairs with a decode
 roofline TPOT model and public per-token prices.
 
-Port of `repro.serving.tiers` (numpy). The reference reaches its
-hardware constants through `repro.launch.mesh` and its model shapes
-through `repro.models.config` / `repro.configs.registry`, both of which
-import jax; this module keeps its own copy of the four Qwen2.5 shapes
-and of the dense-attention parameter count instead.
+Port of `repro.serving.tiers` (numpy). Model shapes come from the
+port's registry (`repro_torch.configs`, `ModelConfig.param_counts`), as
+the reference's come from its own (lines 18-19); the reference reaches
+its hardware constants through `repro.launch.mesh`, which imports jax,
+so this module keeps its own copy of the two it reads.
 
 The tiers describe the *simulated* fleet of the paper's Table 1 pool
 mapped to TPU v5e slices. Those constants are properties of the
@@ -16,7 +16,10 @@ request.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
+
+if TYPE_CHECKING:       # the models package imports core, which imports this
+    from ..models.config import ModelConfig
 
 # TPU v5e-class constants of the simulated fleet (repro.launch.mesh).
 PEAK_FLOPS_BF16 = 197e12        # per chip, bf16
@@ -24,48 +27,10 @@ HBM_BW = 819e9                  # bytes/s per chip
 
 
 @dataclasses.dataclass(frozen=True)
-class DenseModelShape:
-    """The dense-attention subset of `repro.models.config.ModelConfig`
-    that the tier roofline reads: tied embeddings, gated MLP, no qk-norm
-    (the reference's defaults for the Qwen2.5 pool)."""
-    name: str
-    n_layers: int
-    d_model: int
-    n_heads: int
-    n_kv_heads: int
-    d_ff: int
-    vocab: int
-
-    @property
-    def hd(self) -> int:
-        return self.d_model // self.n_heads
-
-    def param_counts(self) -> Dict[str, int]:
-        """`ModelConfig.param_counts` for a dense, tied, gated model."""
-        D, F, V, hd = self.d_model, self.d_ff, self.vocab, self.hd
-        H, K = self.n_heads, self.n_kv_heads
-        per_layer = (2 * D + D * H * hd + 2 * D * K * hd + H * hd * D
-                     + 3 * D * F)
-        total = V * D + self.n_layers * per_layer
-        return {"total": int(total), "active": int(total)}
-
-
-# Paper routing pool: Qwen2.5 3B/7B/14B/72B [Qwen2.5 technical report]
-# (repro.configs.registry.QWEN25_POOL).
-QWEN25_POOL: Dict[str, DenseModelShape] = {
-    m.name: m for m in (
-        DenseModelShape("qwen2.5-3b", 36, 2048, 16, 2, 11008, 151936),
-        DenseModelShape("qwen2.5-7b", 28, 3584, 28, 4, 18944, 152064),
-        DenseModelShape("qwen2.5-14b", 48, 5120, 40, 8, 13824, 152064),
-        DenseModelShape("qwen2.5-72b", 80, 8192, 64, 8, 29568, 152064),
-    )}
-
-
-@dataclasses.dataclass(frozen=True)
 class Tier:
     name: str                 # e.g. "qwen2.5-72b/v5e-16"
     model: str                # model name in the routing pool
-    model_cfg: Optional[DenseModelShape]
+    model_cfg: Optional[ModelConfig]
     n_chips: int
     n_instances: int
     price_in: float           # USD per 1M input tokens
@@ -114,7 +79,7 @@ def paper_pool_tiers() -> List[Tier]:
     bw_eff calibrated so tpot(b=8, ctx=500) ~ Table 1's measured TPOT
     (41.6 / 13.9 / 19.6 / 10.2 ms).
     """
-    pool = QWEN25_POOL
+    from ..configs import QWEN25_POOL as pool
     return [
         _mk("qwen2.5-72b/v5e-16", "qwen2.5-72b",
             pool["qwen2.5-72b"], 16, 2, 0.38, 0.40, bw_eff=0.28),
@@ -125,3 +90,24 @@ def paper_pool_tiers() -> List[Tier]:
         _mk("qwen2.5-3b/v5e-1", "qwen2.5-3b",
             pool["qwen2.5-3b"], 1, 3, 0.06, 0.06, bw_eff=0.80),
     ]
+
+
+def assigned_pool_tiers() -> List[Tier]:
+    """A heterogeneous pool built from the assigned architectures:
+    RouteBalance routing across the model zoo itself."""
+    from ..configs import ARCHS
+    rows = [
+        ("gemma3-27b", 8, 1, 0.30, 0.32, 0.45),
+        ("mixtral-8x7b", 8, 1, 0.24, 0.24, 0.50),
+        ("phi3-mini-3.8b", 1, 3, 0.08, 0.08, 0.75),
+        ("granite-3-2b", 1, 3, 0.06, 0.06, 0.80),
+        ("mamba2-1.3b", 1, 2, 0.04, 0.04, 0.85),
+        ("qwen3-0.6b", 1, 2, 0.03, 0.03, 0.85),
+    ]
+    return [_mk(f"{m}/v5e-{c}", m, ARCHS[m], c, i, pi, po, eff)
+            for m, c, i, pi, po, eff in rows]
+
+
+def tpot_table(tiers: List[Tier], batch: float = 8,
+               ctx: float = 500) -> Dict[str, float]:
+    return {t.name: round(t.tpot(batch, ctx) * 1e3, 1) for t in tiers}

@@ -31,8 +31,11 @@ def test_port_modules_import_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.kernels.decision_megakernel" in mods
-    assert not [m for m in mods if _foreign(m)]
+    for name in ("kernels.decision_megakernel", "kernels.decode_attention",
+                 "kernels.ssd_scan", "models.api", "models.blocks",
+                 "models.bridge", "configs.registry", "launch.steps"):
+        assert f"repro_torch.{name}" in mods
+    assert not [m for m in mods if _foreign(m) or m == "ml_dtypes"]
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
@@ -68,3 +71,13 @@ def test_estimators_without_device_need_cuda(monkeypatch, which):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
+
+
+def test_zoo_model_without_device_needs_cuda(monkeypatch):
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import Model
+    cfg = smoke_variant(get_config("qwen2.5-3b"))
+    assert Model(cfg, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
