@@ -18,14 +18,19 @@ Phases, each printing one JSON line; any failed check exits nonzero
   4. times  — kernel and plain version, median of 50 CUDA-event-timed
      calls after warm-up, beside the least time the card could take, and
      the profiler's device time of each of the kernel's two functions;
+     and back to back: CUDA events around 200 launches / 200, twice;
   3b. knn check — the KNN lookup kernel against its plain version on the
-     main-path index (N=14,886 x E=128, k=10) at B in {1, 8, 64, 256},
+     main-path index (N=14,886 x E=128, k=10) at B in {1, 3, 8, 12, 40,
+     64, 256, 300},
      plus N=1,000 with k=32 and bf16 input: on dyadic inputs idx and d2
      identical; on random normal inputs idx agreeing on >= 99% of rows
      and d2 within rtol 1e-5;
   4b. knn times — as phase 4 for B in {1, 8, 64, 256}, beside the time
-     of the composite PyTorch expression (matmul + torch.topk) that a
-     later kernel is held to;
+     of the composite PyTorch expression (matmul + torch.topk) that the
+     kernel is held to, back to back in turns (kernel, composite,
+     composite, kernel); fails if the profiler sees no device time for
+     the kernel's one function, or if 20 profiled calls run anything on
+     the device but at most 20 launches of it;
   5. main path — the README quickstart on the port at the paper's sizes
      (18,608 prompts, the 13-instance pool, 300 requests at 12 req/s,
      then 600 at 30 req/s): every request served, none failed, one
@@ -42,16 +47,23 @@ Phases, each printing one JSON line; any failed check exits nonzero
      call, no decision-kernel launch;
   3c. k3 check — the decode-attention kernel K3 against its plain version
      at the dense serving shape (B=8, H=16, K=2, d=128, C=1,024) with the
-     cache full, partly empty and windowed, and at the smoke shape, in
-     bf16 and float32: float32 within 1e-5 of the output's scale, bf16
-     within one unit in the last place (2^-7 relative) plus that;
+     cache full, partly empty and windowed, and at the smoke shape, plus
+     clusters of 1, 3 and 8 pieces, a wrapped ring buffer, a window that
+     empties whole tiles and pieces of two segments, in bf16 and
+     float32: float32 within 1e-5 of the output's scale, bf16 within one
+     unit in the last place (2^-7 relative) plus that;
   3d. k4 check — the SSD scan kernel K4 against its plain version at the
      SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128)
      and at the smoke shape, in bf16 and float32: y and the final state
      within 1e-4 of their scale (bf16 y within 2^-7 relative plus that);
   4c/4d. k3/k4 times — as phase 4 at the serving shapes, beside the bound
      and, for K3, `F.scaled_dot_product_attention` on pre-laid-out
-     tensors (the port never calls it);
+     tensors (the port never calls it), back to back in turns (K3: kernel,
+     SDPA, SDPA, kernel); K3 also with its caches cold, cycling over 36
+     layers' caches (302 MB) as a decode step finds them; 4c fails if
+     the profiler sees no device time for K3's one function, or if 20
+     profiled calls, warm or cold, run anything on the device but at
+     most 20 launches of it;
   5d. dense serving — `qwen2.5-3b` at full width (36 layers, random
      seeded bf16 weights): 8 prompts of 512 tokens, `pad_to` 1,024, 64
      greedy decode steps; finite logits, K3 launches = 36 x 64, no plain
@@ -60,7 +72,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
      64-token prompt and 8 steps, logits within 1e-3 (cuBLAS and the
      CPU's BLAS sum float32 in other orders); after the counted run, one
      prefill and one decode step under the profiler (device time, kernel
-     launches, the device's busy share, the top kernels);
+     launches, the device's busy share, the top kernels, K3's device
+     time);
   5e. SSM serving — `mamba2-1.3b` at full width (48 layers): 4 prompts
      of 1,024 tokens, 32 decode steps; K4 launches = 48, no plain call;
      the same 2-layer card-against-CPU check;
@@ -206,8 +219,8 @@ def neighbour_rows(tensors, k=10):
 
 def device_split_ms(fn, names=("knn_partial_topk", "decision_scan"), n=20):
     """Device time per call of each named __global__ function, from the
-    profiler's CUDA activity (empty when the profiler sees no device
-    time)."""
+    profiler's CUDA activity over n calls, averaged over the launches it
+    recorded (it can drop some); empty when it sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -221,8 +234,78 @@ def device_split_ms(fn, names=("knn_partial_topk", "decision_scan"), n=20):
             if name in ev.key:
                 us = getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
-                out[name] = us / n / 1e3
+                out[name] = us / max(ev.count, 1) / 1e3
     return out
+
+
+def b2b_ms(fn, n=200, warm=5):
+    """Back-to-back time per call: CUDA events around n launches, / n."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def b2b_turns(kernel, yardstick=None, n=200):
+    """Back-to-back times in turns, kernel, yardstick, yardstick, kernel
+    (kernel, kernel without a yardstick): ([kernel ms] * 2, [yardstick
+    ms] * 2 or None)."""
+    if yardstick is None:
+        return [b2b_ms(kernel, n), b2b_ms(kernel, n)], None
+    k1, y1 = b2b_ms(kernel, n), b2b_ms(yardstick, n)
+    y2, k2 = b2b_ms(yardstick, n), b2b_ms(kernel, n)
+    return [k1, k2], [y1, y2]
+
+
+def required_split(fn, names, label, n=20):
+    """device_split_ms for a kernel whose functions the profiler must
+    see: fails when it returns nothing for one of `names`."""
+    split = device_split_ms(fn, names=names, n=n)
+    if not all(name in split for name in names):    # once more
+        split = device_split_ms(fn, names=names, n=n)
+    if not all(name in split for name in names):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        fail(f"{label}: the profiler saw no device time for {names}; it "
+             f"saw {[ev.key[:120] for ev in prof.key_averages()]}")
+    return split
+
+
+def functions_per_call(fn, name, label, n=20, tries=3):
+    """What one call of `fn` runs on the device, measured: the profiler's
+    device activities (kernels, copies, fills) over n calls, as
+    `device_split_ms` records them. Fails unless every activity seen is
+    a launch of the __global__ function `name` and there are at most n
+    (the profiler can drop some; a profile that saw none is taken
+    again). Returns (distinct functions seen, activities seen / n)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if str(ev.device_type).endswith("CUDA"):
+                seen[ev.key[:120]] = seen.get(ev.key[:120], 0) + ev.count
+        if seen:
+            break
+    count = sum(seen.values())
+    check(seen and count <= n and all(name in key for key in seen),
+          f"{label}: {n} calls ran {seen} on the device, want at most "
+          f"{n} launches of {name} and nothing else")
+    return len(seen), count / n
 
 
 def time_ms(fn, n=50, warm=5):
@@ -331,6 +414,7 @@ def phase_times(mk):
                                           neighbour_rows(tensors))
         rows[R] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                        bytes=nbytes, flops=flops, library_ms=None,
+                       b2b_ms=b2b_turns(kernel)[0],
                        device_ms_by_function=split or "not measured")
         emit("times", R=R, I=16, K=1, **rows[R], calls_timed=50)
     return rows
@@ -347,7 +431,8 @@ def knn_inputs(seed, B, N, dyadic, dtype=torch.float32):
 
 
 def phase_knn_check(kt):
-    cases = [dict(B=B, N=N_INDEX, k=K_NN) for B in (1, 8, 64, 256)]
+    cases = [dict(B=B, N=N_INDEX, k=K_NN)
+             for B in (1, 3, 8, 12, 40, 64, 256, 300)]
     cases += [dict(B=8, N=1000, k=32), dict(B=8, N=N_INDEX, k=K_NN,
                                             dtype=torch.bfloat16)]
     max_abs, agreements = 0.0, []
@@ -400,14 +485,19 @@ def phase_knn_times(kt):
             d2 = xsq[None] - 2 * (q @ x.T) + (q * q).sum(1, keepdim=True)
             return torch.topk(d2, K_NN, largest=False)
         b_ms, by, nbytes, flops = knn_bound_ms(B, N_INDEX, K_NN)
+        b2b, comp_b2b = b2b_turns(kernel, composite)
         rows[B] = dict(
             ms=time_ms(kernel),
             plain_ms=time_ms(lambda: kt.knn_topk_plain(q, x, K_NN, xsq)),
             composite_ms=time_ms(composite), bound_ms=b_ms, bound_by=by,
-            bytes=nbytes, flops=flops, library_ms=None,
-            device_ms_by_function=device_split_ms(
-                kernel, names=("knn_topk_partial", "knn_topk_merge"))
-            or "not measured", splits=kt.n_splits(B, N_INDEX, q.device))
+            bytes=nbytes, flops=flops, library_ms=None, b2b_ms=b2b,
+            composite_b2b_ms=comp_b2b,
+            device_ms_by_function=required_split(
+                kernel, ("knn_topk_fused",), f"K2 B={B}"),
+            row_tile=kt.row_tile(B), splits=kt.knn_splits(B, N_INDEX)[0])
+        (rows[B]["global_functions_per_call"],
+         rows[B]["device_activities_per_call"]) = functions_per_call(
+            kernel, "knn_topk_fused", f"K2 B={B}")
         emit("knn_times", B=B, N=N_INDEX, E=E, k=K_NN, **rows[B],
              calls_timed=50, tf32=torch.backends.cuda.matmul.allow_tf32)
     return rows
@@ -554,15 +644,20 @@ K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
 
 
 def k3_inputs(seed, B, K, g, d, C, valid, window=0, dtype=torch.bfloat16):
-    """q (B, H, d), caches (B, C, K, d), positions 0..valid-1 then -1,
-    pos = valid - 1: the cache of a decode step at position `valid - 1`."""
+    """q (B, H, d), caches (B, C, K, d), pos = valid - 1: the cache of a
+    decode step at position `valid - 1`, positions 0..valid-1 then -1,
+    or, with valid > C, a ring buffer that has wrapped (slot j holds the
+    latest position congruent to j mod C)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     H = K * g
     q, kc, vc = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
                  for shape in ((B, H, d), (B, C, K, d), (B, C, K, d)))
+    pos = valid - 1
     cpos = torch.arange(C, dtype=torch.int32, device=DEV)
+    if valid > C:
+        cpos = pos - (pos - cpos) % C
     cpos[valid:] = -1
-    return (q, kc, vc, cpos), valid - 1, window
+    return (q, kc, vc, cpos), pos, window
 
 
 def close(got, want, rtol, atol_rel):
@@ -580,6 +675,12 @@ def phase_k3_check(k3):
              dict(S, valid=1024, window=256), dict(S, valid=700, window=100),
              dict(B=2, K=2, g=2, d=16, C=40, valid=36),
              dict(B=2, K=2, g=2, d=16, C=16, valid=16, window=16)]
+    # clusters of 1, 3 and 8 pieces; a wrapped ring buffer; a window
+    # that empties tiles 0-9; pieces of two segments (32 heads)
+    cases += [dict(B=1, K=1, g=8, d=128, C=64 * n, valid=64 * n - 3)
+              for n in (1, 3, 8)]
+    cases += [dict(S, valid=1500, window=900), dict(S, valid=800, window=150),
+              dict(B=1, K=1, g=32, d=8, C=2560, valid=2500)]
     max_abs = 0.0
     for seed, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
@@ -665,17 +766,37 @@ def phase_k3_times(k3):
                                               enable_gqa=True)
     torch.testing.assert_close(library()[:, :, 0].float(), kernel().float(),
                                rtol=2 ** -7, atol=2e-2)
+    # cold: 36 layers' caches (302 MB, six times the L2), cycled as the
+    # layers of a decode step find them
+    layers = [k3_inputs(701 + i, valid=valid, **S)[0] for i in range(36)]
+    turn = iter(range(10 ** 9))
+
+    def cold():
+        return k3.decode_attention(*layers[next(turn) % 36], pos)
+    names = ("decode_attention_cluster",)
     b_ms, by, nbytes, flops = k3_bound_ms(valid=valid, itemsize=2, **S)
+    b2b, lib_b2b = b2b_turns(kernel, library)
     row = dict(ms=time_ms(kernel),
                plain_ms=time_ms(lambda: k3.decode_attention_plain(
                    q, kc, vc, cpos, pos)),
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=by,
+               library_ms=time_ms(library), b2b_ms=b2b,
+               library_b2b_ms=lib_b2b, cold_ms=time_ms(cold, n=72),
+               cold_b2b_ms=b2b_ms(cold, n=216), bound_ms=b_ms, bound_by=by,
                peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
                bytes=nbytes, flops=flops,
-               device_ms_by_function=device_split_ms(
-                   kernel, names=("decode_attention_partial",
-                                  "decode_attention_merge"))
-               or "not measured")
+               device_ms_by_function=required_split(kernel, names, "K3"),
+               cold_device_ms_by_function=required_split(cold, names,
+                                                         "K3 cold", n=72),
+               layout_from_shape=dict(zip(
+                   ("S", "tiles_per_piece", "tiles_per_segment"),
+                   k3.pieces(S["B"], S["K"], S["C"], S["g"]))))
+    (row["global_functions_per_call"],
+     row["device_activities_per_call"]) = functions_per_call(
+        kernel, names[0], "K3")
+    (row["cold_global_functions_per_call"],
+     row["cold_device_activities_per_call"]) = functions_per_call(
+        cold, names[0], "K3 cold")
+    del layers
     emit("k3_times", **S, valid=valid, dtype="bfloat16", **row,
          calls_timed=50)
     return row
@@ -706,7 +827,8 @@ def phase_k4_times(k4):
     row = dict(ms=time_ms(kernel, n=20),
                plain_ms=time_ms(lambda: k4.ssd_scan_plain(*args, chunk=chunk),
                                 n=20),
-               library_ms=None, bound_ms=b_ms, bound_by=by,
+               library_ms=None, b2b_ms=b2b_turns(kernel)[0],
+               bound_ms=b_ms, bound_by=by,
                peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
                bytes=nbytes, flops=flops,
                device_ms_by_function=device_split_ms(
@@ -739,8 +861,8 @@ def serve(model, tokens, pad_to, steps):
 def device_profile(fn, wall_ms):
     """One call of `fn` under torch.profiler: its device time, its kernel
     launches, the device's busy share of `wall_ms` (the same work timed
-    without the profiler) and the six kernels with the most device
-    time."""
+    without the profiler), the six kernels with the most device time and
+    K3's device time (`decode_attention_cluster`)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -758,6 +880,8 @@ def device_profile(fn, wall_ms):
     device_ms = sum(r[0] for r in rows)
     return dict(device_ms=device_ms, kernel_launches=launches,
                 device_busy_share=device_ms / wall_ms if wall_ms else None,
+                k3_device_ms=sum(r[0] for r in rows
+                                 if "decode_attention_cluster" in r[1]),
                 top=[dict(ms=ms, name=name, count=n)
                      for ms, name, n in rows[:6]])
 
@@ -871,7 +995,8 @@ def main():
         "min_choice_agreement_normal": min_agree,
         "ms": main8["ms"], "plain_ms": main8["plain_ms"],
         "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
-        "library_ms": None, "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
+        "library_ms": None, "b2b_ms": main8["b2b_ms"],
+        "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
                                       "E": E, "M": M},
         "by_R": {str(R): v for R, v in times.items()}}, {
         "name": "knn_topk", "route": "cuda",
@@ -884,6 +1009,10 @@ def main():
         "ms": knn1["ms"], "plain_ms": knn1["plain_ms"],
         "bound_ms": knn1["bound_ms"], "bound_by": knn1["bound_by"],
         "library_ms": None, "composite_ms": knn1["composite_ms"],
+        "b2b_ms": knn1["b2b_ms"], "composite_b2b_ms": knn1["composite_b2b_ms"],
+        "device_ms_by_function": knn1["device_ms_by_function"],
+        "global_functions_per_call": knn1["global_functions_per_call"],
+        "device_activities_per_call": knn1["device_activities_per_call"],
         "shape": {"B": 1, "N": N_INDEX, "E": E, "k": K_NN},
         "by_B": {str(B): v for B, v in knn_times.items()}}, {
         "name": "decode_attention", "route": "cuda",
@@ -896,7 +1025,17 @@ def main():
         "bound_by": k3_times["bound_by"],
         "library_ms": k3_times["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
+        "b2b_ms": k3_times["b2b_ms"],
+        "library_b2b_ms": k3_times["library_b2b_ms"],
+        "cold_ms": k3_times["cold_ms"], "cold_b2b_ms": k3_times["cold_b2b_ms"],
         "device_ms_by_function": k3_times["device_ms_by_function"],
+        "cold_device_ms_by_function":
+            k3_times["cold_device_ms_by_function"],
+        "global_functions_per_call": k3_times["global_functions_per_call"],
+        "device_activities_per_call": k3_times["device_activities_per_call"],
+        "cold_global_functions_per_call":
+            k3_times["cold_global_functions_per_call"],
+        "layout_from_shape": k3_times["layout_from_shape"],
         "shape": dict(K3_SERVE, valid=544, dtype="bfloat16")}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -906,6 +1045,7 @@ def main():
         "max_abs_err": k4_abs, "ms": k4_times["ms"],
         "plain_ms": k4_times["plain_ms"], "bound_ms": k4_times["bound_ms"],
         "bound_by": k4_times["bound_by"], "library_ms": None,
+        "b2b_ms": k4_times["b2b_ms"],
         "device_ms_by_function": k4_times["device_ms_by_function"],
         "shape": dict(K4_SERVE, dtype="bfloat16")}]}), flush=True)
     print(smi_line, flush=True)

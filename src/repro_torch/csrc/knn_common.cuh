@@ -1,8 +1,10 @@
-// KNN top-k device code shared by the decision kernel's stage 1
-// (decision_megakernel.cu, K1) and the standalone lookup (knn_topk.cu,
-// K2).
+// KNN top-k device code of the decision kernel's stage 1
+// (decision_megakernel.cu, K1). The standalone lookup (knn_topk.cu, K2)
+// has its own one-launch body and takes only the (distance, index)
+// order from here; the QSQ_FIRST form below was K2's before that and
+// stays until K1's own redesign, so that K1's code is unchanged.
 //
-// Both stream the index (N, E) float32 in S slices ("splits"), one CTA
+// Stage 1 streams the index (N, E) float32 in S slices ("splits"), one CTA
 // per (8 query rows x split), one warp per query row. Each CTA stages its
 // rows and 32-row index tiles in shared memory; lane j of a warp owns
 // the tile's column j, forms the squared distance and keeps a sorted

@@ -17,6 +17,7 @@ and eager PyTorch never fuses across operations.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -90,6 +93,15 @@ def build_all() -> Path:
         build_info.update(seconds=time.perf_counter() - t0,
                           directory=str(out_dir), ptxas=reports)
     return out_dir
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(device) -> int:
+    """Bytes of shared memory a block may opt in to on `device`, as the
+    CUDA runtime reports it (the attribute the launchers raise each
+    kernel's limit to)."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin
 
 
 def load(name: str) -> ctypes.CDLL:

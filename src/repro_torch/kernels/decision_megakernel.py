@@ -41,10 +41,21 @@ from ..core.decision import LATENCY_MODES, greedy_scan
 from ..estimators.gbm import predict_packed_gathered
 from ..estimators.knn import topk_soft_lookup
 from ..serving.affinity import hit_fraction
-from .knn_topk import SMEM_LIMIT, n_splits
+from .build import smem_limit
 
 MAX_I = 4096            # instances the kernel's shared-memory carry takes
 MAX_K_NEIGHBOURS = 32   # one lane per neighbour in the merge
+MAX_SPLITS = 32         # stage 1: one lane per index split in its merge
+
+
+def n_splits(rows: int, n_index: int, device) -> int:
+    """Index splits of the kernel's partial top-k pass (stage 1):
+    enough CTAs for two waves over the SMs, at most one per merge lane,
+    and no split narrower than the 32 columns a warp takes at a time."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-rows // 8)
+    want = -(-2 * sms // tiles)
+    return max(1, min(MAX_SPLITS, want, -(-n_index // 32)))
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -224,10 +235,10 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         if n_internal != 2 ** depth - 1 or n_leaves != 2 ** depth:
             raise ValueError("GBM arrays do not match depth")
     lib = _library()
-    smem = lib.rt_decision_scan_smem(R, M, I)
-    if smem > SMEM_LIMIT or lib.rt_knn_smem(E) > SMEM_LIMIT:
+    smem, limit = lib.rt_decision_scan_smem(R, M, I), smem_limit(dev)
+    if smem > limit or lib.rt_knn_smem(E) > limit:
         raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
-                         f"memory than a block has ({SMEM_LIMIT} B)")
+                         f"memory than a block has ({limit} B)")
     S = n_splits(K * R, N, dev)
     cand_d = torch.empty((K * R, S, k), dtype=f32, device=dev)
     cand_i = torch.empty((K * R, S, k), dtype=i32, device=dev)

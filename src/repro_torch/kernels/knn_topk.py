@@ -22,9 +22,12 @@ index). The Pallas kernel's replace-worst merge can keep a later index
 over an earlier one among exactly equal distances at the k-th place;
 this port keeps the lower index (see ROADMAP queue 3).
 
-`knn_topk.launches` counts calls that went to the kernel (each starts
-two __global__ functions), `knn_topk.plain_calls` those that went to
-the plain version.
+`knn_topk.launches` counts calls that went to the kernel (one
+__global__ function each), `knn_topk.plain_calls` those that went to
+the plain version. On float32 input the wrapper launches nothing else
+and allocates only the two outputs: |q|^2 is summed in the kernel, and
+the kernel's scratch (per-split candidates and one ticket per row tile)
+is allocated once per (device, stream) and grown on demand.
 """
 from __future__ import annotations
 
@@ -33,19 +36,36 @@ from typing import Optional, Tuple
 
 import torch
 
+from .build import smem_limit
+
 MAX_K = 32              # one lane per neighbour in the merges
-MAX_SPLITS = 32         # one lane per index split in the merge
-SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
+COLS = 64               # index columns per tile of K2
 
 
-def n_splits(rows: int, n_index: int, device) -> int:
-    """Index splits of the partial top-k pass: enough CTAs for two waves
-    over the SMs, at most one per merge lane, and no split narrower than
-    the 32 columns a warp takes at a time."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-rows // 8)
-    want = -(-2 * sms // tiles)
-    return max(1, min(MAX_SPLITS, want, -(-n_index // 32)))
+# (largest batch, row tile, index tiles per split): the fastest layout
+# per batch in `tools/knn_tile_sweep.py`'s sweep on an H100 (PERF.md,
+# section 5); row tiles are those csrc/knn_topk.cu is built for
+LAYOUTS = ((1, 1, 1), (2, 2, 1), (4, 4, 1), (12, 4, 2), (24, 8, 2),
+           (64, 8, 4), (128, 8, 8), (None, 32, 8))
+
+
+def _layout(B: int):
+    return next((rt, per) for b, rt, per in LAYOUTS if b is None or B <= b)
+
+
+def row_tile(B: int) -> int:
+    """Query rows per CTA of K2 at batch B."""
+    return _layout(B)[0]
+
+
+def knn_splits(B: int, n_index: int):
+    """(S splits, tiles per split) of K2's index at batch B, each split
+    whole 64-column tiles: 233 splits of one tile at B <= 4 and
+    N = 14,886, fewer and longer as B grows, since the last CTA of a row
+    tile merges S lists for each of its rows."""
+    n_ct = -(-n_index // COLS)
+    per = min(_layout(B)[1], n_ct)
+    return -(-n_ct // per), per
 
 
 def _norms(q, x, xsq):
@@ -98,6 +118,7 @@ def _validate(q, x, k, xsq):
 
 
 _lib = None
+_scratch = {}           # (device, stream) -> (cand_d, cand_i, tickets)
 
 
 def _library():
@@ -106,33 +127,55 @@ def _library():
         from .build import load
         lib = load("knn_topk")
         lib.rt_knn_topk.argtypes = ([ctypes.c_void_p] * 4
-                                    + [ctypes.c_int] * 5
-                                    + [ctypes.c_void_p] * 5)
+                                    + [ctypes.c_int] * 7
+                                    + [ctypes.c_void_p] * 6)
         lib.rt_knn_topk.restype = ctypes.c_int
-        lib.rt_knn_topk_smem.argtypes = [ctypes.c_int]
+        lib.rt_knn_topk_smem.argtypes = [ctypes.c_int] * 2
         lib.rt_knn_topk_smem.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
+def _scratch_for(dev, stream, n_cand: int, n_tiles: int):
+    """The kernel's scratch on this (device, stream), grown to hold
+    `n_cand` candidates and `n_tiles` tickets. The tickets start at 0 and
+    every launch leaves them at 0; calls on one stream run in order."""
+    key = (dev.index, stream)
+    have = _scratch.get(key)
+    if have is None or have[0].numel() < n_cand or have[2].numel() < n_tiles:
+        n_cand = max(n_cand, have[0].numel() if have else 0)
+        n_tiles = max(n_tiles, have[2].numel() if have else 0)
+        have = _scratch[key] = (
+            torch.empty(n_cand, dtype=torch.float32, device=dev),
+            torch.empty(n_cand, dtype=torch.int32, device=dev),
+            torch.zeros(n_tiles, dtype=torch.int32, device=dev))
+    return have
+
+
 def _launch(q, x, k, xsq):
     lib = _library()
-    qf, qsq, xf, xsq = _norms(q, x, xsq)
-    (B, E), N = qf.shape, xf.shape[0]
-    if lib.rt_knn_topk_smem(E) > SMEM_LIMIT:
+    (B, E), N = q.shape, x.shape[0]
+    RT, limit = row_tile(B), smem_limit(q.device)
+    if lib.rt_knn_topk_smem(RT, E) > limit:
         raise ValueError(f"E={E} needs more shared memory than a block "
-                         f"has ({SMEM_LIMIT} B)")
+                         f"has ({limit} B)")
+    qsq = None                           # float32: |q|^2 in the kernel
+    if q.dtype != torch.float32:         # the reference's bf16 norms
+        q, qsq, x, xsq = _norms(q, x, xsq)
+    elif xsq is None:
+        xsq = (x * x).sum(1)
     dev = q.device
-    S = n_splits(B, N, dev)
-    cand_d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+    S, per = knn_splits(B, N)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cand_d, cand_i, tickets = _scratch_for(dev, stream, B * S * k,
+                                           -(-B // RT))
     out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt_knn_topk(qf.data_ptr(), qsq.data_ptr(), xf.data_ptr(),
-                          xsq.data_ptr(), B, N, E, k, S, cand_d.data_ptr(),
-                          cand_i.data_ptr(), out_d.data_ptr(),
-                          out_i.data_ptr(), stream)
+    err = lib.rt_knn_topk(
+        q.data_ptr(), None if qsq is None else qsq.data_ptr(), x.data_ptr(),
+        xsq.data_ptr(), B, N, E, k, RT, S, per, cand_d.data_ptr(),
+        cand_i.data_ptr(), tickets.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"knn_topk launch failed: cudaError {err}")
     return out_d, out_i

@@ -143,6 +143,23 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(case):
     assert K.knn_topk.plain_calls == before
 
 
+@pytest.mark.parametrize("B,want", [(1, (1, 233, 1)), (4, (4, 233, 1)),
+                                    (8, (4, 117, 2)), (16, (8, 117, 2)),
+                                    (64, (8, 59, 4)), (128, (8, 30, 8)),
+                                    (256, (32, 30, 8)), (300, (32, 30, 8))])
+def test_knn_splits_fill_the_card(B, want):
+    """The measured layout per batch: splits of whole 64-column tiles
+    covering the index once (N = 14,886: 233 tiles), at least one CTA for
+    each of an H100's 132 SMs, and only row tiles the kernel is built
+    for."""
+    S, per = K.knn_splits(B, 14886)
+    assert (K.row_tile(B), S, per) == want
+    assert (S - 1) * per < 233 <= S * per
+    assert S * -(-B // K.row_tile(B)) >= 132
+    assert K.row_tile(B) in (1, 2, 4, 8, 16, 32)
+    assert K.knn_splits(B, 37) == (1, 1)       # a one-tile index
+
+
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     """An edit to a header the kernels share must rebuild them."""
     from repro_torch.kernels import build
@@ -166,8 +183,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,k", [(1, 14886, 10), (8, 14886, 10),
-                                   (64, 14886, 10), (256, 14886, 10),
+@pytest.mark.parametrize("B,N,k", [(1, 14886, 10), (3, 14886, 10),
+                                   (8, 14886, 10), (64, 14886, 10),
+                                   (256, 14886, 10), (300, 14886, 10),
                                    (8, 1000, 32), (5, 37, 7)])
 def test_kernel_matches_plain_on_card_dyadic(cuda_device, B, N, k):
     """Dyadic inputs (multiples of 1/8): every distance is exact in
@@ -199,3 +217,56 @@ def test_kernel_matches_plain_on_card_normal(cuda_device, dtype):
     pd, pi = K.knn_topk_plain(q, x, 10)
     assert (i == pi).all(1).float().mean().item() >= 0.99
     torch.testing.assert_close(d, pd, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rt", [1, 2, 4, 8, 16, 32])
+def test_every_row_tile_matches_plain_on_card(cuda_device, monkeypatch, rt):
+    """Each row tile the kernel is built for, whatever batch the wrapper
+    would give it to: 37 dyadic rows (a ragged last tile) give the plain
+    version's idx and d2."""
+    monkeypatch.setattr(K, "row_tile", lambda B: rt)
+    q, x = _dyadic(np.random.default_rng(rt), 37, 14886, cuda_device)
+    d, i = K.knn_topk(q, x, 10)
+    pd, pi = K.knn_topk_plain(q, x, 10)
+    assert torch.equal(i, pi) and torch.equal(d, pd)
+
+
+def _dyadic(rng, B, N, dev):
+    return (torch.tensor(rng.integers(-8, 9, (B, 128)) / 8,
+                         dtype=torch.float32, device=dev),
+            torch.tensor(rng.integers(-8, 9, (N, 128)) / 8,
+                         dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64])
+def test_kernel_back_to_back_and_from_two_streams(cuda_device, B):
+    """The per-row-tile tickets reset: calls back to back on one stream
+    and in turn on two streams give what single calls give."""
+    rng = np.random.default_rng(B)
+    cases = [_dyadic(rng, B, 14886, cuda_device) for _ in range(4)]
+    want = [K.knn_topk_plain(q, x, 10) for q, x in cases]
+    got = [K.knn_topk(q, x, 10) for q, x in cases]      # back to back
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for (q, x), w, st in zip(cases, want, streams * 2):
+        with torch.cuda.stream(st):
+            d, i = K.knn_topk(q, x, 10)
+        st.synchronize()
+        assert torch.equal(d, w[0]) and torch.equal(i, w[1])
+    for (d, i), (pd, pi) in zip(got, want):
+        assert torch.equal(d, pd) and torch.equal(i, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 256])
+def test_kernel_allocates_only_its_outputs(cuda_device, B):
+    rng = np.random.default_rng(7)
+    q, x = _dyadic(rng, B, 14886, cuda_device)
+    xsq = (x * x).sum(1)
+    K.knn_topk(q, x, 10, xsq=xsq)                    # builds, grows scratch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    K.knn_topk(q, x, 10, xsq=xsq)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 2
