@@ -10,15 +10,18 @@ Phases, each printing one JSON line; any failed check exits nonzero
   3. check  — the decision kernel against its plain PyTorch version on
      the card, at the main path's shapes (N=14,886 x E=128 index, M=4,
      four 60-tree depth-3 TPOT heads, I=16 with 13 alive, R in
-     {8, 64, 256}) plus I=128, K=2 windows, the affinity term, the four
-     latency modes, LPT and the budget filter on and off, the GBM off:
+     {8, 64, 256}, and one request in the R=8 bucket) plus I=128 and
+     I=4096, K=2 windows, the affinity term, the four latency modes,
+     LPT and the budget filter on and off, the GBM off:
      on dyadic inputs (multiples of 1/8, so every distance is exact)
      choice/b1/f1 must be identical and est_T/l_chosen/d1 within rtol
      1e-5; on random normal inputs choice must agree on >= 99% of rows;
   4. times  — kernel and plain version, median of 50 CUDA-event-timed
      calls after warm-up, beside the least time the card could take, and
-     the profiler's device time of each of the kernel's two functions;
-     and back to back: CUDA events around 200 launches / 200, twice;
+     the profiler's device time of the kernel's one function; back to
+     back: CUDA events around 200 launches / 200, twice; fails if 20
+     profiled calls run anything on the device but at most 20 launches
+     of that function (as 4b, 4c and 4d do for K2, K3 and K4);
   3b. knn check — the KNN lookup kernel against its plain version on the
      main-path index (N=14,886 x E=128, k=10) at B in {1, 3, 8, 12, 40,
      64, 256, 300},
@@ -53,9 +56,10 @@ Phases, each printing one JSON line; any failed check exits nonzero
      float32: float32 within 1e-5 of the output's scale, bf16 within one
      unit in the last place (2^-7 relative) plus that;
   3d. k4 check — the SSD scan kernel K4 against its plain version at the
-     SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128)
-     and at the smoke shape, in bf16 and float32: y and the final state
-     within 1e-4 of their scale (bf16 y within 2^-7 relative plus that);
+     SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128),
+     at S=2,048 (16 chunks a chain), at one chunk (S=128) and at the
+     smoke shapes, in bf16 and float32: y and the final state within
+     1e-4 of their scale (bf16 y within 2^-7 relative plus that);
   4c/4d. k3/k4 times — as phase 4 at the serving shapes, beside the bound
      and, for K3, `F.scaled_dot_product_attention` on pre-laid-out
      tensors (the port never calls it), back to back in turns (K3: kernel,
@@ -63,7 +67,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      layers' caches (302 MB) as a decode step finds them; 4c fails if
      the profiler sees no device time for K3's one function, or if 20
      profiled calls, warm or cold, run anything on the device but at
-     most 20 launches of it;
+     most 20 launches of it, and 4d the same for K4's one function;
   5d. dense serving — `qwen2.5-3b` at full width (36 layers, random
      seeded bf16 weights): 8 prompts of 512 tokens, `pad_to` 1,024, 64
      greedy decode steps; finite logits, K3 launches = 36 x 64, no plain
@@ -98,6 +102,7 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 N_INDEX, E, M, N_TIERS, N_TREES, DEPTH = 14886, 128, 4, 4, 60, 3
 K_NN = 10
+K1_FUNCTION = "decision_fused"
 
 
 def emit(phase, **kw):
@@ -118,7 +123,7 @@ def check(cond, msg):
 
 def make_case(seed, R, I, n_alive, K=1, dyadic=True, w_aff=0.0,
               use_gbm=True, mode="full", lpt=True, budget_filter=True,
-              dev="cuda"):
+              dev="cuda", valid=None):
     rng = np.random.default_rng(seed)
     f32 = np.float32
     if dyadic:
@@ -129,7 +134,7 @@ def make_case(seed, R, I, n_alive, K=1, dyadic=True, w_aff=0.0,
         x = rng.normal(size=(N_INDEX, E)) / np.sqrt(E)
     emb, x = emb.astype(f32), x.astype(f32)
     rv = np.ones((K, R), bool)
-    rv[:, R - max(1, R // 4):] = False           # pad rows
+    rv[:, R - max(1, R // 4) if valid is None else valid:] = False  # pad rows
     alive = np.arange(I) < n_alive
     args = dict(
         emb=emb, row_valid=rv,
@@ -217,7 +222,7 @@ def neighbour_rows(tensors, k=10):
     return int(torch.sort(d2, dim=1, stable=True)[1][:, :k].unique().numel())
 
 
-def device_split_ms(fn, names=("knn_partial_topk", "decision_scan"), n=20):
+def device_split_ms(fn, names, n=20):
     """Device time per call of each named __global__ function, from the
     profiler's CUDA activity over n calls, averaged over the launches it
     recorded (it can drop some); empty when it sees no device time."""
@@ -367,6 +372,9 @@ def phase_check(mk):
         dict(R=64, I=128, n_alive=100),
         dict(R=64, I=16, n_alive=13, K=2),
         dict(R=64, I=16, n_alive=13, w_aff=0.5),
+        # one request in the R = 8 bucket; the carry's largest roster
+        dict(R=8, I=16, n_alive=13, valid=1),
+        dict(R=64, I=4096, n_alive=4000),
     ]
     max_abs = 0.0
     for seed, case in enumerate(cases):
@@ -409,13 +417,18 @@ def phase_times(mk):
         k_ms = time_ms(kernel)
         p_ms = time_ms(
             lambda: mk.decision_megakernel_plain(*tensors, **statics))
-        split = device_split_ms(kernel)
         b_ms, by, nbytes, flops = bound_ms(tensors, statics,
                                           neighbour_rows(tensors))
         rows[R] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                        bytes=nbytes, flops=flops, library_ms=None,
                        b2b_ms=b2b_turns(kernel)[0],
-                       device_ms_by_function=split or "not measured")
+                       device_ms_by_function=required_split(
+                           kernel, (K1_FUNCTION,), f"K1 R={R}"),
+                       layout=dict(zip(("row_tile", "splits"),
+                                       mk.layout(R, N_INDEX)[:2])))
+        (rows[R]["global_functions_per_call"],
+         rows[R]["device_activities_per_call"]) = functions_per_call(
+            kernel, K1_FUNCTION, f"K1 R={R}")
         emit("times", R=R, I=16, K=1, **rows[R], calls_timed=50)
     return rows
 
@@ -711,7 +724,9 @@ def k4_inputs(seed, B, S, nh, P, N, G, chunk, dtype=torch.bfloat16):
 
 def phase_k4_check(k4):
     cases = [K4_SERVE, dict(B=2, S=32, nh=16, P=8, N=16, G=1, chunk=16),
-             dict(B=2, S=64, nh=4, P=16, N=16, G=2, chunk=16)]
+             dict(B=2, S=64, nh=4, P=16, N=16, G=2, chunk=16),
+             # 16 chunks a chain (longer than a cluster could hold); one chunk
+             dict(K4_SERVE, B=2, S=2048, nh=16), dict(K4_SERVE, S=128)]
     max_abs = 0.0
     for seed, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
@@ -824,6 +839,7 @@ def phase_k4_times(k4):
     def kernel():
         return k4.ssd_scan(*args, chunk=chunk)
     b_ms, by, nbytes, flops = k4_bound_ms(itemsize=2, **K4_SERVE)
+    name = "ssd_scan_chunks"
     row = dict(ms=time_ms(kernel, n=20),
                plain_ms=time_ms(lambda: k4.ssd_scan_plain(*args, chunk=chunk),
                                 n=20),
@@ -831,9 +847,10 @@ def phase_k4_times(k4):
                bound_ms=b_ms, bound_by=by,
                peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
                bytes=nbytes, flops=flops,
-               device_ms_by_function=device_split_ms(
-                   kernel, names=("ssd_scan_kernel",), n=5)
-               or "not measured")
+               device_ms_by_function=required_split(kernel, (name,), "K4"))
+    (row["global_functions_per_call"],
+     row["device_activities_per_call"]) = functions_per_call(kernel, name,
+                                                             "K4")
     emit("k4_times", **K4_SERVE, dtype="bfloat16", **row, calls_timed=20)
     return row
 
@@ -996,6 +1013,9 @@ def main():
         "ms": main8["ms"], "plain_ms": main8["plain_ms"],
         "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
         "library_ms": None, "b2b_ms": main8["b2b_ms"],
+        "device_ms_by_function": main8["device_ms_by_function"],
+        "global_functions_per_call": main8["global_functions_per_call"],
+        "device_activities_per_call": main8["device_activities_per_call"],
         "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
                                       "E": E, "M": M},
         "by_R": {str(R): v for R, v in times.items()}}, {
@@ -1047,6 +1067,8 @@ def main():
         "bound_by": k4_times["bound_by"], "library_ms": None,
         "b2b_ms": k4_times["b2b_ms"],
         "device_ms_by_function": k4_times["device_ms_by_function"],
+        "global_functions_per_call": k4_times["global_functions_per_call"],
+        "device_activities_per_call": k4_times["device_activities_per_call"],
         "shape": dict(K4_SERVE, dtype="bfloat16")}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

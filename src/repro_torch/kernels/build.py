@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -102,6 +102,24 @@ def smem_limit(device) -> int:
     kernel's limit to)."""
     props = torch.cuda.get_device_properties(device)
     return props.shared_memory_per_block_optin
+
+
+def scratch(cache: dict, dev, stream: int,
+            specs: Sequence[Tuple[int, torch.dtype, bool]]
+            ) -> Tuple[torch.Tensor, ...]:
+    """A kernel's scratch on one (device, stream), kept in `cache` and
+    grown on demand: one flat buffer per (elements, dtype, zeroed) of
+    `specs`. A zeroed buffer holds tickets or flags, which start at 0 and
+    which every launch leaves at 0; calls on one stream run in order."""
+    key = (dev.index, stream)
+    have = cache.get(key)
+    if have is None or any(t.numel() < n for t, (n, _, _) in zip(have, specs)):
+        have = cache[key] = tuple(
+            (torch.zeros if zeroed else torch.empty)(
+                max(n, have[j].numel() if have else 0), dtype=dtype,
+                device=dev)
+            for j, (n, dtype, zeroed) in enumerate(specs))
+    return have
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,8 +17,13 @@ its wrapper, with the reference's signature and statics (the TPU-only
     the CPU tests hold against the JAX reference.
 
 `decision_megakernel.launches` counts calls that went to the kernel
-(one per decided batch, though each starts two __global__ functions),
-`decision_megakernel.plain_calls` those that went to the plain version.
+(one per decided batch, one `__global__` function, `decision_fused`,
+each), `decision_megakernel.plain_calls` those that went to the plain
+version. Stage 1 takes its layout (row tile and index splits) for the
+K * R rows from the KNN lookup's measured table (`layout`); the
+kernel's scratch (split lists, tickets, the rows' label mixes) lives per
+(device, stream), allocated once and grown on demand, so a call
+allocates only its outputs and launches nothing else.
 
 Per-window args carry a leading K axis — emb (K, R, E), row_valid
 (K, R) bool, budgets/len_in (K, R) float32, psig (K, R, SIG_WIDTH)
@@ -41,21 +46,28 @@ from ..core.decision import LATENCY_MODES, greedy_scan
 from ..estimators.gbm import predict_packed_gathered
 from ..estimators.knn import topk_soft_lookup
 from ..serving.affinity import hit_fraction
-from .build import smem_limit
+from .build import scratch, smem_limit
+from .knn_topk import knn_splits, row_tile
 
 MAX_I = 4096            # instances the kernel's shared-memory carry takes
 MAX_K_NEIGHBOURS = 32   # one lane per neighbour in the merge
-MAX_SPLITS = 32         # stage 1: one lane per index split in its merge
 
 
-def n_splits(rows: int, n_index: int, device) -> int:
-    """Index splits of the kernel's partial top-k pass (stage 1):
-    enough CTAs for two waves over the SMs, at most one per merge lane,
-    and no split narrower than the 32 columns a warp takes at a time."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-rows // 8)
-    want = -(-2 * sms // tiles)
-    return max(1, min(MAX_SPLITS, want, -(-n_index // 32)))
+def layout(rows: int, n_index: int) -> Tuple[int, int, int]:
+    """(row tile, splits, 64-column tiles per split) of stage 1 over
+    `rows` = K * R query rows: the KNN lookup's measured layout at that
+    batch (`kernels.knn_topk.LAYOUTS`)."""
+    return (row_tile(rows), *knn_splits(rows, n_index))
+
+
+def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int
+                  ) -> Tuple[int, int, int]:
+    """(split-list entries, tickets, label-mix floats) of the kernel's
+    scratch for K windows of R rows: k candidates per row and split, one
+    ticket per row tile and per window, and each row's two label mixes
+    (M each) and LPT key."""
+    rt, S, _ = layout(K * R, n_index)
+    return K * R * S * k, -(-K * R // rt) + K, K * R * (2 * M + 1)
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -134,10 +146,11 @@ class _Params(ctypes.Structure):
         "x", "xsq", "qual", "leng",
         "m_of_i", "tier_of_i", "maxb", "price_in", "price_out", "nominal",
         "sig_plane", "gfeat", "gthr", "gleaf", "gbase",
-        "cand_d", "cand_i",
+        "cand_d", "cand_i", "tickets", "wtickets", "qmix", "lmix", "plm",
         "choice", "est", "lchosen", "d1", "b1", "f1")]
         + [(n, ctypes.c_int) for n in (
-            "K", "R", "E", "N", "M", "I", "k", "S", "sig_w", "sig_slots",
+            "K", "R", "E", "N", "M", "I", "k", "per_split", "sig_w",
+            "sig_slots",
             "n_trees", "n_internal", "n_leaves", "depth",
             "mode", "lpt", "budget_filter", "use_gbm", "use_aff")]
         + [(n, ctypes.c_float) for n in (
@@ -145,6 +158,7 @@ class _Params(ctypes.Structure):
 
 
 _lib = None
+_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes)
 
 
 def _library():
@@ -153,12 +167,11 @@ def _library():
         from .build import load
         lib = load("decision_megakernel")
         lib.rt_decision_megakernel.argtypes = [ctypes.POINTER(_Params),
+                                               ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         lib.rt_decision_megakernel.restype = ctypes.c_int
-        lib.rt_decision_scan_smem.argtypes = [ctypes.c_int] * 3
-        lib.rt_decision_scan_smem.restype = ctypes.c_size_t
-        lib.rt_knn_smem.argtypes = [ctypes.c_int]
-        lib.rt_knn_smem.restype = ctypes.c_size_t
+        lib.rt_decision_smem.argtypes = [ctypes.c_int] * 5
+        lib.rt_decision_smem.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -235,28 +248,34 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         if n_internal != 2 ** depth - 1 or n_leaves != 2 ** depth:
             raise ValueError("GBM arrays do not match depth")
     lib = _library()
-    smem, limit = lib.rt_decision_scan_smem(R, M, I), smem_limit(dev)
-    if smem > limit or lib.rt_knn_smem(E) > limit:
+    RT, S, per = layout(K * R, N)
+    limit = smem_limit(dev)
+    if lib.rt_decision_smem(RT, E, R, M, I) > limit:
         raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
                          f"memory than a block has ({limit} B)")
-    S = n_splits(K * R, N, dev)
-    cand_d = torch.empty((K * R, S, k), dtype=f32, device=dev)
-    cand_i = torch.empty((K * R, S, k), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_cand, n_tickets, n_mix = scratch_sizes(K, R, M, k, N)
+    cand_d, cand_i, tickets, mix = scratch(
+        _scratch, dev, stream, ((n_cand, f32, False), (n_cand, i32, False),
+                                (n_tickets, i32, True), (n_mix, f32, False)))
+    n_tiles = n_tickets - K
     outs = (torch.empty((K, R), dtype=i32, device=dev),
             *(torch.empty((K, R), dtype=f32, device=dev) for _ in range(2)),
             *(torch.empty((K, I), dtype=f32, device=dev) for _ in range(3)))
     wq, wl, wc = (float(w) for w in weights)
+    mix0 = mix.data_ptr()
     p = _Params(
         *(t.data_ptr() for t in args.values()), cand_d.data_ptr(),
-        cand_i.data_ptr(), *(o.data_ptr() for o in outs),
-        K, R, E, N, M, I, k, S,
+        cand_i.data_ptr(), tickets.data_ptr(),
+        tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
+        mix0 + 8 * K * R * M, *(o.data_ptr() for o in outs),
+        K, R, E, N, M, I, k, per,
         psig.shape[2] if use_aff else 0,
         sig_plane.shape[1] if use_aff else 0,
         n_trees, n_internal, n_leaves, depth if use_gbm else 0,
         LATENCY_MODES.index(latency_mode), int(lpt), int(budget_filter),
         int(use_gbm), int(use_aff), eps, wq, wl, wc, w_aff, lr)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt_decision_megakernel(ctypes.byref(p), stream)
+    err = lib.rt_decision_megakernel(ctypes.byref(p), RT, S, stream)
     if err != 0:
         raise RuntimeError(f"decision_megakernel launch failed: cudaError "
                            f"{err}")

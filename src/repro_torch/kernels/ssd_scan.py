@@ -13,6 +13,17 @@ is laid out and what bounds it); `ssd_scan` is its wrapper:
   * on CPU tensors it runs `ssd_scan_plain`, the same function in plain
     torch, which the CPU tests hold against the Pallas kernel.
 
+The kernel is one `__global__` function, `ssd_scan_chunks`, one CTA per
+(row, head, chunk): the chunks of a (row, head) pass the carried state
+along a chain through a slot in device memory (see the source). Its
+tiles take chunk <= 128, P <= 64 and N <= 128, P and N multiples of 4;
+the wrapper refuses other shapes on either device, and on CUDA tensors
+also a device whose blocks cannot have the kernel's shared memory (one
+layout for every shape, two CTAs to an H100 SM). The
+scratch (one P x N slot and one flag per (row, head), and the work
+counter) lives per (device, stream), allocated once and grown on
+demand; a call allocates only y and the final state.
+
 B and C come grouped, (B, S, G, N) with nh % G == 0, and head h reads
 group h // (nh / G): G = nh is the Pallas kernel's signature, and the
 model passes its G groups without repeating them over the heads, which
@@ -40,17 +51,49 @@ from typing import Tuple
 
 import torch
 
-SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
-ROW_TILE = 16           # query rows of the decayed product held at a time
+from .build import scratch, smem_limit
+
+SMEM_LIMIT = 232448     # bytes a block may opt in to on an H100 (sm_90)
+SM_SMEM = 233472        # bytes of shared memory an H100 SM has
+CTA_RESERVED = 1024     # bytes the runtime keeps per resident CTA
+QT, PT, NT = 128, 64, 128   # csrc/ssd_scan.cu's tiles: chunk, P, N
+NC = 32                 # state columns per streamed stage of C and B
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def smem_bytes(Q: int, P: int, N: int) -> int:
-    """Dynamic shared memory of the kernel: the state (N x P), the
-    chunk's x (Q x P), B and C (Q x (N+1), padded rows), one tile of
-    the decayed product (ROW_TILE x Q) and four per-token vectors, all
-    float32 (csrc/ssd_scan.cu computes the same)."""
-    return 4 * (N * P + Q * P + 2 * Q * (N + 1) + ROW_TILE * Q + 4 * Q)
+def smem_bytes() -> int:
+    """Dynamic shared memory of the kernel, the same at every shape it
+    takes (csrc/ssd_scan.cu computes the same): x as float32 (QT x PT),
+    four per-token vectors, and a work area reused phase by phase, the
+    largest of two C/B stages (QT x (NC + 4) each), M (QT x (QT + 4)),
+    B (QT x NT), and S_in (NT x PT) with two C stages."""
+    cs = NC + 4
+    work = max(4 * QT * cs, QT * (QT + 4), QT * NT, NT * PT + 2 * QT * cs)
+    return 4 * (QT * PT + 4 * QT + work)
+
+
+def work_item(i: int, Bsz: int, nh: int) -> Tuple[int, int, int]:
+    """(row, head, chunk) of the kernel's work id i, chunk slowest: the
+    CTA holding id i waits only on id i - Bsz * nh (the same row and
+    head, one chunk earlier), which drew its id first and so is running
+    or done, and started about a wave earlier."""
+    c, bh = divmod(i, Bsz * nh)
+    b, h = divmod(bh, nh)
+    return b, h, c
+
+
+def scratch_sizes(Bsz: int, nh: int, P: int, N: int) -> Tuple[int, int]:
+    """(float32 slot elements, int32 flags + counter) of the kernel's
+    scratch: one P x N state slot and one flag per (row, head), and the
+    work counter."""
+    return Bsz * nh * P * N, Bsz * nh + 1
+
+
+def check_smem(limit: int) -> None:
+    """Raise unless a block may have the kernel's shared memory."""
+    if smem_bytes() > limit:
+        raise ValueError(f"the SSD scan kernel needs {smem_bytes()} B of "
+                         f"shared memory; a block has {limit} B")
 
 
 def ssd_scan_plain(xh, Bm, Cm, dt, A, chunk: int = 128
@@ -114,12 +157,20 @@ def _validate(xh, Bm, Cm, dt, A, chunk):
     if S < 1 or S % Q:
         raise ValueError(f"S={S} must be a multiple of the chunk {Q}: "
                          f"pad the sequence")
-    if smem_bytes(Q, P, Bm.shape[-1]) > SMEM_LIMIT:
-        raise ValueError(f"chunk {Q}, P={P}, N={Bm.shape[-1]} need more "
-                         f"shared memory than a block has ({SMEM_LIMIT} B)")
+    N = Bm.shape[-1]
+    if Q > QT or not 4 <= P <= PT or not 4 <= N <= NT or P % 4 or N % 4:
+        raise ValueError(f"chunk {Q}, P={P}, N={N} outside the kernel's "
+                         f"tiles: chunk <= {QT}, P <= {PT}, N <= {NT}, P "
+                         f"and N multiples of 4")
+    if xh.device.type == "cuda":
+        check_smem(smem_limit(xh.device))
+        if any(t.data_ptr() % 16 for t in (xh, Bm, Cm)):
+            raise ValueError("xh, Bm and Cm must be 16-byte aligned (the "
+                             "kernel reads them in 8- and 16-byte vectors)")
 
 
 _lib = None
+_scratch = {}           # (device, stream) -> (slots, flags + counter)
 
 
 def _library():
@@ -129,7 +180,7 @@ def _library():
         lib = load("ssd_scan")
         lib.rt_ssd_scan.argtypes = ([ctypes.c_void_p] * 5
                                     + [ctypes.c_int] * 8
-                                    + [ctypes.c_void_p] * 3)
+                                    + [ctypes.c_void_p] * 6)
         lib.rt_ssd_scan.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -144,10 +195,17 @@ def _launch(xh, Bm, Cm, dt, A, chunk):
     state = torch.empty((Bsz, nh, P, N), dtype=torch.float32,
                         device=xh.device)
     stream = torch.cuda.current_stream(xh.device).cuda_stream
+    n_slot, n_flags = scratch_sizes(Bsz, nh, P, N)
+    # the work counter is the flags' last int (it stays last as they grow)
+    slots, flags = scratch(_scratch, xh.device, stream,
+                           ((n_slot, torch.float32, False),
+                            (n_flags, torch.int32, True)))
     err = lib.rt_ssd_scan(xh.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                           dt.data_ptr(), A.data_ptr(), Bsz, S, nh, P, G, N,
                           Q, DTYPES[xh.dtype], y.data_ptr(),
-                          state.data_ptr(), stream)
+                          state.data_ptr(), slots.data_ptr(),
+                          flags.data_ptr(),
+                          flags.data_ptr() + 4 * (flags.numel() - 1), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
     return y, state

@@ -23,6 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .api import flatten_tree
 from .config import ModelConfig
 
@@ -59,9 +60,12 @@ def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     return {k: _tensor(v) for k, v in flatten_tree(port)}
 
 
-def cache_from_jax(cache: Dict, cfg: ModelConfig, device="cpu") -> Dict:
+def cache_from_jax(cache: Dict, cfg: ModelConfig, device=None) -> Dict:
     """The reference's decoder-only cache (numpy leaves) as the port's:
-    {"pos": int, "layers": [per-layer dict of tensors on `device`]}."""
+    {"pos": int, "layers": [per-layer dict of tensors on `device`]}.
+    `device=None` means the card (RuntimeError without one), as at every
+    entry point of the port."""
+    device = resolve_device(device)
     layers = [_map(layer, lambda a: _tensor(a).to(device))
               for layer in _layers(cache, cfg)]
     return {"pos": int(np.asarray(cache["pos"])), "layers": layers}

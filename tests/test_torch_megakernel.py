@@ -157,6 +157,27 @@ def test_cpu_tensors_count_plain_calls_not_launches():
     assert mk.decision_megakernel.plain_calls == before[1] + 1
 
 
+@pytest.mark.parametrize("rows,want", [(8, (4, 117, 2)), (16, (8, 117, 2)),
+                                       (64, (8, 59, 4)), (256, (32, 30, 8)),
+                                       (1, (1, 233, 1))])
+def test_layout_follows_the_lookup_table(rows, want):
+    """Stage 1 over K * R rows takes the KNN lookup's measured layout at
+    that batch: (row tile, splits, 64-column tiles per split)."""
+    from repro_torch.kernels import knn_topk as kt
+    assert mk.layout(rows, 14886) == want
+    assert mk.layout(rows, 14886) == (kt.row_tile(rows),
+                                      *kt.knn_splits(rows, 14886))
+
+
+def test_scratch_is_split_lists_tickets_and_mixes():
+    # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10
+    assert mk.scratch_sizes(2, 64, 4, 10, 14886) == (
+        128 * 30 * 10, 16 + 2, 128 * 9)
+    # the main path's bucket: one window of 8 rows in 4-row tiles
+    assert mk.scratch_sizes(1, 8, 4, 10, 14886) == (8 * 117 * 10, 2 + 1,
+                                                    8 * 9)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -202,3 +223,50 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="limit"):
         _port(args, gbm, depth, lr, False, device=cuda_device, **_statics())
     assert mk.decision_megakernel.launches == launches
+
+
+def _dyadic_world(seed, **kw):
+    args = _toy_world(seed, **kw)
+    for name in ("emb", "x"):
+        args[name] = (np.clip(np.round(args[name] * 8), -8, 8) / 8
+                      ).astype(f32)
+    args["xsq"] = (args["x"] * args["x"]).sum(1).astype(f32)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_row", "windows", "I128", "I4096"])
+def test_kernel_matches_plain_on_card_shapes(cuda_device, case):
+    """One request padded to the R = 8 bucket, K = 2 windows whose rows
+    share row tiles, and rosters that take the block-wide scan (I = 128)
+    and the carry's limit (I = 4096): exact against the plain version."""
+    kw = dict(one_row=dict(K=1, R=8), windows=dict(K=2, R=12),
+              I128=dict(K=1, R=16, I=128),
+              I4096=dict(K=1, R=16, I=mk.MAX_I))[case]
+    args = _dyadic_world(11, **kw)
+    if case == "one_row":
+        args["row_valid"][:, 1:] = False
+    if "I" in kw:
+        args["alive"] = np.arange(kw["I"]) % 7 != 3
+    gbm, depth, lr = _gbm(True)
+    statics = _statics()
+    got = _port(args, gbm, depth, lr, True, device=cuda_device, **statics)
+    ts = [torch.as_tensor(np.array(a), device=cuda_device)
+          for a in list(args.values()) + list(gbm)]
+    want = [o.cpu().numpy() for o in mk.decision_megakernel_plain(
+        *ts, use_gbm=True, depth=depth, lr=lr, **statics)]
+    _compare(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_calls_in_a_row_agree(cuda_device):
+    """The tickets reset themselves: a second call on the same stream,
+    after a call at another shape, repeats the first exactly."""
+    gbm, depth, lr = _gbm(True)
+    a1 = _dyadic_world(12, K=2, R=8)
+    a2 = _dyadic_world(13, K=1, R=64)
+    first = _port(a1, gbm, depth, lr, True, device=cuda_device, **_statics())
+    _port(a2, gbm, depth, lr, True, device=cuda_device, **_statics())
+    again = _port(a1, gbm, depth, lr, True, device=cuda_device, **_statics())
+    for g, h in zip(first, again):
+        np.testing.assert_array_equal(g, h)

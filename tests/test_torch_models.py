@@ -144,7 +144,8 @@ def test_one_decode_step_from_reference_cache(pair, name, S):
     (rl, rc), rdec = _ref_steps(ref, params, toks, S + 4)
     rt = jnp.argmax(rl, -1).astype(jnp.int32)[:, None]
     want, _ = rdec(params, rc, rt)
-    cache = cache_from_jax(jax.tree.map(np.asarray, rc), port.cfg)
+    cache = cache_from_jax(jax.tree.map(np.asarray, rc), port.cfg,
+                           device="cpu")
     assert cache["pos"] == S
     got, _ = port.decode(cache, torch.from_numpy(np.array(rt)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
@@ -275,6 +276,23 @@ def test_repeat_kv_matches_reference():
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         Model(smoke_variant(get_config(name)), device="cpu")
+
+
+def test_cache_bridge_runs_on_the_card_unless_asked():
+    """`cache_from_jax(device=None)` means the card, as every entry point
+    of the port: without one it raises; `device="cpu"` stays on the CPU."""
+    cfg = smoke_variant(get_config("mamba2-1.3b"))
+    layer = {"state": np.ones((cfg.n_cycles, 2, 3), np.float32)}
+    tree = {"pos": np.int32(5), "slot0": layer}
+    cache = cache_from_jax(tree, cfg, device="cpu")
+    assert cache["pos"] == 5 and len(cache["layers"]) == cfg.n_layers
+    assert cache["layers"][0]["state"].device.type == "cpu"
+    if torch.cuda.is_available():
+        on_card = cache_from_jax(tree, cfg)
+        assert on_card["layers"][0]["state"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cache_from_jax(tree, cfg)
 
 
 def test_serving_steps_are_prefill_then_greedy_decode():

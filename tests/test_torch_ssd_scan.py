@@ -124,7 +124,7 @@ def test_steep_decay_stays_finite():
 
 
 @pytest.mark.parametrize("case", ["ragged", "groups", "dtype", "x_dtype",
-                                  "contiguous", "smem"])
+                                  "contiguous", "smem", "wide_p", "odd_n"])
 def test_wrapper_refuses_what_the_kernel_cannot_take(case):
     xh, Bm, Cm, dt, A = _port(_inputs(41, 1, 32, 4, 8, 16))
     chunk = 16
@@ -138,9 +138,14 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(case):
         xh = xh.half()
     elif case == "contiguous":
         xh = xh.transpose(2, 3).contiguous().transpose(2, 3)
-    else:
+    elif case == "smem":
         xh, Bm, Cm, dt, A = _port(_inputs(42, 1, 256, 1, 64, 128))
         chunk = 256
+    elif case == "wide_p":
+        xh, Bm, Cm, dt, A = _port(_inputs(43, 1, 64, 2, 128, 64))
+        chunk = 64
+    else:
+        xh, Bm, Cm, dt, A = _port(_inputs(44, 1, 32, 2, 8, 18))
     before = K4.ssd_scan.plain_calls
     with pytest.raises((ValueError, TypeError)):
         K4.ssd_scan(xh, Bm, Cm, dt, A, chunk=chunk)
@@ -148,7 +153,58 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(case):
 
 
 def test_smem_budget_fits_the_serving_shape():
-    assert K4.smem_bytes(128, 64, 128) <= K4.SMEM_LIMIT
+    """One layout for every shape the tiles take, the serving shape's
+    (chunk 128, P 64, N 128) included: two CTAs fit on an SM."""
+    assert K4.smem_bytes() <= K4.SMEM_LIMIT
+    assert 2 * (K4.smem_bytes() + K4.CTA_RESERVED) <= K4.SM_SMEM
+    assert K4.smem_bytes() == 4 * (128 * 64 + 4 * 128 + 4 * 128 * 36)
+
+
+def test_shared_memory_refusal():
+    """A block with less shared memory than the kernel's layout is
+    refused before any launch; the H100's opt-in limit is not."""
+    K4.check_smem(K4.SMEM_LIMIT)
+    with pytest.raises(ValueError, match="shared memory"):
+        K4.check_smem(K4.smem_bytes() - 1)
+
+
+def test_work_ids_run_chunk_slowest():
+    """The kernel's work ids walk every (row, head) of one chunk before
+    the next chunk, so the CTA holding id i waits only on the lower id
+    i - B * nh: the same row and head, one chunk earlier."""
+    Bsz, nh, nc = 2, 3, 4
+    items = [K4.work_item(i, Bsz, nh) for i in range(Bsz * nh * nc)]
+    assert items[:7] == [(0, 0, 0), (0, 1, 0), (0, 2, 0), (1, 0, 0),
+                         (1, 1, 0), (1, 2, 0), (0, 0, 1)]
+    assert sorted(items, key=lambda t: (t[2], t[0], t[1])) == items
+    assert sorted(items) == [(b, h, c) for b in range(Bsz)
+                             for h in range(nh) for c in range(nc)]
+    for i, (b, h, c) in enumerate(items):
+        if c:
+            assert items[i - Bsz * nh] == (b, h, c - 1)
+
+
+def test_scratch_buffers_grow_per_stream_and_keep_tickets_zero():
+    """`build.scratch`, the K1/K4 wrappers' per-(device, stream) cache:
+    reused while it fits, grown to the larger size, zeroed buffers at 0."""
+    from repro_torch.kernels.build import scratch
+    cache, dev = {}, torch.device("cpu")
+    specs = ((10, torch.float32, False), (4, torch.int32, True))
+    a = scratch(cache, dev, 7, specs)
+    assert [t.numel() for t in a] == [10, 4] and not a[1].any()
+    assert scratch(cache, dev, 7, ((6, torch.float32, False),
+                                   (2, torch.int32, True))) is a
+    b = scratch(cache, dev, 7, ((8, torch.float32, False),
+                                (9, torch.int32, True)))
+    assert [t.numel() for t in b] == [10, 9] and not b[1].any()
+    assert scratch(cache, dev, 8, specs) is not b     # another stream
+    assert len(cache) == 2
+
+
+def test_scratch_is_one_slot_and_flag_per_row_and_head():
+    # the serving shape: 4 x 64 slots of 64 x 128 floats (8 MB), 257 ints
+    assert K4.scratch_sizes(4, 64, 64, 128) == (4 * 64 * 64 * 128, 257)
+    assert K4.scratch_sizes(1, 8, 8, 16) == (1024, 9)
 
 
 # -- on the card --------------------------------------------------------------
@@ -163,7 +219,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,nh,P,N,G,chunk", [
     (4, 1024, 64, 64, 128, 1, 128), (2, 64, 4, 16, 16, 4, 16),
-    (1, 96, 8, 8, 32, 2, 32), (2, 32, 16, 8, 16, 1, 16)])
+    (1, 96, 8, 8, 32, 2, 32), (2, 32, 16, 8, 16, 1, 16),
+    # 16 chunks a chain; one chunk; few CTAs with long chains and groups
+    (2, 2048, 16, 64, 128, 1, 128), (2, 128, 8, 64, 128, 1, 128),
+    (1, 2048, 8, 64, 128, 2, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(cuda_device, B, S, nh, P, N, G, chunk,
                                       dtype):
@@ -183,3 +242,18 @@ def test_kernel_matches_plain_on_card(cuda_device, B, S, nh, P, N, G, chunk,
                                atol=1e-4 * scale)
     torch.testing.assert_close(st, sp, rtol=1e-4,
                                atol=1e-4 * float(sp.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernel_calls_in_a_row_agree_bitwise(cuda_device):
+    """The work counter and the flags reset themselves: a second call on
+    the same stream, and a third at another shape, repeat the first
+    bitwise."""
+    arrays = _inputs(5, 2, 512, 8, 64, 128, G=1)
+    args = [t.to(cuda_device) for t in _port(arrays, torch.bfloat16)]
+    y1, s1 = K4.ssd_scan(*args, chunk=128)
+    small = [t.to(cuda_device) for t in _port(_inputs(6, 1, 64, 4, 16, 16))]
+    K4.ssd_scan(*small, chunk=16)
+    y2, s2 = K4.ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
