@@ -81,8 +81,55 @@ Phases, each printing one JSON line; any failed check exits nonzero
   5e. SSM serving — `mamba2-1.3b` at full width (48 layers): 4 prompts
      of 1,024 tokens, 32 decode steps; K4 launches = 48, no plain call;
      the same 2-layer card-against-CPU check;
-  6. the kernels line, then the card's `nvidia-smi` line, then the last
-     line `{"ok": true, "device": {...}}`.
+  3e. multi-window — K in {2, 3, 4, 5, 8} windows of unequal R (3 and 5
+     pad to 4 and 8 windows of invalid rows) in one decision-kernel call
+     at the main path's shapes, held against the plain version (every
+     output identical on dyadic inputs; on random normal ones choices
+     agreeing on >= 99% of the valid rows, est_T/l_chosen within rtol
+     1e-5 on those, d1 within rtol 1e-5 and b1/f1 identical on windows
+     whose choices all agree) and against the kernel's call on each
+     window alone (choices identical, est_T/l_chosen/d1 exact on dyadic
+     inputs and within rtol 1e-5 on random normal ones); then
+     through the hot path (`FusedHotPath.decide_cols_multi` against
+     `decide_cols` per window, the quickstart's bundle and pool with
+     mid-run telemetry): identical choices, l_chosen within rtol 1e-5;
+     one `__global__` function per K-window call; one K-window call
+     timed against K single calls at R = 8 (wrapper call, device, and
+     hot path with its fetch), for K in {2, 4, 8};
+  5f. scenarios — the fault-tolerant, elastic serving path on the
+     megakernel backend, `charge_compute=False`, each world's bundle
+     trained on the card at `Scenario.build()`'s dataset size (1,200):
+     `chaos_world` under a crash storm, a correlated failure, a hedged
+     straggler storm, telemetry blackouts of half and all the fleet (and
+     all of it for 6 s under 3x the load on the latency preset, where
+     the watchdog declares the mirror dark) and a crash storm with
+     recovery off; `elastic_chaos`
+     under a crash storm; `diurnal_elastic`, `flashcrowd_elastic`;
+     `failover`, `cluster` (48 instances), `multitenant`,
+     `session_chat` at affinity 0.5; `hyperscale` (16 tiers x 128).
+     Each: every request terminal once; none failed where recovery is
+     armed; the counters each cell exists for above zero (retries,
+     hedges, quarantines, degraded decisions, scale-ups, sheds); K1
+     launches = fired batches less degraded ones (the recovery
+     manager's `degraded_batches`), no plain call. Each cell then runs
+     again with the kernel's wrapper tapped (`decision_megakernel.tap`):
+     the same completions and calls; one argument shape per (K, R)
+     bucket, as many as the hot path's shape variants (no variant from
+     roster churn); the recorded first call, calls after roster events
+     (up to 6), every 16th call and the last call held against the plain
+     version on the same tensors as 3e holds random normal inputs. Then a
+     controller crash at t = 5.3 resumed from a `CheckpointManager` on
+     disk: completions identical to the uncrashed run's. Then
+     `hyperfleet_10k`: the megakernel refuses its 10,000 instances by
+     name, and 2,000 of its requests run on the staged torch backend
+     with one K2 launch per scoring call; every 16th lookup and the last,
+     recorded through `knn_topk.tap`, held against the plain version
+     (idx rows identical on >= 99%, d2 within rtol 1e-5 plus 1e-6 of
+     its scale);
+  6. the kernels line (launches of every driven path: K1 the main path
+     and 5f, K2 5b, 5c and 5f's hyperfleet), then the card's
+     `nvidia-smi` line, then the last line
+     `{"ok": true, "device": {...}}`.
 
 It imports torch, numpy, the standard library and `repro_torch` (from
 `src/` beside this file), never jax and nothing of the JAX package.
@@ -649,6 +696,586 @@ def phase_staged(ctx, kt, mk):
     return counts
 
 
+# -- multi-window dispatch on K1 (phase 3e) ------------------------------------
+
+MW_SIZES = (8, 5, 3, 7, 1, 6, 2, 4)     # rows of the K windows, R bucket 8
+MW_KS = (2, 3, 4, 5, 8)                 # 3 and 5 pad to 4 and 8 windows
+
+
+def k1_counts(mk):
+    """(calls that went to the decision kernel, calls that went to its
+    plain version); on the CPU (a rehearsal, DEV = "cpu") the plain
+    version's calls stand in for launches."""
+    f = mk.decision_megakernel
+    return ((f.launches, f.plain_calls) if DEV == "cuda"
+            else (f.plain_calls, 0))
+
+
+def window_slice(tensors, w):
+    """The arguments of one window of a K-window call, as a K = 1 call."""
+    return [t[w:w + 1].contiguous() if j < 4 else t
+            for j, t in enumerate(tensors)]
+
+
+def multiwindow_case(seed, K, dyadic):
+    """make_case at the main path's shapes with K windows of unequal R
+    (MW_SIZES) in the R = 8 bucket; windows pad to a power of two with
+    windows of invalid rows."""
+    from repro_torch.core.decision import bucket_pow2
+    Kb = bucket_pow2(K, lo=1)
+    tensors, statics = make_case(seed, R=8, I=16, n_alive=13, K=Kb,
+                                 dyadic=dyadic, dev=DEV)
+    rv = tensors[1]
+    rv[:] = False
+    for w in range(K):
+        rv[w, :MW_SIZES[w]] = True
+    return tensors, statics
+
+
+def hold_k1(got, want, rv, exact, label):
+    """Hold a decision-kernel call's outputs against the plain version's
+    on the same inputs. Exact (dyadic inputs): every output identical.
+    Otherwise: choices agree on >= 99% of the valid rows, est_T and
+    l_chosen within rtol 1e-5 on the agreeing rows, and on each window
+    whose valid choices all agree d1 within rtol 1e-5 and b1/f1
+    identical. Returns (valid rows, agreeing rows, max relative error)."""
+    if exact:
+        for j, name in enumerate(("choice", "est_T", "l_chosen", "d1", "b1",
+                                  "f1")):
+            check(np.array_equal(got[j], want[j]),
+                  f"{label}: {name} differs from the plain version")
+        return int(rv.sum()), int(rv.sum()), 0.0
+    agree = (got[0] == want[0]) & rv
+    worst = 0.0
+    for j, name in ((1, "est_T"), (2, "l_chosen")):
+        a, b = got[j][agree], want[j][agree]
+        if a.size:
+            worst = max(worst, float((np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-30)).max()))
+        check(np.allclose(a, b, rtol=1e-5, atol=0),
+              f"{label}: {name} outside rtol 1e-5 of the plain version")
+    for w in range(rv.shape[0]):
+        if (agree[w] == rv[w]).all():
+            check(np.allclose(got[3][w], want[3][w], rtol=1e-5, atol=0)
+                  and np.array_equal(got[4][w], want[4][w])
+                  and np.array_equal(got[5][w], want[5][w]),
+                  f"{label} window {w}: d1/b1/f1 differ from the plain "
+                  "version")
+    return int(rv.sum()), int(agree.sum()), worst
+
+
+def phase_multiwindow(mk, ctx):
+    """K windows in one decision-kernel call against its plain version
+    and against one kernel call per window: at the wrapper (dyadic and
+    random normal inputs, and one __global__ function per K-window call)
+    and through the hot path (`FusedHotPath.decide_cols_multi` against
+    `decide_cols` on the same telemetry); then one K-window call timed
+    against K single calls."""
+    from repro_torch.core import RBConfig, make_requests
+    from repro_torch.core.hotpath import FusedHotPath
+    from repro_torch.serving.cluster import ClusterSim
+    from repro_torch.serving.scenarios import randomize_telemetry
+    out = {}
+    for K in MW_KS:
+        row = {}
+        for dyadic in (True, False):
+            tensors, statics = multiwindow_case(500 + K, K, dyadic)
+            multi = kernel_out(mk, tensors, statics)
+            want = plain_reference(mk, tensors, statics)
+            n_rows, n_agree, rel_plain = hold_k1(
+                multi, want, tensors[1].cpu().numpy(), dyadic, f"K={K}")
+            check(n_agree >= 0.99 * n_rows, f"K={K}: choice agreement "
+                  f"{n_agree}/{n_rows} with the plain version < 0.99")
+            worst = 0.0
+            for w in range(K):
+                one = kernel_out(mk, window_slice(tensors, w), statics)
+                valid = tensors[1][w].cpu().numpy()
+                check(np.array_equal(multi[0][w][valid], one[0][0][valid]),
+                      f"K={K} window {w}: choice differs from its own call")
+                for j, name in ((1, "est_T"), (2, "l_chosen")):
+                    a, b = multi[j][w][valid], one[j][0][valid]
+                    if dyadic:
+                        check(np.array_equal(a, b), f"K={K} window {w}: "
+                              f"{name} not exact on dyadic inputs")
+                    else:
+                        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+                        worst = max(worst, float(rel.max()))
+                        check(np.allclose(a, b, rtol=1e-5, atol=0),
+                              f"K={K} window {w}: {name} outside rtol 1e-5")
+                for j, name in ((3, "d1"), (4, "b1"), (5, "f1")):
+                    check(np.array_equal(multi[j][w], one[j][0])
+                          if dyadic else
+                          np.allclose(multi[j][w], one[j][0], rtol=1e-5),
+                          f"K={K} window {w}: {name} differs")
+            row["dyadic" if dyadic else "normal"] = dict(
+                exact=dyadic, max_rel_err_vs_own_call=worst,
+                choice_agreement_vs_plain=n_agree / n_rows,
+                max_rel_err_vs_plain=rel_plain)
+        out[K] = row
+        emit("multiwindow_check", K=K, windows_padded_to=int(
+            tensors[0].shape[0]), rows=list(MW_SIZES[:K]), **row)
+    # the hot path: the main path's bundle and pool, mid-run telemetry
+    bundle, tiers, names = ctx["bundle"], ctx["tiers"], ctx["names"]
+    sim = randomize_telemetry(ClusterSim(tiers, names), seed=9)
+    hp = FusedHotPath(bundle, sim.instances, RBConfig())
+    reqs = make_requests(ctx["ds"], "test", np.zeros(sum(MW_SIZES)),
+                         encoder=bundle.encoder)
+    cols = reqs[0].cols
+    cuts = np.cumsum((0,) + MW_SIZES)
+    rows = [np.arange(cuts[w], cuts[w + 1]) for w in range(len(MW_SIZES))]
+    for K in MW_KS:
+        batches = [(cols, r) for r in rows[:K]]
+        multi = [lz.fetch() for lz in hp.decide_cols_multi(batches, sim.tel)]
+        worst = 0.0
+        for (cm, lm), (c, r) in zip(multi, batches):
+            cs, ls = hp.decide_cols(c, r, sim.tel).fetch()
+            check(np.array_equal(cm, cs),
+                  f"hot path K={K}: a window's choice differs")
+            check(np.allclose(lm, ls, rtol=1e-5, atol=0),
+                  f"hot path K={K}: l_chosen outside rtol 1e-5")
+            worst = max(worst, float((np.abs(lm - ls)
+                                      / np.maximum(np.abs(ls), 1e-30)).max()))
+        out[K]["hot_path"] = dict(identical_choices=True,
+                                  l_chosen_max_rel_err=worst)
+        emit("multiwindow_hot_path", K=K, **out[K]["hot_path"])
+    if DEV != "cuda":
+        return out
+    # one K-window call against K single calls, R = 8 (no claim)
+    for K in (2, 4, 8):
+        tensors, statics = multiwindow_case(600 + K, K, dyadic=False)
+        singles = [window_slice(tensors, w) for w in range(K)]
+
+        def multi_call():
+            return mk.decision_megakernel(*tensors, **statics)
+
+        def single_calls():
+            for s in singles:
+                mk.decision_megakernel(*s, **statics)
+        n_fn, per_call = functions_per_call(multi_call, K1_FUNCTION,
+                                            f"K1 K={K} windows")
+        check(n_fn == 1, f"K={K}: {n_fn} functions per K-window call")
+        dev_multi = required_split(multi_call, (K1_FUNCTION,),
+                                   f"K1 K={K}")[K1_FUNCTION]
+        dev_one = required_split(lambda: mk.decision_megakernel(
+            *singles[0], **statics), (K1_FUNCTION,), "K1 K=1")[K1_FUNCTION]
+        batches = [(cols, r) for r in rows[:K]]
+        hot_multi = host_ms(lambda: [lz.fetch() for lz in
+                                     hp.decide_cols_multi(batches, sim.tel)])
+        hot_single = host_ms(lambda: [hp.decide_cols(c, r, sim.tel).fetch()
+                                      for c, r in batches])
+        t = dict(K=K, R=8, wrapper_call_ms=time_ms(multi_call),
+                 wrapper_k_single_calls_ms=time_ms(single_calls),
+                 device_ms=dev_multi, device_ms_k_single_calls=K * dev_one,
+                 hot_path_call_ms=hot_multi,
+                 hot_path_k_single_calls_ms=hot_single,
+                 global_functions_per_call=n_fn,
+                 device_activities_per_call=per_call)
+        out[K]["times"] = t
+        emit("multiwindow_times", **t)
+    return out
+
+
+def host_ms(fn, n=50, warm=5):
+    """Median host-clock time of fn (which ends in a fetch, so in a
+    synchronize), over n calls after warm-up."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+# -- the fault-tolerant, elastic serving path (phase 5f) -----------------------
+
+SCEN_DATASET_N = 1200        # `Scenario.build()`'s default
+
+
+def scenario_cells():
+    """(label, scenario key, schedule builder over tiers or None for the
+    scenario's own, recovery: "scenario" | None | RecoveryConfig kwargs,
+    requests, lam_scale, RBConfig kwargs, counters that must be > 0)."""
+    from repro_torch.serving import faults as F
+    hedged = dict(hedge_factor=2.5, hedge_slack_s=1.0)
+    return [
+        ("chaos/crash_storm", "chaos", F.crash_storm, "scenario", 420, 1.0,
+         {}, ("retries",)),
+        ("chaos/correlated_failure", "chaos", F.correlated_failure,
+         "scenario", 420, 1.0, {}, ("retries",)),
+        ("chaos/straggler_storm_hedged", "chaos",
+         lambda t: F.straggler_storm(t, frac=0.7, factor=8.0, duration=10.0),
+         hedged, 420, 1.0, {}, ("hedges", "duplicate_tokens")),
+        ("chaos/blackout_half", "chaos",
+         lambda t: F.telemetry_blackout(t, frac=0.5), "scenario", 420, 1.0,
+         {}, ("quarantines",)),
+        ("chaos/blackout_full", "chaos",
+         lambda t: F.telemetry_blackout(t, frac=1.0), "scenario", 420, 1.0,
+         {}, ("quarantines",)),
+        # under 3x the load on the latency preset every instance holds
+        # work when the mirror goes dark, so the watchdog declares it dark
+        ("chaos/blackout_full_loaded", "chaos",
+         lambda t: F.telemetry_blackout(t, frac=1.0, duration=6.0),
+         "scenario", 420, 3.0, {"weights": (0.1, 0.8, 0.1)},
+         ("degraded_decisions",)),
+        ("chaos/crash_storm_no_recovery", "chaos", F.crash_storm, None, 420,
+         1.0, {}, ()),
+        ("elastic_chaos/crash_storm", "elastic_chaos", F.crash_storm,
+         "scenario", 600, 4.0, {}, ("retries", "scale_ups")),
+        ("diurnal_elastic", "diurnal_elastic", None, "scenario", 1200, 4.0,
+         {}, ("scale_ups", "shed")),
+        ("flashcrowd_elastic", "flashcrowd_elastic", None, "scenario", 600,
+         4.0, {}, ("scale_ups", "shed")),
+        ("failover", "failover", None, "scenario", 400, 1.0, {}, ()),
+        ("cluster", "cluster", None, "scenario", 400, 1.0, {}, ()),
+        ("multitenant", "multitenant", None, "scenario", 400, 1.0, {}, ()),
+        ("session_chat/affinity_0.5", "session_chat", None, "scenario", 400,
+         1.0, {"affinity_weight": 0.5}, ()),
+        ("hyperscale", "hyperscale", None, "scenario", 600, 1.0, {}, ()),
+    ]
+
+
+def completion_tuples(reqs):
+    return [(r.rid, r.finish_time, r.tokens_out, r.model_idx, r.instance,
+             bool(r.failed), r.attempt, r.hedges, bool(r.shed))
+            for r in reqs]
+
+
+class K1Recorder:
+    """A tap for the decision kernel's wrapper (`decision_megakernel.tap`):
+    clones the arguments of the first call, of each call whose alive
+    mask differs from the call before it (a roster event: a kill, a
+    revive, a quarantine, an autoscale), up to `events` of them, of
+    every `every`-th call, and of the last call; and notes every call's
+    argument shapes."""
+
+    def __init__(self, events=6, every=16):
+        self.events, self.every, self.n_events, self.n = events, every, 0, 0
+        self.kept, self.last, self.prev_alive = [], None, None
+        self.signatures, self.windows = set(), set()
+
+    def __call__(self, args, kw):
+        self.signatures.add(tuple(tuple(t.shape) for t in args))
+        self.windows.add(tuple(args[0].shape[:2]))      # (K, R) buckets
+        snap = (self.n, [t.clone() for t in args], dict(kw))
+        alive = snap[1][9]
+        if self.n == 0:
+            self.kept.append(("first",) + snap)
+        elif (self.n_events < self.events
+              and not torch.equal(alive, self.prev_alive)):
+            self.n_events += 1
+            self.kept.append(("roster_event",) + snap)
+        elif self.n % self.every == 0:
+            self.kept.append(("sampled",) + snap)
+        self.prev_alive, self.last = alive, snap
+        self.n += 1
+
+    def calls(self):
+        if self.last is not None and self.last[0] != self.kept[-1][1]:
+            return self.kept + [("last",) + self.last]
+        return self.kept
+
+
+def hold_recorded_k1(mk, rec, label):
+    """Each recorded call once more through the kernel and through its
+    plain version on the same tensors (`hold_k1` on random inputs);
+    fails below 99% choice agreement over the recorded rows."""
+    n_rows = n_agree = 0
+    worst = 0.0
+    for kind, i, args, kw in rec.calls():
+        got = kernel_out(mk, args, kw)
+        want = plain_reference(mk, args, kw)
+        r, a, rel = hold_k1(got, want, args[1].cpu().numpy(), False,
+                            f"{label} call {i} ({kind})")
+        n_rows, n_agree, worst = n_rows + r, n_agree + a, max(worst, rel)
+    check(n_rows > 0 and n_agree >= 0.99 * n_rows,
+          f"{label}: choice agreement {n_agree}/{n_rows} with the plain "
+          "version < 0.99 on the recorded calls")
+    return dict(calls=[(kind, i) for kind, i, _, _ in rec.calls()],
+                rows=n_rows, choice_agreement=n_agree / n_rows,
+                est_T_l_chosen_max_rel_err=worst)
+
+
+def phase_scenarios(mk, kt):
+    """The scenario worlds on the card (the megakernel backend,
+    `charge_compute=False`, bundles trained by the port on the card), a
+    controller crash restored through `CheckpointManager`, and
+    `hyperfleet_10k` on the staged torch backend fed by the KNN kernel.
+    Each cell runs twice: counted (launches, times), then with the
+    kernel's wrapper tapped (`K1Recorder`), which must give the same
+    completions; the recorded calls are then held against the plain
+    version."""
+    import dataclasses
+    from repro_torch.core import RBConfig, RouteBalance
+    from repro_torch.serving import faults
+    from repro_torch.serving.metrics import check_terminal_states
+    from repro_torch.serving.recovery import RecoveryConfig
+    from repro_torch.serving.scenarios import get_scenario
+    worlds, setup = {}, {}
+
+    def world(key):
+        if key not in worlds:
+            t0 = time.perf_counter()
+            sc = {"chaos": faults.chaos_world,
+                  "elastic_chaos": faults.elastic_chaos_world}.get(
+                key, lambda: get_scenario(key))()
+            run = sc.build(dataset_n=SCEN_DATASET_N)
+            run.bundle(device=DEV)
+            check(run.bundle().device.type == DEV, f"{key}: bundle device")
+            worlds[key] = (run, sc)
+            setup[key] = time.perf_counter() - t0
+        return worlds[key]
+
+    rows, k1_total = {}, 0
+    for (label, key, sched, rec, n, scale, rb_kw,
+         nonzero) in scenario_cells():
+        run, sc = world(key)
+        run.scenario = (sc if sched is None else
+                        dataclasses.replace(sc, schedule=sched(run.tiers)))
+        run.recovery = (sc.recovery if rec == "scenario" else
+                        None if rec is None else RecoveryConfig(**rec))
+
+        def one(tap):
+            reqs = run.requests(n, lam_scale=scale, seed=0)
+            run.bundle().__dict__.pop("_fused_cache", None)  # fresh hot path
+            rb = RouteBalance(RBConfig(charge_compute=False, **rb_kw),
+                              run.bundle(), run.tiers)
+            mk.reset_counts()
+            mk.decision_megakernel.tap = tap
+            try:
+                t0 = time.perf_counter()
+                m = run.run_cell(rb, reqs, seed=0)
+                wall = time.perf_counter() - t0
+            finally:
+                mk.decision_megakernel.tap = None
+            return reqs, rb, m, wall
+
+        reqs, rb, m, wall = one(None)
+        launches, plain = k1_counts(mk)
+        k1_total += launches
+        check_terminal_states(reqs)
+        fired = len(rb.compute_log)
+        mgr = getattr(rb.sim, "recovery", None)
+        degraded = mgr.degraded_batches if mgr is not None else 0
+        hp = rb._fused
+        variants = hp.shape_variants() if hp is not None else 0
+        recorder = K1Recorder()
+        reqs2, rb2, _, _ = one(recorder)
+        same = completion_tuples(reqs2) == completion_tuples(reqs)
+        held = hold_recorded_k1(mk, recorder, label)
+        counters = {k: m[k] for k in (
+            "retries", "gave_up", "hedges", "duplicate_tokens",
+            "quarantines", "degraded_decisions", "scale_ups", "scale_downs",
+            "peak_alive") if k in m}
+        row = dict(cell=label, instances=run.n_instances, requests=len(reqs),
+                   served=m["n"], failed=m["failed"], shed=m["shed"],
+                   fired_batches=fired, degraded_batches=degraded,
+                   k1_launches=launches, k1_plain_calls=plain,
+                   shape_variants=variants,
+                   window_buckets=len(recorder.windows),
+                   argument_shapes=len(recorder.signatures),
+                   roster_reseeds=hp.stats["roster_reseed"] if hp else 0,
+                   quality=m["quality"], mean_e2e=m["mean_e2e"],
+                   p99_e2e=m["p99_e2e"], cost_per_req=m["cost_per_req"],
+                   measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
+                   mean_batch_size=m["mean_batch_size"], wall_s=wall,
+                   tapped_run_identical=same, recorded_vs_plain=held,
+                   **counters)
+        rows[label] = row
+        emit("scenario", **row)
+        check(m["n"] + m["failed"] + m["shed"] == len(reqs),
+              f"{label}: {len(reqs)} requests, not all terminal once")
+        if run.recovery is not None:
+            check(m["failed"] == 0, f"{label}: {m['failed']} failed with "
+                  "recovery armed")
+        for k in nonzero:
+            check(m.get(k, 0) > 0, f"{label}: {k} is 0")
+        check(launches == fired - degraded > 0,
+              f"{label}: {launches} K1 launches for {fired} batches, "
+              f"{degraded} degraded")
+        check(plain == 0, f"{label}: {plain} plain-version calls")
+        check(recorder.n == launches,
+              f"{label}: the tapped run made {recorder.n} calls, the "
+              f"counted run {launches}")
+        check(same, f"{label}: the tapped run's completions differ")
+        # roster churn adds no shape: one argument-shape set per (K, R)
+        # bucket, and the hot path counts exactly those
+        check(variants == len(recorder.windows) == len(recorder.signatures)
+              and rb2._fused.shape_variants() == variants,
+              f"{label}: {variants} shape variants, {len(recorder.windows)} "
+              f"(K, R) buckets, {len(recorder.signatures)} argument shapes")
+        check(np.isfinite(m["mean_e2e"]) and 0.0 < m["quality"] < 1.0,
+              f"{label}: implausible metrics")
+    crash = phase_crash_restore(world("chaos")[0], faults)
+    fleet = phase_hyperfleet(mk, kt)
+    emit("scenario_setup", seconds_by_world=setup)
+    return dict(cells=rows, k1_launches=k1_total, crash=crash,
+                hyperfleet=fleet)
+
+
+def phase_crash_restore(run, faults):
+    """The chaos world under a crash storm, uncrashed and with the
+    controller crashed at t = 5.3 and resumed by a fresh engine from a
+    `CheckpointManager` on disk: identical completion tuples."""
+    import tempfile
+    from repro_torch.core import RBConfig, RouteBalance, ServingEngine
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.serving.cluster import ClusterSim
+    from repro_torch.serving.metrics import check_terminal_states
+    from repro_torch.serving.recovery import (RecoveryConfig, arm_recovery,
+                                              simulate_controller_crash)
+    from repro_torch.serving.scenarios import apply_schedule
+    sched = faults.crash_storm(run.tiers)
+
+    def one(crash_at, ckpt_dir):
+        reqs = run.requests(420, seed=0)
+        sim = ClusterSim(run.tiers, run.names, seed=0)
+        arm_recovery(sim, RecoveryConfig())
+        eng = RouteBalance(RBConfig(charge_compute=False), run.bundle(),
+                           run.tiers)
+        eng.expected = len(reqs)
+        eng.attach(sim)
+        holder = {"eng": eng, "dropped": 0}
+        for r in reqs:
+            sim.push(r.arrival, lambda t, rr=r: holder["eng"].enqueue(rr, t))
+        apply_schedule(sim, sched, seed=1)
+        if crash_at is not None:
+            ckpt = CheckpointManager(ckpt_dir)
+
+            def crash(t):
+                holder["eng"].save_checkpoint(ckpt, step=1)
+                holder["dropped"] = simulate_controller_crash(sim,
+                                                              holder["eng"])
+                tree, _ = ckpt.restore(ServingEngine._checkpoint_template())
+                arm_recovery(sim, RecoveryConfig())
+                fresh = RouteBalance(RBConfig(charge_compute=False),
+                                     run.bundle(), run.tiers)
+                fresh.resume(sim, tree, reqs)
+                holder["eng"] = fresh
+            sim.push(crash_at, crash)
+        sim.run()
+        check_terminal_states(reqs)
+        return completion_tuples(reqs), holder["dropped"]
+
+    scratch_dir = Path(__file__).resolve().parent / "build"
+    scratch_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch_dir) as d:
+        ref, _ = one(None, None)
+        got, dropped = one(5.3, d)
+    same = got == ref
+    emit("crash_restore", t=5.3, requests=len(ref), dropped_events=dropped,
+         identical_completions=same,
+         differing=sum(a != b for a, b in zip(got, ref)))
+    check(dropped > 0, "the controller crash dropped nothing")
+    check(same, "the restored run's completions differ from the uncrashed")
+    return dict(identical=same, dropped_events=dropped)
+
+
+class K2Recorder:
+    """A tap for the KNN kernel's wrapper (`knn_topk.tap`): keeps every
+    `every`-th call's query (cloned) and the last call's, beside the index
+    it was looked up in (the bundle's, which a run does not change)."""
+
+    def __init__(self, every=16):
+        self.every, self.n, self.kept, self.last = every, 0, [], None
+
+    def __call__(self, q, x, k, xsq):
+        snap = (self.n, q.clone(), x, k, xsq)
+        if self.n % self.every == 0:
+            self.kept.append(snap)
+        self.last = snap
+        self.n += 1
+
+    def calls(self):
+        if self.last is not None and self.last[0] != self.kept[-1][0]:
+            return self.kept + [self.last]
+        return self.kept
+
+
+def hold_recorded_k2(kt, rec):
+    """Each recorded lookup once more through the kernel and its plain
+    version: idx rows identical on >= 99% of the rows, d2 within rtol
+    1e-5 plus 1e-6 of its scale (a query next to an index row has a d2
+    near 0 that cancellation leaves few exact digits)."""
+    n_rows = n_agree = 0
+    worst = 0.0
+    for i, q, x, k, xsq in rec.calls():
+        d, idx = kt.knn_topk(q, x, k, xsq=xsq)
+        pd, pidx = kt.knn_topk_plain(q, x, k, xsq)
+        ok, err = close(d, pd, 1e-5, 1e-6)
+        check(ok, f"hyperfleet_10k call {i}: d2 error {err} outside "
+              "tolerance of the plain version")
+        n_rows += q.shape[0]
+        n_agree += int((idx == pidx).all(1).sum())
+        worst = max(worst, err)
+    check(n_rows > 0 and n_agree >= 0.99 * n_rows,
+          f"hyperfleet_10k: idx agreement {n_agree}/{n_rows} < 0.99")
+    return dict(calls=[c[0] for c in rec.calls()], rows=n_rows,
+                idx_row_agreement=n_agree / n_rows, d2_max_abs_err=worst)
+
+
+HYPERFLEET_N = 2000
+
+
+def phase_hyperfleet(mk, kt):
+    """`hyperfleet_10k`: the megakernel refuses its 10,000-instance roster
+    by name; about 2,000 of its requests run on the staged torch backend
+    with the KNN kernel, one K2 launch per scoring call."""
+    from repro_torch.core import RBConfig, RouteBalance
+    from repro_torch.serving.scenarios import get_scenario
+    t0 = time.perf_counter()
+    run = get_scenario("hyperfleet_10k").build(dataset_n=SCEN_DATASET_N)
+    run.bundle(device=DEV)
+    setup = time.perf_counter() - t0
+    reqs = run.requests(HYPERFLEET_N, seed=0)
+    mk.reset_counts()
+    try:
+        run.run_cell(RouteBalance(RBConfig(), run.bundle(), run.tiers),
+                     reqs, seed=0)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "MAX_I" in refused,
+          "the megakernel did not refuse hyperfleet_10k by name")
+    check(sum(k1_counts(mk)) == 0, "K1 ran on hyperfleet_10k")
+    reqs = run.requests(HYPERFLEET_N, seed=0)
+    rb = RouteBalance(RBConfig(decision_backend="torch", knn_backend="kernel",
+                               charge_compute=False), run.bundle(), run.tiers)
+    kt.reset_counts()
+    recorder = K2Recorder()
+    kt.knn_topk.tap = recorder
+    try:
+        t1 = time.perf_counter()
+        m = run.run_cell(rb, reqs, seed=0)
+        wall = time.perf_counter() - t1
+    finally:
+        kt.knn_topk.tap = None
+    launches = (kt.knn_topk.launches if DEV == "cuda"
+                else kt.knn_topk.plain_calls)
+    plain = kt.knn_topk.plain_calls if DEV == "cuda" else 0
+    calls = len(rb.compute_log)
+    held = hold_recorded_k2(kt, recorder)
+    row = dict(instances=run.n_instances, requests=len(reqs), served=m["n"],
+               failed=m["failed"], scoring_calls=calls, knn_launches=launches,
+               knn_plain_calls=plain, quality=m["quality"],
+               mean_e2e=m["mean_e2e"], p99_e2e=m["p99_e2e"],
+               measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
+               mean_batch_size=m["mean_batch_size"], setup_s=setup,
+               wall_s=wall, megakernel_refusal=refused,
+               recorded_vs_plain=held)
+    emit("hyperfleet", **row)
+    check(m["n"] + m["failed"] + m["shed"] == len(reqs) and m["n"] > 0,
+          "hyperfleet_10k: requests not all terminal")
+    check(launches == calls > 0,
+          f"hyperfleet_10k: {launches} K2 launches for {calls} scoring calls")
+    check(plain == 0, "hyperfleet_10k: plain KNN calls")
+    check(recorder.n == launches,
+          f"hyperfleet_10k: the tap saw {recorder.n} of {launches} calls")
+    check(sum(k1_counts(mk)) == 0, "K1 ran on the staged backend")
+    return row
+
+
 # -- model-zoo kernels: K3 decode attention, K4 SSD scan ----------------------
 
 DEV = "cuda"
@@ -996,7 +1623,10 @@ def main():
     k4_times = phase_k4_times(k4)
     launches, ctx = phase_main_path(mk)
     knn_counts = phase_staged(ctx, kt, mk)
+    multiwindow = phase_multiwindow(mk, ctx)
     del ctx
+    scen = phase_scenarios(mk, kt)
+    knn_counts["hyperfleet_10k/torch"] = scen["hyperfleet"]["knn_launches"]
     dense = phase_zoo_serving("dense_serving", "qwen2.5-3b", 8, 512, 1024,
                               64, k3, k4, want_k3=36 * 64, want_k4=0)
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
@@ -1007,7 +1637,14 @@ def main():
         "source": "src/repro_torch/csrc/decision_megakernel.cu",
         "replaces": "src/repro/kernels/decision_megakernel.py:283",
         "function": "decision_call",
-        "launches": launches[12.0], "launches_30rps": launches[30.0],
+        "launches": launches[12.0] + launches[30.0] + scen["k1_launches"],
+        "launches_by_path": {"main_12rps": launches[12.0],
+                             "main_30rps": launches[30.0],
+                             "scenarios": scen["k1_launches"]},
+        "launches_by_scenario": {k: v["k1_launches"]
+                                 for k, v in scen["cells"].items()},
+        "multiwindow": {str(K): v.get("times") for K, v in
+                        multiwindow.items()},
         "checked_against_plain": True, "max_abs_err": max_abs,
         "min_choice_agreement_normal": min_agree,
         "ms": main8["ms"], "plain_ms": main8["plain_ms"],

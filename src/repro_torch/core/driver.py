@@ -2,8 +2,8 @@
 
 Port of `repro.core.driver` (lines 21-123). One ``run_cell`` = one
 configuration cell of the paper's evaluation (fixed scheduler, weights,
-arrival rate, prompt set). Scenario schedules (`schedule=`) wait for the
-scenario port (ROADMAP queue 1, item 2).
+arrival rate, prompt set), optionally under a scenario's perturbation
+schedule and with overload and recovery controllers armed on the sim.
 """
 from __future__ import annotations
 
@@ -49,12 +49,12 @@ def run_cell(scheduler, tiers: Sequence[Tier], model_names: List[str],
              schedule_seed: int = 0,
              setup: Optional[Callable[[ClusterSim], None]] = None) -> Dict:
     """fail_at: optional {time: t, instances: [iids]} failure injection.
+    schedule: optional scenario perturbation schedule (a sequence of
+    `repro_torch.serving.scenarios.FailureEvent`) armed on the sim.
     setup: optional hook called on the fresh sim before the scheduler
-    attaches."""
-    if schedule:
-        raise NotImplementedError(
-            "scenario schedules are not ported yet (ROADMAP queue 1, "
-            "item 2)")
+    attaches — the arming point for overload control
+    (`repro_torch.serving.overload.arm_elastic`) and recovery
+    (`repro_torch.serving.recovery.arm_recovery`)."""
     sim = ClusterSim(list(tiers), model_names, seed=seed)
     if setup is not None:
         setup(sim)
@@ -68,9 +68,14 @@ def run_cell(scheduler, tiers: Sequence[Tier], model_names: List[str],
             for iid in fail_at["instances"]:
                 sim.by_id[iid].fail()
         sim.push(fail_at["time"], kill)
+    if schedule:
+        from ..serving.scenarios import apply_schedule
+        apply_schedule(sim, schedule, seed=schedule_seed)
     sim.run()
-    # exactly-once delivery: a double-append to `completed` means a
-    # request terminated twice and the cell's rates are garbage
+    # exactly-once delivery: the fault-tolerant lifecycle (retry,
+    # hedging, controller restore) must terminate every request exactly
+    # once — a double-append to `completed` means a request terminated
+    # twice and the cell's rates are garbage
     seen_ids = {id(r) for r in sim.completed}
     if len(seen_ids) != len(sim.completed):
         raise RuntimeError(f"{len(sim.completed) - len(seen_ids)} requests "
@@ -92,4 +97,18 @@ def run_cell(scheduler, tiers: Sequence[Tier], model_names: List[str],
         out["measured_decide_ms_per_req"] = float(
             times.sum() / max(sizes.sum(), 1) * 1e3)
         out["mean_batch_size"] = float(sizes.mean())
+    ctl = getattr(sim, "overload", None)
+    if ctl is not None:
+        out["scale_ups"] = ctl.scale_ups
+        out["scale_downs"] = ctl.scale_downs
+        out["scale_up_lag_s"] = ctl.cfg.scale_up_lag_s
+        out["peak_alive"] = ctl.peak_alive
+    mgr = getattr(sim, "recovery", None)
+    if mgr is not None:
+        out["retries"] = mgr.retries
+        out["gave_up"] = mgr.gave_up
+        out["hedges"] = mgr.hedges
+        out["duplicate_tokens"] = mgr.duplicate_tokens
+        out["quarantines"] = mgr.quarantines
+        out["degraded_decisions"] = mgr.degraded_decisions
     return out

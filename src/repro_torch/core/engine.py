@@ -1,6 +1,6 @@
 """The policy-agnostic serving engine.
 
-Port of `repro.core.engine` (lines 52-499): `EngineConfig`,
+Port of `repro.core.engine` (lines 52-586): `EngineConfig`,
 `BatchView`, `Ready`, `AssignmentResult`, the `SchedulingPolicy`
 protocol and `ServingEngine` with its four deployments, the §6.3 ladder
 axis, orthogonal to the policy:
@@ -19,10 +19,15 @@ axis, orthogonal to the policy:
 The station deployments charge the router queue wait and drop arrivals
 beyond a bounded `queue_capacity`. Every deployment measures decision
 time per call (`compute_log`, which feeds `charge_compute` in the
-windowed one). The engine reaches `sim.recovery` and `sim.overload`
-through `getattr`, so it runs without them.
-
-Not ported yet (ROADMAP queue 1): checkpoint/restore.
+windowed one). The engine reaches `sim.recovery`
+(`repro_torch.serving.recovery`) and `sim.overload`
+(`repro_torch.serving.overload`) through `getattr`, so it runs without
+them: arrivals go through the overload controller's shed verdict before
+batch formation, a dark telemetry mirror routes batches to the recovery
+manager's degraded least-loaded assignment, and every dispatch arms a
+hedge deadline. The windowed deployment checkpoints its controller state
+as a flat numpy tree and resumes from it after a controller crash
+(`checkpoint_tree`, `save_checkpoint`, `resume`).
 """
 from __future__ import annotations
 
@@ -479,3 +484,92 @@ class ServingEngine:
         self.batches += 1
         self.compute_log.append((len(group), time.perf_counter() - t0))
         self._drain(t)
+
+    # -- checkpoint/restore (windowed deployment) -----------------------------
+    # The controller's durable state — everything a fresh scheduler
+    # process needs to resume a trace exactly where a crashed one
+    # stopped — is tiny and flat: the waiting queue (rids; request
+    # payloads are replayable from the trace), the admission counters,
+    # the fire-loop clock, and the recovery manager's pending retry and
+    # hedge timers. `repro_torch.distributed.checkpoint.CheckpointManager`
+    # persists it atomically; `resume` rebuilds a (possibly brand-new)
+    # engine onto the surviving sim. Checkpoints must be coordinated
+    # with the crash point (save at the instant the controller dies, as
+    # a write-ahead log would guarantee): state that changed after the
+    # snapshot is rolled back on the controller but not on the workers.
+
+    def checkpoint_tree(self) -> dict:
+        """The controller's durable state as a flat numpy tree (the
+        shape `_checkpoint_template` describes)."""
+        mgr = (getattr(self.sim, "recovery", None)
+               if self.sim is not None else None)
+        tree = self._checkpoint_template()
+        tree["waiting_rids"] = np.array([r.rid for r in self.waiting],
+                                        np.int64)
+        tree["counters"] = np.array(
+            [self.decisions, self.shed_count, self.batches,
+             -1 if self.expected is None else self.expected], np.int64)
+        tree["clock"] = np.array(
+            [self._next_fire if self._fire_armed else -1.0,
+             self._measured_compute], np.float64)
+        if mgr is not None:
+            tree.update(mgr.pending_state())
+        return tree
+
+    @staticmethod
+    def _checkpoint_template() -> dict:
+        """A dtype-correct skeleton of `checkpoint_tree` — what
+        `CheckpointManager.restore` needs as its `tree_like` (restore
+        takes shapes from the stored arrays, dtypes from this)."""
+        return {
+            "waiting_rids": np.zeros(0, np.int64),
+            "counters": np.zeros(4, np.int64),
+            "clock": np.zeros(2, np.float64),
+            "retry_rids": np.zeros(0, np.int64),
+            "retry_due": np.zeros(0, np.float64),
+            "watch_keys": np.zeros((0, 3), np.int64),
+            "watch_due": np.zeros(0, np.float64),
+            "watch_slot": np.zeros(0, np.int64),
+            "recovery_counters": np.zeros(7, np.int64),
+        }
+
+    def save_checkpoint(self, ckpt, step: int):
+        """Persist the controller state via a
+        `repro_torch.distributed.checkpoint.CheckpointManager`."""
+        ckpt.save(step, self.checkpoint_tree(),
+                  metadata={"now": self.sim.now if self.sim else 0.0})
+
+    def resume(self, sim: ClusterSim, tree: dict,
+               requests: Sequence[Request]) -> "ServingEngine":
+        """Rebuild this (typically freshly constructed) engine from a
+        checkpoint onto a sim whose controller died
+        (`repro_torch.serving.recovery.simulate_controller_crash`): worker
+        decode chains and future arrivals survived; the waiting queue,
+        counters, pending retries/hedge timers and the fire loop come
+        back from the tree. Windowed deployment only. `requests` is the
+        trace the checkpointed rids index into."""
+        if self.ecfg.deployment != "windowed":
+            raise ValueError(f"resume needs the windowed deployment, not "
+                             f"{self.ecfg.deployment!r}")
+        by_rid = {r.rid: r for r in requests}
+        c = tree["counters"]
+        self.decisions, self.shed_count, self.batches = (
+            int(c[0]), int(c[1]), int(c[2]))
+        self.expected = None if int(c[3]) < 0 else int(c[3])
+        self._measured_compute = float(tree["clock"][1])
+        self.waiting = [by_rid[int(rid)] for rid in tree["waiting_rids"]]
+        self.sim = sim
+        self.policy.on_attach(sim)
+        mgr = getattr(sim, "recovery", None)
+        if mgr is not None:
+            mgr.bind(self)
+            mgr.restore_pending(tree, by_rid)
+        self._wait_start = self._wait_n = 0
+        self._wait_cols = False if self.waiting else None
+        self._fire_armed = False
+        next_fire = float(tree["clock"][0])
+        if next_fire >= 0.0:
+            self._arm_fire(max(next_fire, sim.now))
+        elif self.waiting:
+            self._arm_fire(sim.now + self.ecfg.base_window)
+        return self

@@ -1,8 +1,9 @@
 """The per-batch RouteBalance decision as one device call, fed by the
 zero-allocation SoA ingest layer (§4.2/§6.3).
 
-Port of `repro.core.hotpath` (lines 72-356, 459-625, 723-731), the
-megakernel branch only: one decided batch is one call of
+Port of `repro.core.hotpath` (lines 72-356, 459-731), the megakernel
+branch only: one decided batch — or K scheduler windows coalesced by
+`decide_cols_multi` — is one call of
 `repro_torch.kernels.decision_megakernel` (the CUDA kernel on the card,
 its plain version on the CPU). The host machinery around it is the
 reference's:
@@ -22,9 +23,10 @@ reference's:
     host copy is waited for (a CUDA event, not a device-wide sync) only
     at the scheduler's dispatch point.
 
-Batch size R and roster size I are bucketed to powers of two; pad rows
-are invalid rows that still pick but update nothing, and pad columns
-stay dead. `shape_variants()` counts the distinct (R bucket) shapes the
+Batch size R, window count K and roster size I are bucketed to powers
+of two; pad rows are invalid rows that still pick but update nothing,
+pad windows hold only pad rows, and pad columns stay dead.
+`shape_variants()` counts the distinct (K bucket, R bucket) shapes the
 kernel has been called at, the port's stand-in for the reference's
 `compile_count`.
 """
@@ -45,10 +47,10 @@ from .decision import bucket_pow2
 
 
 def _new_stats() -> Dict:
-    return {"calls": 0, "host_s": 0.0, "stage_s": 0.0, "dispatch_s": 0.0,
-            "device_s": 0.0, "sync_s": 0.0, "full_reseed": 0,
-            "roster_reseed": 0, "delta_sync": 0, "delta_rows": 0,
-            "carry": 0}
+    return {"calls": 0, "multi_dispatch": 0, "host_s": 0.0, "stage_s": 0.0,
+            "dispatch_s": 0.0, "device_s": 0.0, "sync_s": 0.0,
+            "full_reseed": 0, "roster_reseed": 0, "delta_sync": 0,
+            "delta_rows": 0, "carry": 0}
 
 
 class LazyDecision:
@@ -183,8 +185,8 @@ class FusedHotPath:
         # delta lanes: one fixed capacity >= the mostly-dirty threshold
         # where _sync_state reseeds instead
         self._Kcap = bucket_pow2(max(8, (self._n_real + 1) // 2))
-        self._stage: Dict[int, list] = {}    # Rb -> [bufset, bufset]
-        self._sflip: Dict[int, int] = {}
+        self._stage: Dict[Tuple[int, int], list] = {}  # (Kb, Rb) -> pair
+        self._sflip: Dict[Tuple[int, int], int] = {}
         self._dstage = [self._delta_set(), self._delta_set()]
         self._dflip = 0
         self._variants = set()
@@ -222,32 +224,61 @@ class FusedHotPath:
         self.stats = _new_stats()
 
     def shape_variants(self) -> int:
-        """Distinct R buckets the kernel has been called at. Roster events
-        (fail/recover) flip the alive mask and reseed the mirror but add
-        no variant."""
+        """Distinct (K bucket, R bucket) shapes the kernel has been called
+        at. Roster events (fail/recover, quarantine, autoscale) flip the
+        alive mask and reseed the mirror but add no variant."""
         return len(self._variants)
 
-    def _stage_buffers(self, Rb: int) -> Dict[str, torch.Tensor]:
-        """The preallocated host staging set for the pow2 batch bucket;
-        two sets alternate so batch N+1 never overwrites batch N's
-        in-flight upload."""
-        pair = self._stage.get(Rb)
+    def _stage_buffers(self, Kb: int, Rb: int) -> Dict[str, torch.Tensor]:
+        """The preallocated host staging set for Kb windows of the pow2
+        batch bucket Rb; two sets alternate so call N+1 never overwrites
+        call N's in-flight upload or its answer's copy."""
+        key = (Kb, Rb)
+        pair = self._stage.get(key)
         if pair is None:
             def mk():
-                buf = {"emb": self._host((1, Rb, self._E), torch.float32),
-                       "prow": np.zeros(Rb, np.int32),
-                       "budgets": self._host((1, Rb), torch.float32),
-                       "len_in": self._host((1, Rb), torch.float32),
-                       "rv": self._host((1, Rb), torch.bool),
-                       "choice": self._host(Rb, torch.int32),
-                       "l": self._host(Rb, torch.float32)}
+                buf = {"emb": self._host((Kb, Rb, self._E), torch.float32),
+                       "prow": np.zeros((Kb, Rb), np.int32),
+                       "budgets": self._host((Kb, Rb), torch.float32),
+                       "len_in": self._host((Kb, Rb), torch.float32),
+                       "rv": self._host((Kb, Rb), torch.bool),
+                       "choice": self._host((Kb, Rb), torch.int32),
+                       "l": self._host((Kb, Rb), torch.float32)}
                 if self._w_aff > 0.0:
-                    buf["psig"] = self._host((1, Rb, SIG_WIDTH), torch.int32)
+                    buf["psig"] = self._host((Kb, Rb, SIG_WIDTH),
+                                             torch.int32)
                 return buf
-            pair = self._stage[Rb] = [mk(), mk()]
-            self._sflip[Rb] = 0
-        self._sflip[Rb] ^= 1
-        return pair[self._sflip[Rb]]
+            pair = self._stage[key] = [mk(), mk()]
+            self._sflip[key] = 0
+        self._sflip[key] ^= 1
+        return pair[self._sflip[key]]
+
+    def _stage_window(self, s, w: int, cols, rows) -> None:
+        """Gather window w's rows from the SoA ingest columns into the
+        staging set; a window with no rows is a pad window (every row
+        invalid: it still picks, and updates nothing)."""
+        R = len(rows)
+        emb, bud = s["emb"].numpy()[w], s["budgets"].numpy()[w]
+        lin, rv = s["len_in"].numpy()[w], s["rv"].numpy()[w]
+        if R:
+            if cols.emb is None:
+                raise ValueError("RequestColumns.ensure_embeddings must run "
+                                 "before decide")
+            prow = s["prow"][w, :R]
+            np.take(cols.prompt_row, rows, out=prow)
+            np.take(cols.emb, prow, axis=0, out=emb[:R])
+            bud[:R] = cols.budget[rows]
+            lin[:R] = cols.len_in[rows]
+        emb[R:] = 0.0
+        bud[R:] = np.nan
+        lin[R:] = 0.0
+        rv[:R] = True
+        rv[R:] = False
+        if self._w_aff > 0.0:
+            psig = s["psig"].numpy()[w]
+            if R:
+                np.take(cols.prefix_sig, prow, axis=0, out=psig[:R])
+            psig[R:] = 0
 
     def _sync_state(self, tel):
         """Refresh the device telemetry mirror from `tel` and return
@@ -306,33 +337,49 @@ class FusedHotPath:
         stage into the pinned double-buffered host set, sync the device
         telemetry mirror, call the kernel once, and queue the copy of
         its answer back to the host behind an event."""
-        if cols.emb is None:
-            raise ValueError("RequestColumns.ensure_embeddings must run "
-                             "before decide")
-        st = self.stats
-        st["calls"] += 1
+        self.stats["calls"] += 1
         t0 = time.perf_counter()
-        R = len(rows)
-        Rb = bucket_pow2(R)
-        s = self._stage_buffers(Rb)
-        prow = s["prow"]
-        np.take(cols.prompt_row, rows, out=prow[:R])
-        emb = s["emb"].numpy()[0]
-        np.take(cols.emb, prow[:R], axis=0, out=emb[:R])
-        emb[R:] = 0.0
-        bud = s["budgets"].numpy()[0]
-        bud[:R] = cols.budget[rows]
-        bud[R:] = np.nan
-        lin = s["len_in"].numpy()[0]
-        lin[:R] = cols.len_in[rows]
-        lin[R:] = 0.0
-        rv = s["rv"].numpy()[0]
-        rv[:R] = True
-        rv[R:] = False
+        s = self._stage_buffers(1, bucket_pow2(len(rows)))
+        self._stage_window(s, 0, cols, rows)
+        return self._dispatch(s, tel, t0, [len(rows)])[0]
+
+    def decide_cols_multi(self, batches, tel) -> List[LazyDecision]:
+        """K scheduler windows sharing ONE kernel call. `batches` is a list
+        of (cols, rows) window slices; returns one `LazyDecision` per
+        window, in order.
+
+        All windows decide from the same telemetry snapshot — exactly
+        what K back-to-back `decide_cols` calls produce when telemetry
+        has not moved between them (each call reseeds the mirror from
+        `tel`; dead-reckoned state never carries across batches) — so
+        coalescing is assignment-exact while paying one kernel call, one
+        mirror sync and one staging pass for the K windows. Window count
+        and row count both bucket to powers of two (pad windows hold only
+        invalid rows), keeping shape variants at O(log K · log R)."""
+        if len(batches) == 1:
+            cols, rows = batches[0]
+            return [self.decide_cols(cols, rows, tel)]
+        K = len(batches)
+        self.stats["calls"] += K
+        self.stats["multi_dispatch"] += 1
+        t0 = time.perf_counter()
+        Kb = bucket_pow2(K, lo=1)
+        s = self._stage_buffers(
+            Kb, bucket_pow2(max(len(rows) for _, rows in batches)))
+        for w, (cols, rows) in enumerate(batches):
+            self._stage_window(s, w, cols, rows)
+        for w in range(K, Kb):
+            self._stage_window(s, w, None, ())
+        return self._dispatch(s, tel, t0, [len(rows) for _, rows in batches])
+
+    def _dispatch(self, s, tel, t0: float, sizes) -> List[LazyDecision]:
+        """The shared tail of a decision call on the staged set `s` (Kb
+        windows of Rb rows): stage the affinity plane, sync the device
+        mirror, call the kernel once, and queue the copy of its answer
+        back behind an event. One `LazyDecision` per real window, of
+        `sizes[w]` rows."""
+        st = self.stats
         if self._w_aff > 0.0:
-            psig = s["psig"].numpy()[0]
-            np.take(cols.prefix_sig, prow[:R], axis=0, out=psig[:R])
-            psig[R:] = 0
             self._pflip ^= 1
             plane = self._pstage[self._pflip]
             plane.numpy()[:self._n_real] = tel.prefix_sig
@@ -352,24 +399,26 @@ class FusedHotPath:
             latency_mode=self._mode, lpt=self._lpt,
             budget_filter=self._budget_filter, w_aff=self._w_aff,
             use_gbm=self._use_gbm, depth=self._depth, lr=self._lr)
-        self._variants.add(Rb)
-        # post-scan dead-reckoned view, kept for diagnostics only: the
-        # next batch reseeds from telemetry like the staged backends
-        self._post_state = (d1[0], b1[0], f1[0])
+        self._variants.add(tuple(s["rv"].shape))
+        # post-scan dead-reckoned view of the last real window, kept for
+        # diagnostics only (windows are independent, pad windows update
+        # nothing): the next call reseeds from telemetry like the staged
+        # backends
+        last = len(sizes) - 1
+        self._post_state = (d1[last], b1[last], f1[last])
         event = None
         if self._cuda:
-            s["choice"].copy_(choice[0], non_blocking=True)
-            s["l"].copy_(l_chosen[0], non_blocking=True)
+            s["choice"].copy_(choice, non_blocking=True)
+            s["l"].copy_(l_chosen, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-            out = (s["choice"], s["l"])
-        else:
-            out = (choice[0], l_chosen[0])
+            choice, l_chosen = s["choice"], s["l"]
         t3 = time.perf_counter()
         st["stage_s"] += t1 - t0
         st["host_s"] += t2 - t0
         st["dispatch_s"] += t3 - t2
-        return LazyDecision(out[0], out[1], R, event, st)
+        return [LazyDecision(choice[w], l_chosen[w], R, event, st)
+                for w, R in enumerate(sizes)]
 
     def decide(self, batch, tel) -> Tuple[np.ndarray, np.ndarray]:
         """AoS entry (direct callers, tests): derive the column slice

@@ -1,7 +1,7 @@
 """RouteBalance: the fused routing + load-balancing policy (§4) on the
 policy-agnostic `ServingEngine`.
 
-Port of `repro.core.scheduler` (lines 38-156, 171-396, 399-429). Per
+Port of `repro.core.scheduler` (lines 38-429). Per
 fired batch every request gets its instance: KNN quality/length
 estimates over the memoized prompt embeddings, per-tier TPOT heads over
 the dead-reckoned instance state, Eq. 2 admission and the LPT-ordered
@@ -17,10 +17,17 @@ greedy pass maximizing Eq. 1.
     decide` on the bundle's device (the reference's "jax").
 The staged paths take their estimates from one KNN query per batch,
 through the bundle's KNN backend or `RBConfig.knn_backend` ("numpy",
-"torch", or "kernel" — the K2 kernel). The reference's names "fused",
-"jax" and "pallas" raise ValueError naming the port's counterpart;
-options this slice does not carry raise NotImplementedError with the
-ROADMAP item that will bring them.
+"torch", or "kernel" — the K2 kernel). `assign_windows` decides K
+scheduler windows in one kernel call on the megakernel backend; the
+engine does not call it, as in the reference. `RBConfig.window_coalesce`
+is accepted and validated (>= 1, > 1 only on the megakernel) to match
+the reference's API, and, as there, nothing reads it: a caller groups
+the windows itself and passes them to `assign_windows`. The megakernel
+takes rosters of at most `kernels.decision_megakernel.MAX_I` instances
+and refuses a larger one when the policy attaches to its sim. The
+reference's names "fused", "jax" and "pallas" raise ValueError naming
+the port's counterpart; options the port does not carry yet raise
+NotImplementedError with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -49,8 +56,6 @@ DECISION_BACKENDS = ("megakernel", "numpy", "torch")
 _REFERENCE_BACKENDS = {"fused": "megakernel", "jax": "torch"}
 # reference options this slice does not carry yet -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "window_coalesce": (1, "queue 1, item 1 (decide_cols_multi/"
-                        "assign_windows)"),
     "shard_cells": (0, "queue 1, item 4 (hierarchy)"),
     "cell_tag": (None, "queue 1, item 4 (hierarchy)"),
 }
@@ -70,7 +75,9 @@ class RBConfig:
     knn_k: int = 10
     charge_compute: bool = True        # charge measured decision time
     decision_backend: str = "megakernel"   # | numpy | torch (staged)
-    window_coalesce: int = 1
+    window_coalesce: int = 1           # validated, read by nothing (as
+    #                                    in the reference): a caller
+    #                                    groups windows for assign_windows
     knn_backend: Optional[str] = None  # override the bundle's KNN backend
     #                                    (numpy | torch | kernel); staged
     #                                    backends only — the megakernel
@@ -93,6 +100,11 @@ class RBConfig:
                              f"not in {DECISION_BACKENDS}")
         if self.knn_backend is not None:
             check_backend(self.knn_backend)
+        if self.window_coalesce < 1:
+            raise ValueError(f"window_coalesce={self.window_coalesce} < 1")
+        if self.window_coalesce > 1 and self.decision_backend != "megakernel":
+            raise ValueError("window_coalesce > 1 needs decision_backend="
+                             "'megakernel'")
         for name, (default, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value != default:
@@ -214,6 +226,15 @@ class RouteBalancePolicy(SchedulingPolicy):
 
     def on_attach(self, sim: ClusterSim):
         self._fused = None                    # new sim -> new roster
+        if self.cfg.decision_backend == "megakernel":
+            from ..kernels.decision_megakernel import MAX_I
+            if len(sim.instances) > MAX_I:
+                raise ValueError(
+                    f"a roster of {len(sim.instances)} instances is more "
+                    f"than the decision kernel takes (MAX_I = {MAX_I}): "
+                    "use decision_backend='torch' (the staged torch "
+                    "backend); the hierarchy that splits such a fleet "
+                    "into cells is ROADMAP queue 1, item 4")
 
     def shed_verdict(self, req: Request, controller) -> bool:
         if not self.cfg.shed:
@@ -233,6 +254,23 @@ class RouteBalancePolicy(SchedulingPolicy):
                                                       cluster.tel))
         instances, choice, l_chosen = self._decide_staged(batch, cluster)
         return AssignmentResult(instances, Ready(choice, l_chosen))
+
+    def assign_windows(self, batches: List[BatchView],
+                       cluster: ClusterSim) -> List[AssignmentResult]:
+        """K scheduler windows as ONE kernel call on the megakernel
+        backend (`FusedHotPath.decide_cols_multi`). All K windows decide
+        against the same telemetry snapshot — exactly what K back-to-back
+        `assign` calls see when telemetry has not moved between them, so
+        coalescing is assignment-exact there while paying one call for K
+        windows. Falls back to per-window `assign` on the staged backends
+        (and for K == 1)."""
+        if (self.cfg.decision_backend != "megakernel"
+                or len(batches) <= 1):
+            return [self.assign(bv, cluster) for bv in batches]
+        runner = self._fused_runner(cluster)
+        slices = [bv.columns(self.bundle.encoder) for bv in batches]
+        lazies = runner.decide_cols_multi(slices, cluster.tel)
+        return [AssignmentResult(cluster.instances, lz) for lz in lazies]
 
     def _fused_runner(self, sim: ClusterSim):
         if not sim.tel.alive.any():

@@ -19,11 +19,15 @@ its wrapper, with the reference's signature and statics (the TPU-only
 `decision_megakernel.launches` counts calls that went to the kernel
 (one per decided batch, one `__global__` function, `decision_fused`,
 each), `decision_megakernel.plain_calls` those that went to the plain
-version. Stage 1 takes its layout (row tile and index splits) for the
-K * R rows from the KNN lookup's measured table (`layout`); the
-kernel's scratch (split lists, tickets, the rows' label mixes) lives per
-(device, stream), allocated once and grown on demand, so a call
-allocates only its outputs and launches nothing else.
+version. `decision_megakernel.tap`, None unless a caller sets it, is
+called with each call's (args, statics) before the call runs, so that a
+check can record the arguments the serving path passes and hold the
+kernel against its plain version on them afterwards. Stage 1 takes its
+layout (row tile and index splits) for the K * R rows from the KNN
+lookup's measured table (`layout`); the kernel's scratch (split lists,
+tickets, the rows' label mixes) lives per (device, stream), allocated
+once and grown on demand, so a call allocates only its outputs and
+launches nothing else.
 
 Per-window args carry a leading K axis — emb (K, R, E), row_valid
 (K, R) bool, budgets/len_in (K, R) float32, psig (K, R, SIG_WIDTH)
@@ -297,6 +301,8 @@ def decision_megakernel(emb, row_valid, budgets, len_in, psig,
     kw = dict(k=k, eps=eps, weights=weights, latency_mode=latency_mode,
               lpt=lpt, budget_filter=budget_filter, w_aff=w_aff,
               use_gbm=use_gbm, depth=depth, lr=lr)
+    if decision_megakernel.tap is not None:
+        decision_megakernel.tap(args, kw)
     if emb.device.type == "cuda":
         out = _launch(*args, **kw)
         decision_megakernel.launches += 1
@@ -309,6 +315,7 @@ def decision_megakernel(emb, row_valid, budgets, len_in, psig,
 
 decision_megakernel.launches = 0
 decision_megakernel.plain_calls = 0
+decision_megakernel.tap = None
 
 
 def reset_counts():

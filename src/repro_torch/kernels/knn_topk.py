@@ -24,10 +24,13 @@ this port keeps the lower index (see ROADMAP queue 3).
 
 `knn_topk.launches` counts calls that went to the kernel (one
 __global__ function each), `knn_topk.plain_calls` those that went to
-the plain version. On float32 input the wrapper launches nothing else
-and allocates only the two outputs: |q|^2 is summed in the kernel, and
-the kernel's scratch (per-split candidates and one ticket per row tile)
-is allocated once per (device, stream) and grown on demand.
+the plain version; `knn_topk.tap`, None unless a caller sets it, is
+called with each call's (q, x, k, xsq) before the call runs (as
+`decision_megakernel.tap` is). On float32 input the wrapper launches
+nothing else and allocates only the two outputs: |q|^2 is summed in the
+kernel, and the kernel's scratch (per-split candidates and one ticket
+per row tile) is allocated once per (device, stream) and grown on
+demand.
 """
 from __future__ import annotations
 
@@ -189,6 +192,8 @@ def knn_topk(q: torch.Tensor, x: torch.Tensor, k: int = 10,
     ascending: the CUDA kernel on CUDA tensors, the plain version on CPU
     tensors (see the module docstring)."""
     _validate(q, x, k, xsq)
+    if knn_topk.tap is not None:
+        knn_topk.tap(q, x, k, xsq)
     if q.device.type == "cuda":
         out = _launch(q, x, k, xsq)
         knn_topk.launches += 1
@@ -201,6 +206,7 @@ def knn_topk(q: torch.Tensor, x: torch.Tensor, k: int = 10,
 
 knn_topk.launches = 0
 knn_topk.plain_calls = 0
+knn_topk.tap = None
 
 
 def reset_counts():

@@ -1,12 +1,6 @@
 """Discrete-event simulation of a heterogeneous continuous-batching
 cluster (the vLLM-analogue substrate).
 
-Port of `repro.serving.cluster` (numpy), the paths the quickstart
-runs: recovery, quarantine, hedging and straggler injection come with
-the scenario port (ROADMAP queue 1, item 2), and the recovery and
-overload managers the code reaches through `getattr(sim, ...)` are
-None until then.
-
 Each instance runs iteration-level continuous batching: every decode
 iteration advances all running sequences by one token in
 ``tier.tpot(batch, mean_ctx)`` seconds (the calibrated roofline), admits
@@ -16,6 +10,11 @@ finished sequences. Telemetry is a non-blocking snapshot refreshed at
 iteration boundaries — the paper's worker-side-cache contract (§5) — so
 the scheduler always reads slightly-stale state, which is exactly what
 dead reckoning exists to correct.
+
+Port of `repro.serving.cluster` (numpy, unchanged). The recovery and
+overload managers the code reaches through `getattr(sim, ...)` are
+`repro_torch.serving.recovery.RecoveryManager` (``sim.recovery``) and
+`repro_torch.serving.overload.ElasticController` (``sim.overload``).
 """
 from __future__ import annotations
 
@@ -61,9 +60,12 @@ class TelemetryArrays:
         at version v refreshes exactly the rows with
         ``last_write > v`` — a handful of scatter rows per batch instead
         of a full (I,)x5 re-upload;
-      * `roster_version` bumps only on roster-shape events (kill).
-        Those flip the alive mask, which incremental readers keep
-        device-resident, so they fall back to a full reseed.
+      * `roster_version` bumps only on roster-shape events (kill /
+        revive). Those flip the alive mask, which incremental readers
+        keep device-resident, so they fall back to a full reseed.
+
+    Bulk in-place edits of the columns (test fixtures, benchmarks) must
+    call `mark_all_dirty()` so stamp-based readers see them.
     """
 
     def __init__(self, instances: List["Instance"]):
@@ -124,8 +126,42 @@ class TelemetryArrays:
         """Rows written after version `since` (ascending slot order)."""
         return np.flatnonzero(self.last_write > since)
 
+    def mark_all_dirty(self):
+        """Stamp every row as freshly written — required after editing
+        the columns in place (rather than through `write`)."""
+        self.version += 1
+        self.last_write[:] = self.version
+
     def kill(self, slot: int):
         self.alive[slot] = False
+        self.version += 1
+        self.roster_version += 1
+
+    def revive(self, slot: int, t: float):
+        """Recovered instance re-enters the roster with a clean slate
+        (it lost all running/queued work when it failed)."""
+        self.alive[slot] = True
+        self.roster_version += 1
+        self.write(slot, pending=0.0, batch=0, free=int(self.max_batch[slot]),
+                   ctx=0.0, queue=0, t=t)
+
+    def quarantine(self, slot: int):
+        """Mask a stale row exactly like a dead one (the telemetry
+        watchdog's path): an alive-mask flip + `roster_version` bump, so
+        incremental readers full-reseed at the shapes they already run
+        — quarantine churn never adds a kernel shape variant. The
+        instance itself keeps serving what it has; it just receives no
+        new dispatches until the row is released."""
+        self.alive[slot] = False
+        self.version += 1
+        self.roster_version += 1
+
+    def unquarantine(self, slot: int):
+        """Release a quarantined row back into the roster. The caller
+        reseeds the row with a fresh `write` (the instance was serving
+        the whole time, so — unlike `revive` — its true state is not a
+        clean slate)."""
+        self.alive[slot] = True
         self.version += 1
         self.roster_version += 1
 
@@ -145,6 +181,7 @@ class Instance:
         self.busy_until = 0.0
         self.alive = True
         self.epoch = 0              # bumped on fail(): one life = one epoch
+        self.quarantined = False    # watchdog-masked (tel row dark)
         self.tel_mute = False       # blackout: stop publishing telemetry
         self.slowdown = 1.0         # >1 = straggler (hidden from telemetry)
         # dead-reckoned model of this instance's prefix cache
@@ -180,6 +217,9 @@ class Instance:
         self.sim.tel.write_prefix(self.slot, self.sketch, hit_tok)
         self.queue.append((req, pred_len))
         self._kick(t)
+
+    def telemetry(self) -> Dict:
+        return dict(self.snapshot)
 
     # -- engine -------------------------------------------------------------
     def _kick(self, t: float):
@@ -278,7 +318,7 @@ class Instance:
         """Node failure: mark dead; running + queued requests either
         re-enter the scheduler's admission path (when the sim carries a
         `RecoveryManager`, `sim.recovery` — see
-        `repro.serving.recovery`) or fail terminally.
+        `repro_torch.serving.recovery`) or fail terminally.
 
         Terminally failed requests get the failure instant stamped as
         their finish_time — they really do leave the system at that
@@ -290,6 +330,7 @@ class Instance:
         # here and recover() can start a fresh chain immediately
         self.epoch += 1
         self.iter_scheduled = False
+        self.quarantined = False
         # the KV cache dies with the node: drop the sketch AND its
         # scheduler-side mirror, so retries/hedges of the victims are
         # never scored against credit this instance no longer holds,
@@ -310,6 +351,51 @@ class Instance:
             if req.finish_time is None:
                 req.finish_time = self.sim.now
             self.sim.completed.append(req)
+
+    def cancel(self, req: Request) -> Optional[int]:
+        """Withdraw a request without completing it (the hedge loser's
+        path): remove it from the queue or the running batch. Returns
+        the tokens it had already generated here — duplicate work the
+        hedge spent — or None when the request is not on this instance
+        (it already finished or was never dispatched here)."""
+        for j, (r, _) in enumerate(self.queue):
+            if r is req:
+                del self.queue[j]
+                return 0
+        for s in self.running:
+            if s.req is req:
+                self.running.remove(s)
+                return s.generated
+        return None
+
+    def recover(self, t: float):
+        """Node recovery: re-enter the roster with a genuinely clean
+        slate — empty engine, healthy speed (a recovered node is a
+        replacement, not the same degraded hardware). With no
+        `sim.recovery` armed, failed work is not replayed — the paper's
+        fleet treats failed requests as lost."""
+        if self.alive:
+            return
+        self.alive = True
+        self.busy_until = t
+        # fail() reset iter_scheduled and bumped the epoch, so a
+        # pre-failure _iterate still pending in the heap is inert — a
+        # new submit can safely start a fresh single iteration chain
+        # (pinned by tests/test_recovery.py::test_stale_iterate_epoch)
+        self.iter_scheduled = False
+        self.quarantined = False
+        self.tel_mute = False
+        self.slowdown = 1.0
+        self.snapshot = self._idle_snapshot(t)
+        self.sim.tel.revive(self.slot, t)
+
+    def set_slowdown(self, factor: float):
+        """Straggler injection: scale this instance's real prefill/decode
+        time by `factor` (>1 = slower). Telemetry is NOT adjusted — the
+        scheduler's TPOT heads keep predicting healthy-node speed, which
+        is exactly the model-mismatch stress the paper's dead-reckoning
+        arm is meant to survive."""
+        self.slowdown = float(factor)
 
 
 class ClusterSim:
@@ -346,3 +432,23 @@ class ClusterSim:
             self.now = t
             fn(t)
 
+    def telemetry(self) -> Dict[str, Dict]:
+        return {i.iid: i.telemetry() for i in self.instances
+                if i.alive}
+
+    def alive_instances(self) -> List[Instance]:
+        return [i for i in self.instances if i.alive]
+
+    def has_noncontrol_events(self) -> bool:
+        """True while the heap holds anything besides controller
+        self-loops (overload detector, telemetry watchdog). Periodic
+        controllers re-arm on THIS predicate instead of bare
+        `sim._events`, so two controllers can never keep each other —
+        and the run — alive forever."""
+        for _, _, fn in self._events:
+            owner = getattr(fn, "__self__", None)
+            if owner is not None and getattr(owner, "_is_controller",
+                                             False):
+                continue
+            return True
+        return False

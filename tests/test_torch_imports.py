@@ -33,7 +33,9 @@ def test_port_modules_import_without_jax_or_reference():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.decision_megakernel", "kernels.decode_attention",
                  "kernels.ssd_scan", "models.api", "models.blocks",
-                 "models.bridge", "configs.registry", "launch.steps"):
+                 "models.bridge", "configs.registry", "launch.steps",
+                 "serving.scenarios", "serving.recovery", "serving.overload",
+                 "serving.faults", "distributed.checkpoint"):
         assert f"repro_torch.{name}" in mods
     assert not [m for m in mods if _foreign(m) or m == "ml_dtypes"]
 

@@ -119,17 +119,16 @@ def test_delta_sync_equals_reseed(port):
 
 
 def test_unported_options_refuse():
-    """Options this slice does not carry name their ROADMAP item; the
-    reference's backend names name the port's counterpart."""
-    for kw in (dict(window_coalesce=2), dict(shard_cells=2),
-               dict(cell_tag=3)):
+    """Options the port does not carry yet (the hierarchy's) name their
+    ROADMAP item; the reference's backend names name the port's
+    counterpart; window coalescing and scenario schedules are ported."""
+    for kw in (dict(shard_cells=2), dict(cell_tag=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.RBConfig(**kw)
+    assert P.RBConfig(window_coalesce=2).window_coalesce == 2
     for kw, counterpart in ((dict(decision_backend="fused"), "megakernel"),
                             (dict(decision_backend="jax"), "torch"),
                             (dict(knn_backend="pallas"), "kernel"),
                             (dict(knn_backend="jax"), "torch")):
         with pytest.raises(ValueError, match=repr(counterpart)):
             P.RBConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.run_cell(None, [], [], [], schedule=[object()])
