@@ -126,15 +126,39 @@ Phases, each printing one JSON line; any failed check exits nonzero
      recorded through `knn_topk.tap`, held against the plain version
      (idx rows identical on >= 99%, d2 within rtol 1e-5 plus 1e-6 of
      its scale);
-  6. the kernels line (launches of every driven path: K1 the main path
-     and 5f, K2 5b, 5c and 5f's hyperfleet), then the card's
-     `nvidia-smi` line, then the last line
+  5g. hierarchy — `repro_torch.serving.hierarchy` on the card,
+     `charge_compute=False`: `cluster` (48 instances, 400 requests) at
+     one balanced cell against the single controller (identical
+     per-request trajectories) and at two cells with `RecoveryConfig()`
+     (every request terminal once, none failed, retries > 0 and the cell
+     managers' retries summing to the router's); `hyperfleet_10k` on 5f's
+     2,000 requests in balanced cells at 16 (K1 at I = 1,024) and 32
+     (I = 512) cells with exact digests and at 16 with int8 digests
+     (terminal once, K1 launches = the cells' fired batches less degraded
+     ones, no plain call, no K2 launch, each cell's shape variants equal
+     to its R buckets, digests on the wire), the exact runs once more
+     with `decision_megakernel.tap` (the same completions; the first
+     call, every 16th and the last held against the plain version as 5f
+     holds its calls); span at 16 cells on the staged torch backend with
+     K2 (completions identical to 5f's unsharded staged run, one K2
+     launch per scoring call, no K1 launch); K1 alone at I = 512 and
+     1,024 (R = 8, 64): exact against the plain version on dyadic inputs,
+     then call ms, device ms and bound, and at R = 8 the device ms
+     without the TPOT heads; the cells' hot-path clocks per call; and
+     `python -m repro_torch.launch.serve --scenario cluster --cells 2
+     --n 200` as a subprocess (2 cells, digests on the wire, every
+     request terminal once: the scenario's kill at t = 6 s fails what
+     runs there, recovery being off);
+  6. the kernels line (launches of every driven path: K1 the main path,
+     5f and 5g's hierarchy, K2 5b, 5c, 5f's hyperfleet and 5g's span),
+     then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
 
 It imports torch, numpy, the standard library and `repro_torch` (from
 `src/` beside this file), never jax and nothing of the JAX package.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -711,6 +735,14 @@ def k1_counts(mk):
             else (f.plain_calls, 0))
 
 
+def k2_counts(kt):
+    """(calls that went to the KNN kernel, calls to its plain version);
+    on the CPU (DEV = "cpu") the plain calls stand in for launches."""
+    f = kt.knn_topk
+    return ((f.launches, f.plain_calls) if DEV == "cuda"
+            else (f.plain_calls, 0))
+
+
 def window_slice(tensors, w):
     """The arguments of one window of a K-window call, as a K = 1 call."""
     return [t[w:w + 1].contiguous() if j < 4 else t
@@ -1108,10 +1140,11 @@ def phase_scenarios(mk, kt):
         check(np.isfinite(m["mean_e2e"]) and 0.0 < m["quality"] < 1.0,
               f"{label}: implausible metrics")
     crash = phase_crash_restore(world("chaos")[0], faults)
-    fleet = phase_hyperfleet(mk, kt)
+    fleet, fleet_run, fleet_done = phase_hyperfleet(mk, kt)
     emit("scenario_setup", seconds_by_world=setup)
     return dict(cells=rows, k1_launches=k1_total, crash=crash,
-                hyperfleet=fleet)
+                hyperfleet=fleet, worlds=worlds, fleet_run=fleet_run,
+                fleet_completions=fleet_done)
 
 
 def phase_crash_restore(run, faults):
@@ -1221,7 +1254,8 @@ HYPERFLEET_N = 2000
 def phase_hyperfleet(mk, kt):
     """`hyperfleet_10k`: the megakernel refuses its 10,000-instance roster
     by name; about 2,000 of its requests run on the staged torch backend
-    with the KNN kernel, one K2 launch per scoring call."""
+    with the KNN kernel, one K2 launch per scoring call. Returns (row,
+    the built run, the staged run's completion tuples)."""
     from repro_torch.core import RBConfig, RouteBalance
     from repro_torch.serving.scenarios import get_scenario
     t0 = time.perf_counter()
@@ -1251,9 +1285,7 @@ def phase_hyperfleet(mk, kt):
         wall = time.perf_counter() - t1
     finally:
         kt.knn_topk.tap = None
-    launches = (kt.knn_topk.launches if DEV == "cuda"
-                else kt.knn_topk.plain_calls)
-    plain = kt.knn_topk.plain_calls if DEV == "cuda" else 0
+    launches, plain = k2_counts(kt)
     calls = len(rb.compute_log)
     held = hold_recorded_k2(kt, recorder)
     row = dict(instances=run.n_instances, requests=len(reqs), served=m["n"],
@@ -1273,6 +1305,314 @@ def phase_hyperfleet(mk, kt):
     check(recorder.n == launches,
           f"hyperfleet_10k: the tap saw {recorder.n} of {launches} calls")
     check(sum(k1_counts(mk)) == 0, "K1 ran on the staged backend")
+    return row, run, completion_tuples(reqs)
+
+
+# -- the hierarchy (phase 5g) -----------------------------------------------
+
+HIER_N = 400                      # cluster cells: 5f's request count
+HIER_FLEET = ((16, "exact", 1024), (32, "exact", 512), (16, "int8", 1024))
+LAUNCHER_N = 200
+
+
+def hier_run(mk, kt, run, make, reqs, tap=None):
+    """One counted cell: a fresh scheduler from `make()` (hot-path cache
+    dropped, so each cell engine's shape count is this run's), the K1 and
+    K2 counts set to 0 just before and read just after. Returns
+    (scheduler, metrics, wall s, (K1 launches, K1 plain), (K2 launches,
+    K2 plain))."""
+    run.bundle().__dict__.pop("_fused_cache", None)
+    sched = make()
+    mk.reset_counts()
+    kt.reset_counts()
+    mk.decision_megakernel.tap = tap
+    try:
+        t0 = time.perf_counter()
+        m = run.run_cell(sched, reqs, seed=0)
+        wall = time.perf_counter() - t0
+    finally:
+        mk.decision_megakernel.tap = None
+    return sched, m, wall, k1_counts(mk), k2_counts(kt)
+
+
+def check_cells(label, sched, m, reqs, k1, k2):
+    """The balanced hierarchy's invariants: every request terminal once,
+    K1 launches = the cells' fired batches less their degraded ones, no
+    plain call, no K2 launch (K1 has the lookup built in), and each cell
+    engine's shape variants equal to its R buckets (roster churn adds
+    none). Returns (fired, degraded)."""
+    from repro_torch.core.decision import bucket_pow2
+    from repro_torch.serving.metrics import check_terminal_states
+    check_terminal_states(reqs)
+    check(m["n"] + m["failed"] + m["shed"] == len(reqs),
+          f"{label}: {len(reqs)} requests, not all terminal once")
+    fired = sum(len(e.compute_log) for e in sched.engines)
+    degraded = sum(cs.recovery.degraded_batches for cs in sched.cell_sims
+                   if cs.recovery is not None)
+    check(k1[0] == fired - degraded > 0,
+          f"{label}: {k1[0]} K1 launches for {fired} batches, {degraded} "
+          "degraded")
+    check(k1[1] == 0, f"{label}: {k1[1]} K1 plain-version calls")
+    check(sum(k2) == 0, f"{label}: K2 ran {k2} on the balanced path")
+    for ci, e in enumerate(sched.engines):
+        if e._fused is None:
+            continue
+        want = len({bucket_pow2(s) for s, _ in e.compute_log})
+        check(e._fused.shape_variants() == want,
+              f"{label} cell {ci}: {e._fused.shape_variants()} shape "
+              f"variants for {want} R buckets")
+    return fired, degraded
+
+
+def hot_path_split(engines):
+    """The cells' hot-path host clocks summed over their K1 calls, per
+    call (ms): staging, mirror sync, the launch, the wait for the answer
+    and its copy out, beside each decided batch's whole decide time, and
+    the mirror's reseed / delta / carry counts."""
+    keys = ("stage_s", "host_s", "dispatch_s", "device_s", "sync_s",
+            "full_reseed", "roster_reseed", "delta_sync", "delta_rows",
+            "carry")
+    tot = {k: sum(e._fused.stats[k] for e in engines if e._fused)
+           for k in keys}
+    calls = max(sum(e._fused.stats["calls"] for e in engines if e._fused), 1)
+    decide = sum(dt for e in engines for _, dt in e.compute_log)
+    return dict(per_call_ms={
+        "stage": tot["stage_s"] / calls * 1e3,
+        "mirror_sync": (tot["host_s"] - tot["stage_s"]) / calls * 1e3,
+        "launch": tot["dispatch_s"] / calls * 1e3,
+        "device_wait": tot["device_s"] / calls * 1e3,
+        "copy_out": tot["sync_s"] / calls * 1e3,
+        "decide_whole": decide / calls * 1e3},
+        sync_counts={k: tot[k] for k in keys[5:]})
+
+
+def phase_hierarchy(mk, kt, scen):
+    """Phase 5g: the hierarchy on the card, `charge_compute=False`.
+    `cluster` at one cell against the single controller and at two cells
+    with recovery armed; `hyperfleet_10k` in balanced cells at 16 and 32
+    cells (K1 at I = 1,024 and 512), 16 once more with int8 digests, the
+    exact runs once more tapped and their recorded K1 calls held against
+    the plain version; span at 16 cells on the staged torch backend
+    with K2 against 5f's unsharded staged run; K1 alone at I = 512 and
+    1,024; and the launcher as a subprocess."""
+    from repro_torch.core import RBConfig, RouteBalance
+    from repro_torch.serving.hierarchy import HierarchyConfig, build_scheduler
+    from repro_torch.serving.recovery import RecoveryConfig
+    t_phase = time.perf_counter()
+    out, k1_total = {}, 0
+    cfg = RBConfig(charge_compute=False)
+
+    # one cell against one controller, then two cells with recovery
+    run, sc = scen["worlds"]["cluster"]
+    run.scenario, run.recovery = sc, sc.recovery
+    reqs_a = run.requests(HIER_N, seed=0)
+    single, _, _, k1_single, _ = hier_run(
+        mk, kt, run, lambda: RouteBalance(cfg, run.bundle(), run.tiers),
+        reqs_a)
+    reqs_b = run.requests(HIER_N, seed=0)
+    one, m1, _, k1, k2 = hier_run(
+        mk, kt, run, lambda: build_scheduler(
+            cfg, run.bundle(), run.tiers, HierarchyConfig(n_cells=1)),
+        reqs_b)
+    check_cells("cluster/1 cell", one, m1, reqs_b, k1, k2)
+    k1_total += k1[0]
+    same = completion_tuples(reqs_a) == completion_tuples(reqs_b)
+    out["one_cell"] = dict(requests=HIER_N, identical_to_single=same,
+                           k1_launches=k1[0],
+                           single_controller_k1_launches=k1_single[0],
+                           fired_batches=len(single.compute_log))
+    emit("hierarchy_one_cell", **out["one_cell"])
+    check(same, "cluster: the 1-cell hierarchy's trajectories differ from "
+          "the single controller's")
+    run.recovery = RecoveryConfig()
+    try:
+        reqs = run.requests(HIER_N, seed=0)
+        two, m2, wall, k1, k2 = hier_run(
+            mk, kt, run, lambda: build_scheduler(
+                cfg, run.bundle(), run.tiers, HierarchyConfig(n_cells=2)),
+            reqs)
+    finally:
+        run.recovery = sc.recovery
+    fired, degraded = check_cells("cluster/2 cells, recovery", two, m2,
+                                  reqs, k1, k2)
+    k1_total += k1[0]
+    per_cell = [cs.recovery.retries for cs in two.cell_sims]
+    out["two_cells_recovery"] = dict(
+        requests=HIER_N, served=m2["n"], failed=m2["failed"],
+        retries=m2["retries"], retries_by_cell=per_cell,
+        hedges=m2["hedges"], quarantines=m2["quarantines"],
+        fired_batches=fired, degraded_batches=degraded, k1_launches=k1[0],
+        digests=two.balancer.digests_sent,
+        imbalance=two.balancer.imbalance(), wall_s=wall)
+    emit("hierarchy_two_cells", **out["two_cells_recovery"])
+    check(m2["failed"] == 0, f"cluster/2 cells: {m2['failed']} failed "
+          "with recovery armed")
+    check(m2["retries"] > 0 and sum(per_cell) == m2["retries"],
+          f"cluster/2 cells: retries {m2['retries']}, by cell {per_cell}")
+
+    # hyperfleet_10k in balanced cells, then once more tapped
+    fleet = scen["fleet_run"]
+    staged_ms = scen["hyperfleet"]["measured_decide_ms_per_req"]
+    out["fleet"] = {}
+    for n_cells, mode, bucket in HIER_FLEET:
+        label = f"hyperfleet_10k/{n_cells} cells/{mode}"
+        hcfg = HierarchyConfig(n_cells=n_cells, digest_mode=mode)
+
+        def make():
+            return build_scheduler(cfg, fleet.bundle(), fleet.tiers, hcfg)
+        reqs = fleet.requests(HYPERFLEET_N, seed=0)
+        sched, m, wall, k1, k2 = hier_run(mk, kt, fleet, make, reqs)
+        fired, degraded = check_cells(label, sched, m, reqs, k1, k2)
+        k1_total += k1[0]
+        buckets = sorted({e._fused._Itot for e in sched.engines
+                          if e._fused is not None})
+        check(buckets == [bucket], f"{label}: I buckets {buckets}")
+        bal = sched.balancer
+        check(bal.digests_sent > 0 and bal.bytes_sent > 0,
+              f"{label}: no digest crossed the wire")
+        row = dict(cells=n_cells, digest_mode=mode, i_bucket=bucket,
+                   requests=len(reqs), served=m["n"], failed=m["failed"],
+                   shed=m["shed"], fired_batches=fired,
+                   degraded_batches=degraded, k1_launches=k1[0],
+                   k1_plain_calls=k1[1],
+                   measured_decide_ms_per_req=m[
+                       "measured_decide_ms_per_req"],
+                   staged_torch_decide_ms_per_req_5f=staged_ms,
+                   mean_batch_size=m["mean_batch_size"],
+                   imbalance=bal.imbalance(), digests=bal.digests_sent,
+                   digest_bytes=bal.bytes_sent,
+                   digest_bytes_per_s=bal.bytes_sent / max(sched.sim.now,
+                                                           1e-9),
+                   quality=m["quality"], mean_e2e=m["mean_e2e"],
+                   p99_e2e=m["p99_e2e"], wall_s=wall,
+                   **hot_path_split(sched.engines))
+        if mode == "exact":
+            rec = K1Recorder(events=0)            # first, every 16th, last
+            reqs2 = fleet.requests(HYPERFLEET_N, seed=0)
+            hier_run(mk, kt, fleet, make, reqs2, tap=rec)
+            row["tapped_run_identical"] = (completion_tuples(reqs2)
+                                           == completion_tuples(reqs))
+            check(row["tapped_run_identical"],
+                  f"{label}: the tapped run's completions differ")
+            check(rec.n == k1[0], f"{label}: the tapped run made {rec.n} "
+                  f"calls, the counted run {k1[0]}")
+            check(all(args[5].shape[0] == bucket
+                      for _, _, args, _ in rec.calls()),
+                  f"{label}: a recorded call is not at I = {bucket}")
+            row["recorded_vs_plain"] = hold_recorded_k1(mk, rec, label)
+        out["fleet"][label] = row
+        emit("hierarchy_fleet", **row)
+        check(np.isfinite(m["mean_e2e"]) and 0.0 < m["quality"] < 1.0,
+              f"{label}: implausible metrics")
+
+    # span: one logical decision sharded over 16 cells, staged torch + K2
+    reqs = fleet.requests(HYPERFLEET_N, seed=0)
+    span, m, wall, k1, k2 = hier_run(
+        mk, kt, fleet, lambda: build_scheduler(
+            RBConfig(decision_backend="torch", knn_backend="kernel",
+                     charge_compute=False), fleet.bundle(), fleet.tiers,
+            HierarchyConfig(n_cells=16, routing="span")), reqs)
+    calls = len(span.compute_log)
+    same = completion_tuples(reqs) == scen["fleet_completions"]
+    out["span"] = dict(cells=16, requests=len(reqs), served=m["n"],
+                       scoring_calls=calls, knn_launches=k2[0],
+                       knn_plain_calls=k2[1], k1_calls=sum(k1),
+                       identical_to_staged_5f=same,
+                       measured_decide_ms_per_req=m[
+                           "measured_decide_ms_per_req"],
+                       staged_torch_decide_ms_per_req_5f=staged_ms,
+                       quality=m["quality"], mean_e2e=m["mean_e2e"],
+                       p99_e2e=m["p99_e2e"], wall_s=wall)
+    emit("hierarchy_span", **out["span"])
+    check(span.cfg.shard_cells == 16, "span: not sharded")
+    check(same, "span: completions differ from 5f's unsharded staged run")
+    check(k2[0] == calls > 0 and k2[1] == 0,
+          f"span: {k2} K2 launches for {calls} scoring calls")
+    check(sum(k1) == 0, "span: K1 ran on the staged backend")
+
+    out["k1_times"] = phase_k1_cells(mk)
+    out["launcher"] = phase_launcher()
+    out["k1_launches"] = k1_total
+    out["k2_launches_span"] = k2[0]
+    emit("hierarchy_done", seconds=time.perf_counter() - t_phase,
+         k1_launches=k1_total, k2_launches_span=k2[0])
+    return out
+
+
+def phase_k1_cells(mk):
+    """K1 alone at the cells' rosters (I = 512 and 1,024, a cell's alive
+    share of hyperfleet_10k) on the main path's index: held against the
+    plain version on dyadic inputs (every output), then timed as phase 4
+    times it (call, device, bound) at R = 8 and 64, and at R = 8 once
+    more without the TPOT heads (device ms)."""
+    rows = {}
+    for I, n_alive in ((512, 313), (1024, 625)):
+        for R in (8, 64):
+            tensors, statics = make_case(700 + I + R, R=R, I=I,
+                                         n_alive=n_alive, dev=DEV)
+            hold_k1(kernel_out(mk, tensors, statics),
+                    plain_reference(mk, tensors, statics),
+                    tensors[1].cpu().numpy(), True, f"K1 I={I} R={R}")
+            if DEV != "cuda":
+                continue
+            tensors, statics = make_case(800 + I + R, R=R, I=I,
+                                         n_alive=n_alive, dyadic=False)
+
+            def kernel():
+                return mk.decision_megakernel(*tensors, **statics)
+            b_ms, by, nbytes, flops = bound_ms(tensors, statics,
+                                               neighbour_rows(tensors))
+            row = dict(I=I, R=R, alive=n_alive, ms=time_ms(kernel),
+                       plain_ms=time_ms(lambda: mk.decision_megakernel_plain(
+                           *tensors, **statics), n=10),
+                       bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
+                       device_ms=required_split(
+                           kernel, (K1_FUNCTION,),
+                           f"K1 I={I} R={R}")[K1_FUNCTION])
+            if R == 8:
+                # the same call without the TPOT heads: their share of
+                # the device time, which the scan CTA pays per instance
+                off, st_off = make_case(800 + I + R, R=R, I=I,
+                                        n_alive=n_alive, dyadic=False,
+                                        use_gbm=False)
+                row["device_ms_gbm_off"] = required_split(
+                    lambda: mk.decision_megakernel(*off, **st_off),
+                    (K1_FUNCTION,), f"K1 I={I} R={R} GBM off")[K1_FUNCTION]
+            rows[f"I={I},R={R}"] = row
+            emit("hierarchy_k1_times", exact_vs_plain_dyadic=True, **row)
+    return rows
+
+
+def phase_launcher():
+    """`python -m repro_torch.launch.serve --scenario cluster --cells 2`
+    as a user runs it, on the card: its JSON names 2 cells, digests
+    crossed the wire and every request is terminal once. The scenario
+    kills 15% of its instances at t = 6 s with recovery off, so requests
+    in flight there fail, as in the reference's launcher."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--scenario",
+           "cluster", "--cells", "2", "--n", str(LAUNCHER_N)]
+    if DEV != "cuda":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")},
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"launcher exited {res.returncode}: {res.stderr[-2000:]}")
+    m = json.loads(res.stdout)
+    row = dict(command=" ".join(cmd[1:]), wall_s=wall, **{
+        k: m.get(k) for k in ("cells", "cell_routing", "decision_backend",
+                              "n", "failed", "shed", "digests",
+                              "digest_bytes", "intercell_imbalance",
+                              "quality", "mean_e2e",
+                              "measured_decide_ms_per_req")})
+    emit("hierarchy_launcher", **row)
+    check(m["cells"] == 2 and m["digests"] > 0 and m["digest_bytes"] > 0,
+          f"launcher: {row}")
+    check(m["n"] + m["failed"] + m["shed"] == LAUNCHER_N,
+          f"launcher: {LAUNCHER_N} requests, not all terminal once")
     return row
 
 
@@ -1627,6 +1967,12 @@ def main():
     del ctx
     scen = phase_scenarios(mk, kt)
     knn_counts["hyperfleet_10k/torch"] = scen["hyperfleet"]["knn_launches"]
+    hier = phase_hierarchy(mk, kt, scen)
+    knn_counts["span"] = hier["k2_launches_span"]
+    scen_k1 = dict(total=scen["k1_launches"],
+                   by_cell={k: v["k1_launches"]
+                            for k, v in scen["cells"].items()})
+    del scen
     dense = phase_zoo_serving("dense_serving", "qwen2.5-3b", 8, 512, 1024,
                               64, k3, k4, want_k3=36 * 64, want_k4=0)
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
@@ -1637,12 +1983,16 @@ def main():
         "source": "src/repro_torch/csrc/decision_megakernel.cu",
         "replaces": "src/repro/kernels/decision_megakernel.py:283",
         "function": "decision_call",
-        "launches": launches[12.0] + launches[30.0] + scen["k1_launches"],
+        "launches": (launches[12.0] + launches[30.0] + scen_k1["total"]
+                     + hier["k1_launches"]),
         "launches_by_path": {"main_12rps": launches[12.0],
                              "main_30rps": launches[30.0],
-                             "scenarios": scen["k1_launches"]},
-        "launches_by_scenario": {k: v["k1_launches"]
-                                 for k, v in scen["cells"].items()},
+                             "scenarios": scen_k1["total"],
+                             "hierarchy": hier["k1_launches"]},
+        "launches_by_scenario": scen_k1["by_cell"],
+        "hierarchy": {"by_run": {k: v["k1_launches"]
+                                 for k, v in hier["fleet"].items()},
+                      "times_at_cells": hier["k1_times"]},
         "multiwindow": {str(K): v.get("times") for K, v in
                         multiwindow.items()},
         "checked_against_plain": True, "max_abs_err": max_abs,

@@ -1,8 +1,10 @@
 """The LPT greedy scan with dead reckoning: the per-step arithmetic of
 the RouteBalance decision (§4).
 
-Port of `repro.core.decision_jax` (lines 46-241): `LATENCY_MODES`,
-`bucket_pow2`, `greedy_step` and the scan, and the staged tensor core
+Port of `repro.core.decision_jax` (lines 46-241 and 286-471):
+`LATENCY_MODES`, `bucket_pow2`, `greedy_step` and the scan, the
+cell-sharded scan of the hierarchy's span routing (`cell_greedy_step`,
+`cell_greedy_scan`, `sharded_greedy_scan`), and the staged tensor core
 that `RBConfig(decision_backend="torch")` runs (the reference's
 `decision_backend="jax"`): `greedy_core` (the scan over a precomputed
 order and admission mask), `decide_batch` (LPT order + Eq. 2 admission
@@ -13,6 +15,16 @@ kernel's plain version
 (`repro_torch.kernels.decision_megakernel.decision_megakernel_plain`),
 and it never reads a value back to the host, so on a CUDA tensor the
 loop only enqueues work.
+
+The sharded scan splits the instance axis into `n_cells` contiguous
+blocks. Every step still needs the global cost and latency maxima, the
+global best score and its first attaining column, so the blocks are
+combined per step with exact max / min / sum reductions over the cell
+axis; a max, a min, or a sum of one value and zeros is exact in any
+order, so the result is bitwise `greedy_scan`'s. Only the single-program
+emulation (`mesh=None`: the cell axis is dim 0 of one tensor) is ported;
+an arm with one cell per GPU over `torch.distributed` is ROADMAP queue
+1, item 8.
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ import numpy as np
 import torch
 
 from .budget import admission_math, cost_matrix
-from .scoring import affinity_discount, masked_score
+from .scoring import affinity_discount, masked_score, quantize_scores
 
 LATENCY_MODES = ("full", "off_reactive", "off_predictive", "static_prior")
 
@@ -109,23 +121,167 @@ def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
     return choice, est_T, (d, b, free)
 
 
+def cell_greedy_step(d, b, free, *, q, c, l, tpot, nominal_tpot, b0,
+                     max_batch, weights, allowed, latency_mode, valid,
+                     affinity, offs, gmax, gmin, gsum):
+    """`greedy_step` over cell-sharded state (reference lines 286-367).
+
+    Per-instance tensors carry a leading cell axis: (C, Ic) state and
+    request rows. `offs` (C, 1) int64 holds each block's first global
+    column; gmax/gmin/gsum reduce a (C, 1) per-cell value over all the
+    cells to (1, 1). Returns (d, b, free, i (1,) int64 GLOBAL pick,
+    est (1,) float32); the state is updated in place, and only in the
+    winner's cell: other cells take identities (+ -0.0, or their own
+    value written back), so they stay bit for bit as they were."""
+    wq, wl, wc = weights
+    C, Ic = d.shape
+    wait = torch.where(free > 0, 0.0, d / torch.clamp_min(b, 1.0))
+    tpot_eff = tpot * torch.clamp_min(b / b0, 1.0)
+    if latency_mode == "static_prior":
+        T = nominal_tpot * l
+    else:
+        T = tpot_eff * (wait + l)
+    if affinity is not None:
+        T = affinity_discount(T, affinity)
+    neg = float("-inf")
+
+    def local_max(x):
+        return x.amax(dim=-1, keepdim=True)
+    # masked_score with GLOBAL normalizers: per-cell max of the masked
+    # plane, the max over cells, then the same clamp
+    cmax = torch.clamp_min(gmax(local_max(torch.where(allowed, c, neg))),
+                           1e-12)
+    tmax = torch.clamp_min(gmax(local_max(torch.where(allowed, T, neg))),
+                           1e-12)
+    blind = latency_mode in ("off_reactive", "off_predictive")
+    sw_l = 0.0 if blind else wl
+    s = wq * q + wc * (1.0 - c / cmax) + sw_l * (1.0 - T / tmax)
+    s = torch.where(allowed, quantize_scores(s), neg)
+    big = torch.iinfo(torch.int64).max
+    if blind:
+        # least normalized tie metric among the score-tied candidates,
+        # over every column (see greedy_step)
+        tie = (d + b) if latency_mode == "off_reactive" else T
+        tn = tie / torch.clamp_min(gmax(local_max(tie)), 1e-9)
+        smax = gmax(local_max(s))
+        v = torch.where(s >= smax, tn, float("inf"))
+        vloc, aloc = v.min(dim=-1, keepdim=True)
+        cand = torch.where(vloc == gmin(vloc), offs + aloc, big)
+    else:
+        sloc, aloc = s.max(dim=-1, keepdim=True)
+        cand = torch.where(sloc == gmax(sloc), offs + aloc, big)
+    i = gmin(cand).view(1)                    # first attaining column
+    li = torch.clamp(i - offs, 0, Ic - 1)     # (C, 1) winner's local column
+    in_cell = (i >= offs) & (i < offs + Ic)   # (C, 1), one True
+    # est = T at the winner: one cell contributes, the others add 0.0
+    est = gsum(torch.where(in_cell, T.gather(1, li), 0.0)).view(1)
+    # dead reckoning in the winner's cell, as greedy_step does it there
+    add_d = torch.where(valid, l.gather(1, li), 0.0)
+    d.scatter_add_(1, li, torch.where(in_cell, add_d, -0.0))
+    has_free = (free.gather(1, li) > 0) & valid & in_cell
+    free.scatter_add_(1, li, -torch.where(has_free, 1.0, 0.0))
+    b_i = b.gather(1, li)
+    b.scatter_(1, li, torch.where(
+        has_free, torch.minimum(b_i + 1.0, max_batch.gather(1, li)), b_i))
+    return d, b, free, i, est
+
+
+def cell_greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d,
+                     b, free, max_batch, weights, allowed,
+                     latency_mode: str, row_valid=None, affinity=None, *,
+                     offs, gmax, gmin, gsum):
+    """`greedy_scan` over cell-sharded tensors (reference lines
+    370-394): (R, C, Ic) request planes, (C, Ic) state. Returns (choice
+    (R,) int64 GLOBAL columns, est_T (R,) float32, (d, b, free) still
+    cell-sharded); d/b/free are copied, not modified."""
+    R = q_inst.shape[0]
+    b0 = torch.clamp_min(b, 1.0)          # snapshot batch (TPOT reference)
+    d, b, free = d.clone(), b.clone(), free.clone()
+    if row_valid is None:
+        row_valid = torch.ones(R, dtype=torch.bool, device=q_inst.device)
+    q_o, c_o, l_o = q_inst[order], c_hat[order], l_inst[order]
+    a_o, v_o = allowed[order], row_valid[order]
+    aff_o = None if affinity is None else affinity[order]
+    picks, ests = [], []
+    for t in range(R):
+        d, b, free, i, est = cell_greedy_step(
+            d, b, free, q=q_o[t], c=c_o[t], l=l_o[t], tpot=tpot,
+            nominal_tpot=nominal_tpot, b0=b0, max_batch=max_batch,
+            weights=weights, allowed=a_o[t], latency_mode=latency_mode,
+            valid=v_o[t], affinity=None if aff_o is None else aff_o[t],
+            offs=offs, gmax=gmax, gmin=gmin, gsum=gsum)
+        picks.append(i)
+        ests.append(est)
+    choice = torch.empty(R, dtype=torch.int64, device=q_inst.device)
+    est_T = torch.empty(R, dtype=torch.float32, device=q_inst.device)
+    if R:
+        choice.index_copy_(0, order, torch.cat(picks))
+        est_T.index_copy_(0, order, torch.cat(ests))
+    return choice, est_T, (d, b, free)
+
+
+def sharded_greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot,
+                        d, b, free, max_batch, weights, allowed,
+                        latency_mode: str, row_valid=None, affinity=None,
+                        *, n_cells: int, mesh=None):
+    """Drop-in cell-sharded `greedy_scan` (reference lines 397-471): the
+    same flat tensors in and out, bitwise the same results. The
+    instance axis must split evenly into `n_cells` contiguous blocks.
+    Only `mesh=None` (the single-program emulation) is ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded_greedy_scan(mesh=...): an arm with one cell per GPU "
+            "over torch.distributed is not ported yet (ROADMAP queue 1, "
+            "item 8); pass mesh=None for the single-program emulation")
+    C = int(n_cells)
+    if C <= 1:
+        return greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot,
+                           d, b, free, max_batch, weights, allowed,
+                           latency_mode, row_valid=row_valid,
+                           affinity=affinity)
+    I = q_inst.shape[-1]
+    if I % C:
+        raise ValueError(f"{I} instance columns do not split into {C} "
+                         "cells")
+    Ic = I // C
+
+    def r2(x):                                    # (R, I) -> (R, C, Ic)
+        return x.reshape(x.shape[0], C, Ic)
+
+    def r1(x):                                    # (I,) -> (C, Ic)
+        return x.reshape(C, Ic)
+    offs = (torch.arange(C, device=q_inst.device) * Ic)[:, None]
+    choice, est_T, (d2, b2, f2) = cell_greedy_scan(
+        order, r2(q_inst), r2(c_hat), r2(l_inst), r1(tpot),
+        r1(nominal_tpot), r1(d), r1(b), r1(free), r1(max_batch), weights,
+        r2(allowed), latency_mode, row_valid=row_valid,
+        affinity=None if affinity is None else r2(affinity), offs=offs,
+        gmax=lambda x: x.amax(dim=0, keepdim=True),
+        gmin=lambda x: x.amin(dim=0, keepdim=True),
+        gsum=lambda x: x.sum(dim=0, keepdim=True))
+    return choice, est_T, (d2.reshape(I), b2.reshape(I), f2.reshape(I))
+
+
 def greedy_core(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
                 free, max_batch, weights, allowed,
-                latency_mode: str = "full", affinity=None):
+                latency_mode: str = "full", affinity=None,
+                n_cells: int = 0):
     """The greedy pass over a precomputed order + admission mask, on
-    float32 tensors of one device. Returns (choice (R,) int64, est_T
-    (R,) float32)."""
-    choice, est_T, _ = greedy_scan(order, q_inst, c_hat, l_inst, tpot,
-                                   nominal_tpot, d, b, free, max_batch,
-                                   weights, allowed, latency_mode,
-                                   affinity=affinity)
+    float32 tensors of one device; `n_cells > 1` runs the cell-sharded
+    scan (bitwise the same). Returns (choice (R,) int64, est_T (R,)
+    float32)."""
+    choice, est_T, _ = sharded_greedy_scan(
+        order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b, free,
+        max_batch, weights, allowed, latency_mode, affinity=affinity,
+        n_cells=n_cells)
     return choice, est_T
 
 
 def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
                  free, max_batch, budgets, len_in, price_in, price_out,
                  weights, latency_mode: str = "full", lpt: bool = True,
-                 budget_filter: bool = True, affinity=None):
+                 budget_filter: bool = True, affinity=None, valid=None,
+                 n_cells: int = 0):
     """The whole per-batch decision on float32 tensors of one device.
 
     q_inst/l_inst: (R, I) per-instance quality / predicted length;
@@ -133,8 +289,10 @@ def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
     tpot/nominal_tpot/d/b/free/max_batch: (I,) instance state;
     budgets (R,) with nan = unconstrained; len_in (R,);
     price_in/price_out (I,); affinity optionally (R, I) prefix-reuse
-    discount. Returns (choice (R,), est_T (R,), c_hat (R, I),
-    allowed (R, I))."""
+    discount; valid optionally (I,) bool, the columns that may be
+    chosen (pad columns never admit, never win the cheapest fallback);
+    n_cells > 1 runs the cell-sharded scan. Returns (choice (R,),
+    est_T (R,), c_hat (R, I), allowed (R, I))."""
     R = q_inst.shape[0]
     if lpt:
         order = torch.argsort(-pred_len_max, stable=True)
@@ -142,14 +300,17 @@ def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
         order = torch.arange(R, device=q_inst.device)
     if budget_filter:
         allowed, c_hat = admission_math(budgets, len_in, l_inst, price_in,
-                                        price_out)
+                                        price_out, valid=valid)
     else:
         c_hat = cost_matrix(len_in, l_inst, price_in, price_out)
         allowed = torch.ones(c_hat.shape, dtype=torch.bool,
                              device=c_hat.device)
+        if valid is not None:
+            allowed = allowed & valid[None, :]
     choice, est_T = greedy_core(order, q_inst, c_hat, l_inst, tpot,
                                 nominal_tpot, d, b, free, max_batch,
-                                weights, allowed, latency_mode, affinity)
+                                weights, allowed, latency_mode, affinity,
+                                n_cells=n_cells)
     return choice, est_T, c_hat, allowed
 
 
@@ -162,17 +323,39 @@ def decide(q_inst: np.ndarray, l_inst: np.ndarray,
            latency_mode: str = "full", lpt: bool = True,
            budget_filter: bool = True,
            affinity: Optional[np.ndarray] = None,
-           device=None) -> Tuple[np.ndarray, np.ndarray]:
+           device=None, n_cells: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """numpy-in / numpy-out wrapper for the scheduler's staged path: every
     input cast to float32 on `device` (None means the card), the batch
     padded to the next power of two (>= 8), as the reference pads it
     for its jit cache. Pad rows carry a -1e30 LPT key, so they scan
     strictly after every real request, a NaN budget and zero `len_in`;
-    their choices are dropped. Returns (choice (R,) int64, est_T (R,)
-    float64)."""
+    their choices are dropped. With `n_cells > 1` (the hierarchy's span
+    routing) the instance axis is also padded, to a power of two that
+    `n_cells` divides, with columns that are never allowed, and the scan
+    runs cell-sharded; the real columns keep their order, so the first
+    attaining column and every choice are the unpadded call's. Returns
+    (choice (R,) int64, est_T (R,) float64)."""
     from .device import resolve_device
     dev = resolve_device(device)
-    R = q_inst.shape[0]
+    R, I = q_inst.shape
+    valid = None
+    if n_cells > 1:
+        Ip = max(bucket_pow2(I), bucket_pow2(n_cells, lo=1))
+        padc = Ip - I
+
+        def col(a, fill=0.0):
+            return np.concatenate([np.asarray(a, float),
+                                   np.full(padc, fill)])
+        q_inst = np.pad(np.asarray(q_inst, float), ((0, 0), (0, padc)))
+        l_inst = np.pad(np.asarray(l_inst, float), ((0, 0), (0, padc)))
+        tpot, nominal_tpot, d, b, free, price_in, price_out = (
+            col(a) for a in (tpot, nominal_tpot, d, b, free, price_in,
+                             price_out))
+        max_batch = col(max_batch, 1.0)
+        if affinity is not None:
+            affinity = np.pad(np.asarray(affinity, np.float32),
+                              ((0, 0), (0, padc)))
+        valid = torch.arange(Ip, device=dev) < I
     Rp = bucket_pow2(R)
     if Rp != R:
         pad = Rp - R
@@ -196,6 +379,7 @@ def decide(q_inst: np.ndarray, l_inst: np.ndarray,
         f32(budgets), f32(len_in), f32(price_in), f32(price_out),
         tuple(float(w) for w in weights), latency_mode=latency_mode,
         lpt=lpt, budget_filter=budget_filter,
-        affinity=None if affinity is None else f32(affinity))
+        affinity=None if affinity is None else f32(affinity), valid=valid,
+        n_cells=n_cells)
     return (choice[:R].cpu().numpy().astype(np.int64),
             est_T[:R].cpu().numpy().astype(np.float64))

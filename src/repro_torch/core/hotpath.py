@@ -92,14 +92,16 @@ class FusedHotPath:
         """Cached constructor: repeated cells over the same bundle with
         an equivalent roster and config reuse the uploaded constants.
         The cache lives on the bundle; carried state is reset on every
-        cache hit."""
+        cache hit. `shard_cells` and `cell_tag` are in the key: the
+        hierarchy's cell engines each need their own carried mirror,
+        stats and shape count, even where two cells' rosters are equal."""
         roster = tuple((i.tier.name, i.model_idx, i.tier.max_batch,
                         i.tier.price_in, i.tier.price_out)
                        for i in instances)
         key = (roster, cfg.latency_mode, bool(cfg.lpt),
                bool(cfg.budget_filter), bool(cfg.learned_tpot),
                tuple(float(w) for w in cfg.weights),
-               float(cfg.affinity_weight))
+               float(cfg.affinity_weight), cfg.shard_cells, cfg.cell_tag)
         cache = bundle.__dict__.setdefault("_fused_cache", {})
         runner = cache.get(key)
         if runner is None:

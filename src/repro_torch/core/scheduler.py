@@ -24,10 +24,13 @@ is accepted and validated (>= 1, > 1 only on the megakernel) to match
 the reference's API, and, as there, nothing reads it: a caller groups
 the windows itself and passes them to `assign_windows`. The megakernel
 takes rosters of at most `kernels.decision_megakernel.MAX_I` instances
-and refuses a larger one when the policy attaches to its sim. The
-reference's names "fused", "jax" and "pallas" raise ValueError naming
-the port's counterpart; options the port does not carry yet raise
-NotImplementedError with the ROADMAP item that will bring them.
+and refuses a larger one when the policy attaches to its sim (the
+hierarchy, `serving.hierarchy`, splits such a fleet into cells).
+`RBConfig.shard_cells > 1` (the hierarchy's span routing) runs the
+staged torch backend's scan cell-sharded, bitwise the unsharded scan;
+`cell_tag` keys the hot-path cache per cell engine. The reference's
+names "fused", "jax" and "pallas" raise ValueError naming the port's
+counterpart.
 """
 from __future__ import annotations
 
@@ -54,11 +57,6 @@ from .weights import PRESETS, Weights, validate
 DECISION_BACKENDS = ("megakernel", "numpy", "torch")
 # the reference's backend names, with the port's counterpart
 _REFERENCE_BACKENDS = {"fused": "megakernel", "jax": "torch"}
-# reference options this slice does not carry yet -> (default, ROADMAP item)
-_NOT_PORTED = {
-    "shard_cells": (0, "queue 1, item 4 (hierarchy)"),
-    "cell_tag": (None, "queue 1, item 4 (hierarchy)"),
-}
 
 
 @dataclasses.dataclass
@@ -86,8 +84,17 @@ class RBConfig:
     affinity_weight: float = 0.0       # prefix-cache affinity term: the
     #                                    predicted latency scales by
     #                                    (1 - weight x matched fraction)
-    shard_cells: int = 0
-    cell_tag: Optional[int] = None
+    shard_cells: int = 0               # hierarchical "span" routing: > 1
+    #                                    splits the staged torch scan's
+    #                                    instance axis into that many
+    #                                    cells (a power of two), combined
+    #                                    with exact reductions: bitwise
+    #                                    the unsharded decision
+    cell_tag: Optional[int] = None     # per-cell engine identity under
+    #                                    balanced routing: keys the
+    #                                    FusedHotPath cache, so cells
+    #                                    with equal rosters still get
+    #                                    their own carried mirrors
 
     def __post_init__(self):
         if self.decision_backend in _REFERENCE_BACKENDS:
@@ -105,12 +112,18 @@ class RBConfig:
         if self.window_coalesce > 1 and self.decision_backend != "megakernel":
             raise ValueError("window_coalesce > 1 needs decision_backend="
                              "'megakernel'")
-        for name, (default, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"RBConfig({name}={value!r}) is not ported yet: "
-                    f"ROADMAP {item}")
+        sc = self.shard_cells
+        if sc < 0 or sc & (sc - 1):
+            raise ValueError(f"shard_cells={self.shard_cells} must be 0 or "
+                             "a power of two")
+        if sc > 1 and self.decision_backend != "torch":
+            # the decision kernel is one monolithic launch over the
+            # roster: the per-step cross-cell reductions of the span
+            # scan live in the staged torch core (the reference likewise
+            # refuses its megakernel)
+            raise ValueError("shard_cells > 1 needs decision_backend="
+                             "'torch' (the staged torch backend), not "
+                             f"{self.decision_backend!r}")
 
 
 class EstimatorBundle:
@@ -232,9 +245,11 @@ class RouteBalancePolicy(SchedulingPolicy):
                 raise ValueError(
                     f"a roster of {len(sim.instances)} instances is more "
                     f"than the decision kernel takes (MAX_I = {MAX_I}): "
+                    "split it into balanced cells with n_cells >= "
+                    f"ceil(I / MAX_I) = {-(-len(sim.instances) // MAX_I)} "
+                    "(repro_torch.serving.hierarchy.build_scheduler), or "
                     "use decision_backend='torch' (the staged torch "
-                    "backend); the hierarchy that splits such a fleet "
-                    "into cells is ROADMAP queue 1, item 4")
+                    "backend)")
 
     def shed_verdict(self, req: Request, controller) -> bool:
         if not self.cfg.shed:
@@ -348,7 +363,7 @@ class RouteBalancePolicy(SchedulingPolicy):
                 maxb, budgets, len_in, price_in, price_out, cfg.weights,
                 latency_mode=cfg.latency_mode, lpt=cfg.lpt,
                 budget_filter=cfg.budget_filter, affinity=aff,
-                device=self.bundle.device)
+                device=self.bundle.device, n_cells=cfg.shard_cells)
         else:
             # the host loop evaluates the decision arithmetic in float32,
             # the tensor core's precision, so the quantized Eq. 1 tie

@@ -1,1 +1,2 @@
-"""Checkpoint/restore of the serving controller's state."""
+"""The serving controller's distributed state: checkpoint/restore,
+elastic membership and the telemetry digests of the hierarchy."""

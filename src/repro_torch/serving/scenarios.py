@@ -617,11 +617,12 @@ SCENARIOS: Dict[str, Scenario] = {
                        arrival_kw=(("cv", 2.0),)),
             TenantSpec("batch", 10.0, budget_frac=0.4),
         )),
-    # The 10k-instance world the reference's hierarchical scheduler
-    # exists for (not ported yet: ROADMAP queue 1, item 4). Its roster
-    # is over the decision kernel's MAX_I, so the megakernel backend
-    # refuses it by name and it runs on the staged backends — a 10k
-    # roster is deliberately not tier-1.
+    # The 10k-instance world the hierarchical scheduler exists for
+    # (`serving.hierarchy`). Its roster is over the decision kernel's
+    # MAX_I, so the megakernel backend refuses it as one controller; it
+    # runs in balanced cells (16 cells: I bucket 1,024 each, on the
+    # kernel) or on the staged backends (span) — a 10k roster is
+    # deliberately not tier-1.
     "hyperfleet_10k": Scenario(
         name="hyperfleet_10k", pool="synthetic", n_tiers=16,
         n_instances=10000, seed=7,

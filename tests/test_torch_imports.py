@@ -35,7 +35,9 @@ def test_port_modules_import_without_jax_or_reference():
                  "kernels.ssd_scan", "models.api", "models.blocks",
                  "models.bridge", "configs.registry", "launch.steps",
                  "serving.scenarios", "serving.recovery", "serving.overload",
-                 "serving.faults", "distributed.checkpoint"):
+                 "serving.faults", "distributed.checkpoint",
+                 "serving.hierarchy", "distributed.elastic",
+                 "distributed.compression", "launch.serve"):
         assert f"repro_torch.{name}" in mods
     assert not [m for m in mods if _foreign(m) or m == "ml_dtypes"]
 

@@ -217,7 +217,8 @@ def test_scenario_cell_matches_reference(pairs, name, dataset_n, n, seed,
 def test_megakernel_refuses_a_roster_over_its_limit():
     """`hyperfleet_10k`'s roster is more than the decision kernel takes:
     the megakernel refuses it by name when it attaches, before any
-    kernel call; the staged backends take it."""
+    kernel call, naming the cell count the hierarchy needs for it; the
+    staged backends take it."""
     from repro_torch.core import RBConfig, RouteBalance, run_cell
     from repro_torch.kernels import decision_megakernel as mk
     from repro_torch.serving.scenarios import get_scenario, synthetic_pool
@@ -227,7 +228,8 @@ def test_megakernel_refuses_a_roster_over_its_limit():
     calls = (mk.decision_megakernel.launches,
              mk.decision_megakernel.plain_calls)
     rb = RouteBalance(RBConfig(), None, tiers)
-    with pytest.raises(ValueError, match=r"MAX_I = 4096.*'torch'.*item 4"):
+    with pytest.raises(ValueError, match=r"MAX_I = 4096.*n_cells >= "
+                       r"ceil\(I / MAX_I\) = 3.*hierarchy.*'torch'"):
         run_cell(rb, tiers, names, [])
     assert (mk.decision_megakernel.launches,
             mk.decision_megakernel.plain_calls) == calls
