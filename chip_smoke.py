@@ -52,9 +52,14 @@ Phases, each printing one JSON line; any failed check exits nonzero
      at the dense serving shape (B=8, H=16, K=2, d=128, C=1,024) with the
      cache full, partly empty and windowed, and at the smoke shape, plus
      clusters of 1, 3 and 8 pieces, a wrapped ring buffer, a window that
-     empties whole tiles and pieces of two segments, in bf16 and
-     float32: float32 within 1e-5 of the output's scale, bf16 within one
-     unit in the last place (2^-7 relative) plus that;
+     empties whole tiles and pieces of two segments, then the decode
+     shapes of phase 5h's families (`K3_ZOO`: recurrentgemma's g = 10,
+     d = 256 ring wrapped at 2,048, phi-3-vision's d = 96, granite-moe's
+     g = 3, whisper's 1,500-frame cross-attention and 448-slot ring,
+     mixtral's g = 4), with their shared memory against the opt-in
+     limit, in bf16 and float32: float32 within 1e-5 of the output's
+     scale, bf16 within one unit in the last place (2^-7 relative) plus
+     that;
   3d. k4 check — the SSD scan kernel K4 against its plain version at the
      SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128),
      at S=2,048 (16 chunks a chain), at one chunk (S=128) and at the
@@ -67,7 +72,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
      layers' caches (302 MB) as a decode step finds them; 4c fails if
      the profiler sees no device time for K3's one function, or if 20
      profiled calls, warm or cold, run anything on the device but at
-     most 20 launches of it, and 4d the same for K4's one function;
+     most 20 launches of it, and 4d the same for K4's one function; K3
+     once more, warm, at recurrentgemma's shape (bf16, ring full);
   5d. dense serving — `qwen2.5-3b` at full width (36 layers, random
      seeded bf16 weights): 8 prompts of 512 tokens, `pad_to` 1,024, 64
      greedy decode steps; finite logits, K3 launches = 36 x 64, no plain
@@ -149,8 +155,24 @@ Phases, each printing one JSON line; any failed check exits nonzero
      --n 200` as a subprocess (2 cells, digests on the wire, every
      request terminal once: the scenario's kill at t = 6 s fails what
      runs there, recovery being off);
+  5h. zoo families — at full width, random seeded bf16 weights drawn on
+     the card, through `Model.prefill` / `Model.decode`:
+     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 64 steps),
+     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 64 steps),
+     `phi-3-vision-4.2b` (32, 4 x 576 image embeddings + 64 tokens, pad_to
+     1,024, 64 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
+     decoder tokens, 64 steps) and `mixtral-8x7b` (8 of 32 layers, cut
+     to fit the card; 4 x 512, pad_to 1,024, 32 steps): finite logits, K3
+     launches = attention calls x steps, no K4 launch, no plain call,
+     MoE pairs dropped at prefill capacity and none at decode, prefill
+     and decode ms with the profiler's device time, busy share and K3's
+     device time; then each in float32 over a whole layer pattern
+     (recurrentgemma 3 layers, whisper 2 + 2, the others 2), weights
+     drawn on the card, run there and then moved to the CPU: identical
+     greedy tokens, logits within 1e-3;
   6. the kernels line (launches of every driven path: K1 the main path,
-     5f and 5g's hierarchy, K2 5b, 5c, 5f's hyperfleet and 5g's span),
+     5f and 5g's hierarchy, K2 5b, 5c, 5f's hyperfleet and 5g's span, K3
+     5d and 5h by model),
      then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -1620,24 +1642,42 @@ def phase_launcher():
 
 DEV = "cuda"
 K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
+# the decode shapes of phase 5h's families, held in phase 3c: the
+# recurrentgemma ring wrapped at 2,048 (g = 10 over head groups of 4, a
+# partial group; g d / 8 = 320 pairs > 256 threads; d = 256, the
+# kernel's largest), phi-3-vision's d = 96, granite-moe's g = 3, whisper's
+# cross-attention over 1,500 frames (all valid, pos past them) and its
+# 448-slot self-attention ring, mixtral's windowed g = 4
+K3_ZOO = {
+    "recurrentgemma-2b": dict(B=4, K=1, g=10, d=256, C=2048, valid=2112,
+                              window=2048),
+    "phi-3-vision-4.2b": dict(B=4, K=32, g=1, d=96, C=1024, valid=700),
+    "granite-moe-3b-a800m": dict(B=8, K=8, g=3, d=64, C=1024, valid=600),
+    "whisper-tiny/cross": dict(B=8, K=6, g=1, d=64, C=1500, valid=1500,
+                               pos=1500),
+    "whisper-tiny/self": dict(B=8, K=6, g=1, d=64, C=448, valid=68),
+    "mixtral-8x7b": dict(B=4, K=8, g=4, d=128, C=1024, valid=540,
+                         window=4096)}
 K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
 
 
-def k3_inputs(seed, B, K, g, d, C, valid, window=0, dtype=torch.bfloat16):
-    """q (B, H, d), caches (B, C, K, d), pos = valid - 1: the cache of a
-    decode step at position `valid - 1`, positions 0..valid-1 then -1,
-    or, with valid > C, a ring buffer that has wrapped (slot j holds the
-    latest position congruent to j mod C)."""
+def k3_inputs(seed, B, K, g, d, C, valid, window=0, pos=None,
+              dtype=torch.bfloat16):
+    """q (B, H, d), caches (B, C, K, d), pos = valid - 1 unless given: the
+    cache of a decode step at position `valid - 1`, positions
+    0..valid-1 then -1, or, with valid > C, a ring buffer that has wrapped
+    (slot j holds the latest position congruent to j mod C). A `pos`
+    past every position is a cross-attention cache (every slot valid)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     H = K * g
     q, kc, vc = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
                  for shape in ((B, H, d), (B, C, K, d), (B, C, K, d)))
-    pos = valid - 1
+    last = valid - 1
     cpos = torch.arange(C, dtype=torch.int32, device=DEV)
     if valid > C:
-        cpos = pos - (pos - cpos) % C
+        cpos = last - (last - cpos) % C
     cpos[valid:] = -1
-    return (q, kc, vc, cpos), pos, window
+    return (q, kc, vc, cpos), last if pos is None else pos, window
 
 
 def close(got, want, rtol, atol_rel):
@@ -1661,8 +1701,9 @@ def phase_k3_check(k3):
               for n in (1, 3, 8)]
     cases += [dict(S, valid=1500, window=900), dict(S, valid=800, window=150),
               dict(B=1, K=1, g=32, d=8, C=2560, valid=2500)]
+    cases = [(None, c) for c in cases] + list(K3_ZOO.items())
     max_abs = 0.0
-    for seed, case in enumerate(cases):
+    for seed, (model, case) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             args, pos, window = k3_inputs(500 + seed, dtype=dtype, **case)
             got = k3.decode_attention(*args, pos, window)
@@ -1671,8 +1712,18 @@ def phase_k3_check(k3):
             rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
             ok, err = close(got, want, rtol, 1e-5)
             max_abs = max(max_abs, err)
-            emit("k3_check", **case, dtype=str(dtype).split(".")[-1],
-                 max_abs_err=err, tolerance=f"rtol {rtol}, atol 1e-5 x scale")
+            extra = {}
+            if model is not None:
+                layout = k3.pieces(case["B"], case["K"], case["C"],
+                                   case["g"])
+                extra = dict(model=model, layout_from_shape=layout,
+                             smem_bytes=k3._library().rt_decode_attention_smem(
+                                 case["g"], case["d"], layout[2],
+                                 k3.DTYPES[dtype]),
+                             smem_limit=k3.smem_limit(args[0].device))
+            emit("k3_check", **case, **extra,
+                 dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                 tolerance=f"rtol {rtol}, atol 1e-5 x scale")
             check(ok, f"K3 {case} {dtype}: error {err} outside tolerance")
     return max_abs
 
@@ -1728,58 +1779,66 @@ def k3_bound_ms(B, K, g, d, C, valid, itemsize):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_k3_times(k3):
+def phase_k3_times(k3, S=K3_SERVE, valid=544, window=0, cold_layers=36,
+                   label="k3_times", seed=700):
+    """K3 timed at shape S, `valid` - 1 the decode position (the default:
+    qwen2.5-3b's serving shape mid-way through its 64 decode steps), with
+    its caches warm and, over `cold_layers` layers' caches, cold."""
     import torch.nn.functional as F
-    S = K3_SERVE
-    valid = 544                      # mid-way through the 64 decode steps
-    args, pos, window = k3_inputs(700, valid=valid, **S)
+    args, pos, window = k3_inputs(seed, valid=valid, window=window, **S)
     q, kc, vc, cpos = args
 
     def kernel():
-        return k3.decode_attention(q, kc, vc, cpos, pos)
+        return k3.decode_attention(q, kc, vc, cpos, pos, window)
     # the library call on tensors laid out for it beforehand: (B, H, 1, d)
     # query, (B, K, C, d) cache, a (1, 1, 1, C) mask broadcast over heads
     ql = q[:, :, None, :]
     kl, vl = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = ((cpos >= 0) & (cpos <= pos))[None, None, None, :]
+    slots = k3._valid(cpos, pos, window)
+    mask = slots[None, None, None, :]
 
     def library():
         return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
                                               enable_gqa=True)
     torch.testing.assert_close(library()[:, :, 0].float(), kernel().float(),
                                rtol=2 ** -7, atol=2e-2)
-    # cold: 36 layers' caches (302 MB, six times the L2), cycled as the
-    # layers of a decode step find them
-    layers = [k3_inputs(701 + i, valid=valid, **S)[0] for i in range(36)]
-    turn = iter(range(10 ** 9))
-
-    def cold():
-        return k3.decode_attention(*layers[next(turn) % 36], pos)
     names = ("decode_attention_cluster",)
-    b_ms, by, nbytes, flops = k3_bound_ms(valid=valid, itemsize=2, **S)
+    b_ms, by, nbytes, flops = k3_bound_ms(valid=int(slots.sum()),
+                                          itemsize=2, **S)
     b2b, lib_b2b = b2b_turns(kernel, library)
     row = dict(ms=time_ms(kernel),
                plain_ms=time_ms(lambda: k3.decode_attention_plain(
-                   q, kc, vc, cpos, pos)),
+                   q, kc, vc, cpos, pos, window)),
                library_ms=time_ms(library), b2b_ms=b2b,
-               library_b2b_ms=lib_b2b, cold_ms=time_ms(cold, n=72),
-               cold_b2b_ms=b2b_ms(cold, n=216), bound_ms=b_ms, bound_by=by,
+               library_b2b_ms=lib_b2b, bound_ms=b_ms, bound_by=by,
                peak_used="3.35 TB/s HBM; 67 TFLOP/s float32",
                bytes=nbytes, flops=flops,
-               device_ms_by_function=required_split(kernel, names, "K3"),
-               cold_device_ms_by_function=required_split(cold, names,
-                                                         "K3 cold", n=72),
+               device_ms_by_function=required_split(kernel, names, label),
                layout_from_shape=dict(zip(
                    ("S", "tiles_per_piece", "tiles_per_segment"),
                    k3.pieces(S["B"], S["K"], S["C"], S["g"]))))
     (row["global_functions_per_call"],
      row["device_activities_per_call"]) = functions_per_call(
-        kernel, names[0], "K3")
-    (row["cold_global_functions_per_call"],
-     row["cold_device_activities_per_call"]) = functions_per_call(
-        cold, names[0], "K3 cold")
-    del layers
-    emit("k3_times", **S, valid=valid, dtype="bfloat16", **row,
+        kernel, names[0], label)
+    if cold_layers:
+        # cold: 36 layers' caches (302 MB, six times the L2), cycled as
+        # the layers of a decode step find them
+        layers = [k3_inputs(seed + 1 + i, valid=valid, window=window,
+                            **S)[0] for i in range(cold_layers)]
+        turn = iter(range(10 ** 9))
+
+        def cold():
+            return k3.decode_attention(*layers[next(turn) % cold_layers],
+                                       pos, window)
+        row.update(cold_ms=time_ms(cold, n=2 * cold_layers),
+                   cold_b2b_ms=b2b_ms(cold, n=6 * cold_layers),
+                   cold_device_ms_by_function=required_split(
+                       cold, names, f"{label} cold", n=2 * cold_layers))
+        (row["cold_global_functions_per_call"],
+         row["cold_device_activities_per_call"]) = functions_per_call(
+            cold, names[0], f"{label} cold")
+        del layers
+    emit(label, **S, valid=valid, window=window, dtype="bfloat16", **row,
          calls_timed=50)
     return row
 
@@ -1822,14 +1881,14 @@ def phase_k4_times(k4):
     return row
 
 
-def serve(model, tokens, pad_to, steps):
+def serve(model, batch, pad_to, steps):
     """`Model.prefill`, then `steps` greedy `Model.decode` steps; returns
     (prefill ms, decode ms per step, every step's logits finite, the last
     logits and cache)."""
     from repro_torch.models import greedy_sample
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": tokens}, pad_to=pad_to)
+    logits, cache = model.prefill(batch, pad_to=pad_to)
     finite = torch.isfinite(logits).all()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1896,54 +1955,186 @@ def card_against_cpu(cfg, prompt_len, steps, tol=1e-3):
     return same, worst, tol
 
 
+def zoo_batch(cfg, batch, prompt_len, extra, seed=7):
+    """Prompt tokens (batch, prompt_len) from a seeded generator, plus
+    `extra` image embeddings (`frontend_embeds`) or audio frames
+    (`frames`) of width `frontend_dim` for the vision model or the
+    encoder-decoder, on the card."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(DEV)}
+    if extra:
+        key = "frames" if cfg.is_encdec else "frontend_embeds"
+        out[key] = torch.from_numpy(rng.standard_normal(
+            (batch, extra, cfg.frontend_dim), dtype=np.float32)).to(DEV)
+    return out
+
+
+def greedy_run(model, batch, pad_to, steps):
+    """Prefill then `steps` greedy decode steps: every step's logits, on
+    the CPU."""
+    from repro_torch.models import greedy_sample
+    logits, cache = model.prefill(batch, pad_to=pad_to)
+    out = [logits.cpu()]
+    for _ in range(steps):
+        logits, cache = model.decode(cache, greedy_sample(logits)[:, None])
+        out.append(logits.cpu())
+    return out
+
+
+def card_then_cpu(cfg, prompt_len, extra, steps=8, tol=1e-3):
+    """The same float32 model (weights drawn on the card, seed 1) run on
+    the card (kernels), then moved to the CPU (plain versions) and run
+    again on the same inputs: identical greedy tokens, logits within
+    `tol`, up to the first step whose tokens differ."""
+    from repro_torch.models import Model, greedy_sample
+    model = Model(cfg, seed=1)
+    batch = zoo_batch(cfg, 2, prompt_len, extra, seed=9)
+    pad_to = prompt_len + (0 if cfg.is_encdec else extra) + steps
+    card = greedy_run(model, batch, pad_to, steps)
+    model.to("cpu")
+    cpu = greedy_run(model, {k: v.cpu() for k, v in batch.items()}, pad_to,
+                     steps)
+    del model
+    torch.cuda.empty_cache()
+    worst, same = 0.0, True
+    for gl, cl in zip(card, cpu):
+        worst = max(worst, float((gl - cl).abs().max()))
+        same &= torch.equal(greedy_sample(gl), greedy_sample(cl))
+        if not same:
+            break
+    return same, worst, tol
+
+
 def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
-                      want_k3, want_k4):
+                      want_k3, want_k4, layers=None, extra=0, family=None):
+    """One zoo model at full width (depth cut to `layers` where given):
+    prefill and greedy decode counted, then profiled, then the card
+    against the CPU in float32: `card_against_cpu` at 2 layers, or for
+    phase 5h (`family` = (check layers, check extra inputs))
+    `card_then_cpu` at that depth, the encoder cut alike. A MoE model's
+    prefill must drop pairs and its decode none."""
     from repro_torch.configs import get_config
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
+    t_phase = time.perf_counter()
     cfg = get_config(name)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     t0 = time.perf_counter()
     model = Model(cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(DEV)
+    inputs = zoo_batch(cfg, batch, prompt_len, extra)
     k3.reset_counts()
     k4.reset_counts()
-    pre_ms, dec_ms, finite, logits, cache = serve(model, tokens, pad_to,
-                                                  steps)
+    n_moe = sum(b.mlp == "moe" for b in cfg.layer_types)
+    drops = []
+    if n_moe:
+        moe.moe_layer.tap = lambda capacity, kept: drops.append(
+            (capacity, kept.numel(), (~kept).sum()))
+    try:
+        pre_ms, dec_ms, finite, logits, cache = serve(model, inputs, pad_to,
+                                                      steps)
+    finally:
+        moe.moe_layer.tap = None
     counts = dict(k3_launches=k3.decode_attention.launches,
                   k3_plain_calls=k3.decode_attention.plain_calls,
                   k4_launches=k4.ssd_scan.launches,
                   k4_plain_calls=k4.ssd_scan.plain_calls)
+    moe_row = {}
+    if n_moe:
+        dropped = [int(d) for _, _, d in drops]
+        moe_row = dict(moe_calls=len(drops),
+                       prefill_capacity=drops[0][0],
+                       prefill_pairs_per_layer=drops[0][1],
+                       prefill_dropped_pairs=sum(dropped[:n_moe]),
+                       prefill_pairs=n_moe * drops[0][1],
+                       decode_dropped_pairs=sum(dropped[n_moe:]))
     # where a step's time goes, after the counted run
     from repro_torch.models import greedy_sample
     decode_profile = device_profile(
         lambda: model.decode(cache, greedy_sample(logits)[:, None]), dec_ms)
     del cache
     prefill_profile = device_profile(
-        lambda: model.prefill({"tokens": tokens}, pad_to=pad_to), pre_ms)
+        lambda: model.prefill(inputs, pad_to=pad_to), pre_ms)
     params = sum(p.numel() for p in model.parameters())
     del model, logits
     torch.cuda.empty_cache()
-    same, worst, tol = card_against_cpu(cfg, 64, 8)
-    emit(label, model=name, layers=cfg.n_layers, d_model=cfg.d_model,
-         params=params, dtype=str(cfg.dtype).split(".")[-1], batch=batch,
-         prompt=prompt_len, pad_to=pad_to, decode_steps=steps, init_s=init_s,
+    check_layers, check_extra = family or (2, 0)
+    if family:
+        cut = dict(n_layers=check_layers, dtype=torch.float32)
+        if cfg.is_encdec:
+            cut["n_enc_layers"] = check_layers
+        same, worst, tol = card_then_cpu(
+            get_config(name).replace(**cut),
+            4 if cfg.is_encdec else 64, check_extra)
+    else:
+        same, worst, tol = card_against_cpu(cfg, 64, 8)
+    cpu_check = dict(layers=check_layers, dtype="float32",
+                     prompt=4 if cfg.is_encdec else 64, steps=8,
+                     identical_tokens=same, logits_max_abs_err=worst,
+                     tolerance=tol)
+    if check_extra:
+        cpu_check["frames" if cfg.is_encdec else "image_embeds"] = \
+            check_extra
+    if cfg.is_encdec:
+        cpu_check["encoder_layers"] = check_layers
+    reduced = {} if not layers else dict(
+        reduced=f"depth {layers} of {get_config(name).n_layers} layers")
+    emit(label, model=name, layers=cfg.n_layers, **reduced,
+         d_model=cfg.d_model, params=params,
+         dtype=str(cfg.dtype).split(".")[-1], batch=batch,
+         prompt=prompt_len, **({"extra_inputs": extra} if extra else {}),
+         pad_to=pad_to, decode_steps=steps, init_s=init_s,
          prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
-         logits_finite=finite, **counts,
+         logits_finite=finite, **counts, **moe_row,
          prefill_profile=prefill_profile, decode_step_profile=decode_profile,
-         cpu_check=dict(layers=2, dtype="float32", prompt=64, steps=8,
-                        identical_tokens=same, logits_max_abs_err=worst,
-                        tolerance=tol))
+         cpu_check=cpu_check, seconds=time.perf_counter() - t_phase)
     check(finite, f"{name}: non-finite logits")
     check(counts["k3_launches"] == want_k3
           and counts["k4_launches"] == want_k4,
           f"{name}: launches {counts}, want K3 {want_k3}, K4 {want_k4}")
     check(counts["k3_plain_calls"] == counts["k4_plain_calls"] == 0,
           f"{name}: plain-version calls {counts}")
+    if n_moe:
+        check(moe_row["moe_calls"] == n_moe * (steps + 1)
+              and moe_row["prefill_dropped_pairs"] > 0
+              and moe_row["decode_dropped_pairs"] == 0,
+              f"{name}: MoE drops {moe_row}: want pairs dropped at prefill "
+              f"capacity and none at decode")
     check(same and worst <= tol,
           f"{name}: card vs CPU tokens identical={same}, logits error {worst}")
     return counts
+
+
+# phase 5h at full width: (arch, batch, prompt tokens, pad_to, decode
+# steps, K3 launches, image embeddings or audio frames, depth, the card
+# against CPU check's (layers, extra inputs): a whole layer pattern, at
+# least 2 layers as in 5d). mixtral's 32 layers (about 93 GB of bf16) do
+# not fit one 80 GB card, so its depth is cut to 8.
+ZOO_FAMILIES = (
+    ("recurrentgemma-2b", 4, 2048, 2048, 64, 8 * 64, 0, None, (3, 0)),
+    ("granite-moe-3b-a800m", 8, 512, 1024, 64, 32 * 64, 0, None, (2, 0)),
+    ("phi-3-vision-4.2b", 4, 64, 1024, 64, 32 * 64, 576, None, (2, 32)),
+    ("whisper-tiny", 8, 4, 0, 64, 2 * 4 * 64, 1500, None, (2, 1500)),
+    ("mixtral-8x7b", 4, 512, 1024, 32, 8 * 32, 0, 8, (2, 0)),
+)
+
+
+def phase_zoo_families(k3, k4):
+    """Phase 5h: each family served at full width through K3, then held
+    card against CPU over a whole layer pattern."""
+    t0 = time.perf_counter()
+    out = {}
+    for (name, batch, prompt, pad_to, steps, want_k3, extra, layers,
+         family) in ZOO_FAMILIES:
+        out[name] = phase_zoo_serving(
+            "zoo_family", name, batch, prompt, pad_to, steps, k3, k4,
+            want_k3=want_k3, want_k4=0, layers=layers, extra=extra,
+            family=family)
+    emit("zoo_families", seconds=time.perf_counter() - t0,
+         k3_launches={k: v["k3_launches"] for k, v in out.items()})
+    return out
 
 
 def main():
@@ -1960,6 +2151,11 @@ def main():
     k3_abs = phase_k3_check(k3)
     k4_abs = phase_k4_check(k4)
     k3_times = phase_k3_times(k3)
+    rg = dict(K3_ZOO["recurrentgemma-2b"])
+    rg_valid, rg_window = rg.pop("valid"), rg.pop("window")
+    k3_rg_times = phase_k3_times(k3, S=rg, valid=rg_valid, window=rg_window,
+                                 cold_layers=0, label="k3_times_zoo",
+                                 seed=740)
     k4_times = phase_k4_times(k4)
     launches, ctx = phase_main_path(mk)
     knn_counts = phase_staged(ctx, kt, mk)
@@ -1977,6 +2173,10 @@ def main():
                               64, k3, k4, want_k3=36 * 64, want_k4=0)
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
                             k3, k4, want_k3=0, want_k4=48)
+    zoo = phase_zoo_families(k3, k4)
+    k3_by_path = {"dense_serving/qwen2.5-3b": dense["k3_launches"],
+                  **{f"zoo_families/{k}": v["k3_launches"]
+                     for k, v in zoo.items()}}
     main8, knn1 = times[8], knn_times[1]
     print(json.dumps({"kernels": [{
         "name": "decision_megakernel", "route": "cuda",
@@ -2026,7 +2226,9 @@ def main():
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:87",
         "function": "decode_attention",
-        "launches": dense["k3_launches"], "checked_against_plain": True,
+        "launches": sum(k3_by_path.values()),
+        "launches_by_path": k3_by_path, "checked_against_plain": True,
+        "checked_zoo_shapes": list(K3_ZOO),
         "max_abs_err": k3_abs, "ms": k3_times["ms"],
         "plain_ms": k3_times["plain_ms"], "bound_ms": k3_times["bound_ms"],
         "bound_by": k3_times["bound_by"],
@@ -2043,7 +2245,14 @@ def main():
         "cold_global_functions_per_call":
             k3_times["cold_global_functions_per_call"],
         "layout_from_shape": k3_times["layout_from_shape"],
-        "shape": dict(K3_SERVE, valid=544, dtype="bfloat16")}, {
+        "shape": dict(K3_SERVE, valid=544, dtype="bfloat16"),
+        "at_recurrentgemma": dict(
+            {k: k3_rg_times[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "b2b_ms", "library_b2b_ms", "device_ms_by_function",
+                "global_functions_per_call", "layout_from_shape")},
+            shape=dict(rg, valid=rg_valid, window=rg_window,
+                       dtype="bfloat16"))}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:87",

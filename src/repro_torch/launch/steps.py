@@ -3,7 +3,10 @@
 Port of `repro.launch.steps.make_prefill_step` / `make_decode_step`
 (lines 88-99). The reference's steps take the parameter tree as their
 first argument for `jax.jit`; the port's `Model` holds its parameters,
-so the steps close over it. Training steps wait for the training slice.
+so the steps close over it. The prefill step hands its whole batch to
+`Model.prefill`: `tokens`, and `frontend_embeds` for a vision model or
+`frames` for the encoder-decoder. Training steps wait for the training
+slice.
 """
 from __future__ import annotations
 

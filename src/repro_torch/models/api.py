@@ -1,16 +1,21 @@
 """The Model facade: one module per architecture config.
 
-Port of `repro.models.api` (lines 18-63) for the decoder-only families.
+Port of `repro.models.api` (lines 18-63), serving entry points.
 `Model` is an `nn.Module` that holds its parameter tree (the reference
 passes the tree to every call instead), built on the card unless the
-caller asks for the CPU:
+caller asks for the CPU, and dispatches on `cfg.is_encdec` as the
+reference's facade does: `model` for the decoder-only families (dense,
+MoE, SSM, the RG-LRU hybrid, the vision-language model), `encdec` for
+the encoder-decoder.
 
     model = Model(get_config("qwen2.5-3b"))        # device=None: cuda
     logits, cache = model.prefill({"tokens": tokens}, pad_to=1024)
     logits, cache = model.decode(cache, greedy_sample(logits)[:, None])
 
-The encoder-decoder family and the vision frontend raise
-NotImplementedError (ROADMAP queue 1).
+A batch holds `tokens` and, for a vision model, `frontend_embeds`
+(B, F, frontend_dim); for the encoder-decoder, `frames` (B, S_enc,
+frontend_dim) and the decoder prefix `tokens`. Training (`loss`) waits
+for the training slice.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from . import model
+from . import encdec, model
 from .config import ModelConfig
 
 
@@ -56,18 +61,27 @@ class Params(nn.Module):
         return getattr(self, name)
 
 
+def _family(cfg: ModelConfig):
+    return encdec if cfg.is_encdec else model
+
+
 class Model(Params):
-    """Decoder-only zoo model. `device=None` means the card (RuntimeError
+    """Zoo model of any family. `device=None` means the card (RuntimeError
     without one); weights are drawn from `torch.Generator(device)` seeded
     with `seed`, or carried over with `load_state_dict` (see
     `bridge.params_from_jax`)."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
-        model._check_supported(cfg)
         dev = resolve_device(device)
-        super().__init__(model.init_params(cfg, self._generator(dev, seed)))
+        super().__init__(_family(cfg).init_params(
+            cfg, self._generator(dev, seed)))
         self.cfg = cfg
-        self.device = dev
+
+    @property
+    def device(self) -> torch.device:
+        """Where the parameters are: inputs and caches go there too, so
+        `.to(...)` moves the whole model."""
+        return self.embed.device
 
     @staticmethod
     def _generator(dev, seed: int) -> torch.Generator:
@@ -75,27 +89,38 @@ class Model(Params):
 
     def init(self, seed: int) -> "Model":
         """Draw every parameter anew from `seed`, in place."""
-        tree = model.init_params(self.cfg, self._generator(self.device,
-                                                           seed))
+        tree = _family(self.cfg).init_params(
+            self.cfg, self._generator(self.device, seed))
         self.load_state_dict(dict(flatten_tree(tree)))
         return self
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device)
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
 
     def prefill(self, batch: Dict, pad_to: int = 0):
-        """batch["tokens"]: (B, S) integer. Returns (logits (B, V)
-        float32, cache sized for max(pad_to, S))."""
-        return model.prefill(self, self.cfg, self._tokens(batch["tokens"]),
+        """batch["tokens"]: (B, S) integer, with `frontend_embeds` for a
+        vision model or `frames` for the encoder-decoder. Returns (logits
+        (B, V) float32, cache sized for max(pad_to, image + text tokens);
+        the encoder-decoder's for `dec_max_len` and the frames)."""
+        tokens = self._input(batch["tokens"])
+        if self.cfg.is_encdec:
+            return encdec.prefill(self, self.cfg,
+                                  self._input(batch["frames"]), tokens)
+        fe = batch.get("frontend_embeds")
+        return model.prefill(self, self.cfg, tokens,
+                             None if fe is None else self._input(fe),
                              pad_to=pad_to)
 
     def decode(self, cache, tokens):
         """tokens: (B, 1). Returns (logits (B, V) float32, new cache); the
         given cache's attention tensors are updated in place."""
-        return model.decode_step(self, self.cfg, cache, self._tokens(tokens))
+        return _family(self.cfg).decode_step(self, self.cfg, cache,
+                                             self._input(tokens))
 
     def init_cache(self, batch: int, ctx: int):
-        return model.init_cache(self.cfg, batch, ctx, self.device)
+        """ctx: the context to size for; the encoder-decoder's `enc_len`."""
+        return _family(self.cfg).init_cache(self.cfg, batch, ctx,
+                                            self.device)
 
 
 def greedy_sample(logits) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Layer blocks: the attention and SSD mixers and the dense MLP.
+"""Layer blocks: the attention, RG-LRU and SSD mixers and the dense or
+MoE MLP.
 
-Port of `repro.models.blocks` (lines 31-130, 206-432). A block is
+Port of `repro.models.blocks` (lines 31-432). A block is
 pre-norm -> mixer -> residual [-> pre-norm -> mlp -> residual]; mamba2
 SSD blocks have no MLP. Two modes are ported, the serving ones:
 
@@ -10,15 +11,21 @@ SSD blocks have no MLP. Two modes are ported, the serving ones:
 Decode writes the new token's K/V slot (`slot = pos % C`, the ring
 buffer of reference lines 89-99) into the cache's tensors in place
 instead of returning updated copies, so a cache passed to decode must
-not be reused afterwards; the SSD state and conv windows are replaced
-by new tensors. The SSD prefill pads the prompt to its chunk with
-dt = 0 (exact no-op steps, reference lines 263-272) and runs kernel K4
-(`repro_torch.kernels.ssd_scan`); its decode recurrence (lines 324-345)
-is plain torch, as in the reference, which has no kernel there.
+not be reused afterwards; the SSD and RG-LRU states and conv windows
+are replaced by new tensors. The SSD prefill pads the prompt to its
+chunk with dt = 0 (exact no-op steps, reference lines 263-272) and runs
+kernel K4 (`repro_torch.kernels.ssd_scan`); its decode recurrence
+(lines 324-345) is plain torch, as in the reference, which has no
+kernel there. The RG-LRU (griffin / recurrentgemma, lines 146-211) is
+plain torch too: its prefill is the reference's log-depth
+`associative_scan` spelled in torch ops (`_lru_scan`), so products and
+sums associate as the reference's do.
 
 `block_forward` returns (x, new_cache): the reference's third output,
-the MoE auxiliary loss, is 0 for every block ported here. The RG-LRU
-mixer and the MoE MLP raise NotImplementedError (ROADMAP queue 1).
+the MoE auxiliary loss, is a training term that serving does not read
+(`moe.moe_layer` still computes and returns it). The MoE MLP drops
+pairs past the capacity at prefill and none at decode
+(`no_drop=(mode == "decode")`, reference line 424).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from .attention import decode_attention, flash_attention, repeat_kv
 from .config import BlockCfg, ModelConfig
 from .layers import apply_act, apply_norm, apply_rope, dense_init, mlp, \
     mlp_params, norm_params
+from .moe import moe_layer, moe_params
 
 MODES = ("prefill", "decode")
 
@@ -143,6 +151,104 @@ def attn_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
                                     device=device)}
 
 
+# -- RG-LRU (griffin / recurrentgemma) recurrent block -----------------------
+
+_LRU_C = 8.0
+
+
+def _softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_params(gen, cfg: ModelConfig, dtype=None):
+    dtype = dtype or cfg.dtype
+    D, W = cfg.d_model, cfg.lru_width or cfg.d_model
+    lam = torch.rand(W, generator=gen, dtype=torch.float32,
+                     device=gen.device) * (0.999 - 0.9) + 0.9
+    return {"w_in": dense_init(gen, (D, W), dtype=dtype),
+            "w_gate_branch": dense_init(gen, (D, W), dtype=dtype),
+            "w_out": dense_init(gen, (W, D), dtype=dtype),
+            "w_i": dense_init(gen, (W, W), dtype=dtype),
+            "w_r": dense_init(gen, (W, W), dtype=dtype),
+            "lam": lam,
+            "conv": conv_params(gen, cfg.conv_width, W, dtype)}
+
+
+def _lru_gates(u, p):
+    """(a, b) of h_t = a_t h_(t-1) + b_t, float32. The square root is
+    taken in float64 and rounded once (XLA's is correctly rounded)."""
+    uf = u.float()
+    i_t = torch.sigmoid(uf @ p["w_i"].float())
+    r_t = torch.sigmoid(uf @ p["w_r"].float())
+    lam = p["lam"]
+    log_sig = -_softplus(-torch.log(lam / (1 - lam)))     # jax log_sigmoid
+    log_a = _LRU_C * log_sig * r_t                         # (..., W) < 0
+    a = torch.exp(log_a)
+    root = torch.sqrt((1.0 - torch.exp(2.0 * log_a)).clamp_min(1e-12)
+                      .double()).float()
+    return a, root * (i_t * uf)
+
+
+def _interleave(x, y):
+    """[x0, y0, x1, y1, ...] along dim 1; x has as many or one more."""
+    out = x.new_empty((x.shape[0], x.shape[1] + y.shape[1]) + x.shape[2:])
+    out[:, 0::2] = x
+    out[:, 1::2] = y
+    return out
+
+
+def _lru_scan(a, b):
+    """Inclusive scan of h_t = a_t h_(t-1) + b_t (h_(-1) = 0) along dim 1:
+    `jax.lax.associative_scan` with the combine (a1 a2, a2 b1 + b2), its
+    odd/even recursion spelled out (log2(S) levels), so every product and
+    sum is the reference's. Returns (cumulative a, h)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+
+    def combine(a1, b1, a2, b2):
+        return a1 * a2, a2 * b1 + b2
+    odd_a, odd_b = _lru_scan(*combine(a[:, 0:-1:2], b[:, 0:-1:2],
+                                      a[:, 1::2], b[:, 1::2]))
+    if n % 2 == 0:
+        ev_a, ev_b = combine(odd_a[:, :-1], odd_b[:, :-1], a[:, 2::2],
+                             b[:, 2::2])
+    else:
+        ev_a, ev_b = combine(odd_a, odd_b, a[:, 2::2], b[:, 2::2])
+    ev_a = torch.cat([a[:, :1], ev_a], dim=1)
+    ev_b = torch.cat([b[:, :1], ev_b], dim=1)
+    return _interleave(ev_a, odd_a), _interleave(ev_b, odd_b)
+
+
+def rglru_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
+                  pos: int, pad_to: int = 0):
+    w = cfg.conv_width
+    u_in = x @ p["w_in"]
+    gate = apply_act(x @ p["w_gate_branch"], "gelu")
+    if mode == "decode":
+        u, conv_state = conv_step(u_in[:, 0], cache["conv"], p["conv"], w)
+        a, b = _lru_gates(u, p)
+        h = a * cache["h"] + b
+        y = h[:, None].to(x.dtype)
+        new_cache = {"h": h, "conv": conv_state}
+    else:
+        a, b = _lru_gates(causal_conv(u_in, p["conv"], w), p)
+        _, h = _lru_scan(a, b)
+        y = h.to(x.dtype)
+        new_cache = {"h": h[:, -1].contiguous(),
+                     "conv": u_in[:, -(w - 1):].contiguous()}
+    return (y * gate) @ p["w_out"], new_cache
+
+
+def rglru_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
+                     device=None):
+    W = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros((B, W), dtype=torch.float32, device=device),
+            "conv": torch.zeros((B, cfg.conv_width - 1, W), dtype=cfg.dtype,
+                                device=device)}
+
+
 # -- SSD (mamba2) block -------------------------------------------------------
 
 def ssd_params(gen, cfg: ModelConfig, dtype=None):
@@ -167,11 +273,6 @@ def ssd_params(gen, cfg: ModelConfig, dtype=None):
         "out_norm": torch.zeros(di, dtype=dtype, device=dev),
         "out_proj": dense_init(gen, (di, D), dtype=dtype),
     }
-
-
-def _softplus(x):
-    """jax.nn.softplus: logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
@@ -263,25 +364,22 @@ def ssd_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
 # -- block = norm -> mixer -> residual [-> norm -> mlp -> residual] -----------
 
 _MIXERS = {"attn": (attn_params, attn_forward, attn_cache_spec),
+           "rglru": (rglru_params, rglru_forward, rglru_cache_spec),
            "ssd": (ssd_params, ssd_forward, ssd_cache_spec)}
 
 
-def _mixer(blk: BlockCfg):
-    if blk.mixer not in _MIXERS:
-        raise _not_ported(f"the {blk.mixer!r} mixer")
-    if blk.mlp == "moe":
-        raise _not_ported("the MoE MLP")
-    return _MIXERS[blk.mixer]
-
-
 def block_params(gen, cfg: ModelConfig, blk: BlockCfg):
-    mixer_init = _mixer(blk)[0]
     p = {"norm1": norm_params(cfg.d_model, cfg.norm, cfg.dtype, gen.device),
-         "mixer": mixer_init(gen, cfg)}
+         "mixer": _MIXERS[blk.mixer][0](gen, cfg)}
     if blk.mlp != "none":
         p["norm2"] = norm_params(cfg.d_model, cfg.norm, cfg.dtype,
                                  gen.device)
-        p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.glu, cfg.dtype)
+        if blk.mlp == "moe":
+            p["mlp"] = moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                  cfg.glu, cfg.dtype)
+        else:
+            p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.glu,
+                                  cfg.dtype)
     return p
 
 
@@ -290,17 +388,23 @@ def block_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     """Returns (x, new_cache)."""
     if mode not in MODES:
         raise _not_ported(f"mode {mode!r}")
-    mixer_fwd = _mixer(blk)[1]
     h = apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-    mix, new_cache = mixer_fwd(h, p["mixer"], cfg, blk, mode, cache, pos,
-                               pad_to)
+    mix, new_cache = _MIXERS[blk.mixer][1](h, p["mixer"], cfg, blk, mode,
+                                           cache, pos, pad_to)
     x = x + mix
     if blk.mlp != "none":
         h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
-        x = x + mlp(h2, p["mlp"], cfg.act, cfg.glu)
+        if blk.mlp == "moe":
+            out, _ = moe_layer(h2, p["mlp"], top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               act=cfg.act, glu=cfg.glu,
+                               no_drop=(mode == "decode"))
+        else:
+            out = mlp(h2, p["mlp"], cfg.act, cfg.glu)
+        x = x + out
     return x, new_cache
 
 
 def block_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
                      device=None):
-    return _mixer(blk)[2](cfg, blk, B, ctx, device)
+    return _MIXERS[blk.mixer][2](cfg, blk, B, ctx, device)

@@ -9,7 +9,16 @@ params)`).
   * The reference stacks the layers of pattern slot s over cycles as
     `slot{s}` (leading axis n_cycles) and keeps the remainder layers as
     `rem{r}`; layer c * len(pattern) + s is `slot{s}[c]`, then come the
-    `rem{r}` in order, as the reference's scan runs them.
+    `rem{r}` in order, as the reference's scan runs them. Every leaf of
+    a layer comes across as it is: the MoE's float32 `router` (D, E)
+    and its (E, ., .) `up`, `gate`, `down`, the RG-LRU's float32 `lam`
+    and `conv.w`, and in the caches the RG-LRU's float32 `h` and its
+    conv window.
+  * The encoder-decoder stacks its encoder and decoder layers on a
+    leading axis (`enc`, `dec`, and in the cache `self_k/v`,
+    `cross_k/v`, each (L, B, ., K, hd)); they become the port's lists,
+    beside `frontend_proj`, `pos_dec`, `enc_norm` and `dec_norm`, and
+    the cache's shared `positions`, `pos` and `enc_len`.
   * Weights keep the reference's `x @ W` layout, (in, out): nothing is
     transposed.
   * bfloat16 leaves arrive as `ml_dtypes.bfloat16` arrays, which
@@ -51,21 +60,43 @@ def _layers(tree: Dict, cfg: ModelConfig):
     return layers
 
 
+def _unstack(tree: Dict, n: int):
+    """A tree stacked over n layers on its leading axis, as n trees."""
+    return [_map(tree, lambda a, i=i: a[i]) for i in range(n)]
+
+
 def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The reference's decoder-only parameter tree (numpy leaves) as the
-    port's state dict (CPU tensors, for `Model.load_state_dict`)."""
-    port = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
-            if k in tree}
-    port["layers"] = _layers(tree, cfg)
+    """The reference's parameter tree (numpy leaves) as the port's state
+    dict (CPU tensors, for `Model.load_state_dict`)."""
+    if cfg.is_encdec:
+        port = {k: tree[k] for k in ("frontend_proj", "embed", "pos_dec",
+                                     "enc_norm", "dec_norm")}
+        port["enc"] = _unstack(tree["enc"], cfg.n_enc_layers)
+        port["dec"] = _unstack(tree["dec"], cfg.n_layers)
+    else:
+        port = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                     "frontend_proj") if k in tree}
+        port["layers"] = _layers(tree, cfg)
     return {k: _tensor(v) for k, v in flatten_tree(port)}
 
 
 def cache_from_jax(cache: Dict, cfg: ModelConfig, device=None) -> Dict:
-    """The reference's decoder-only cache (numpy leaves) as the port's:
-    {"pos": int, "layers": [per-layer dict of tensors on `device`]}.
-    `device=None` means the card (RuntimeError without one), as at every
-    entry point of the port."""
+    """The reference's cache (numpy leaves) as the port's: {"pos": int,
+    "layers": [per-layer dict of tensors on `device`]}, and for the
+    encoder-decoder also "enc_len" and the shared "positions". `device=None`
+    means the card (RuntimeError without one), as at every entry point of
+    the port."""
     device = resolve_device(device)
-    layers = [_map(layer, lambda a: _tensor(a).to(device))
-              for layer in _layers(cache, cfg)]
-    return {"pos": int(np.asarray(cache["pos"])), "layers": layers}
+
+    def put(a):
+        return _tensor(a).to(device)
+    pos = int(np.asarray(cache["pos"]))
+    if cfg.is_encdec:
+        stacked = {k: cache[k] for k in ("self_k", "self_v", "cross_k",
+                                         "cross_v")}
+        return {"pos": pos, "enc_len": int(np.asarray(cache["enc_len"])),
+                "positions": put(cache["positions"]),
+                "layers": [_map(layer, put)
+                           for layer in _unstack(stacked, cfg.n_layers)]}
+    return {"pos": pos,
+            "layers": [_map(layer, put) for layer in _layers(cache, cfg)]}

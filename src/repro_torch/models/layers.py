@@ -1,6 +1,7 @@
 """Shared layers: init, norms, RoPE and (gated) MLPs.
 
-Port of `repro.models.layers` (lines 19-115). Parameters are plain
+Port of `repro.models.layers` (lines 19-115; `sinusoidal_pos`, the
+encoder-decoder's position table, lines 79-88). Parameters are plain
 tensors in nested dicts, laid out as the reference's (`x @ W`, W of
 shape (in, out)); functions are pure. Compute follows the input dtype
 with float32 statistics where the reference takes them (norms, RoPE).
@@ -73,6 +74,20 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq_len: int, d: int, dtype=torch.bfloat16, device=None):
+    """(seq_len, d) table: sin at even columns, cos at odd, computed in
+    float32 as the reference computes it, cast to `dtype`."""
+    f32 = torch.float32
+    pos = torch.arange(seq_len, dtype=f32, device=device)[:, None]
+    step = -torch.log(torch.tensor(10_000.0, dtype=f32)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=f32, device=device)
+                    * step.to(device))
+    pe = torch.zeros((seq_len, d), dtype=f32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 def mlp_params(gen, d: int, f: int, glu: bool, dtype):

@@ -1,11 +1,15 @@
 """Decoder-only model over a repeating block pattern: init, caches,
 prefill and decode.
 
-Port of `repro.models.model` (lines 30-215, serving entry points). The
+Port of `repro.models.model` (lines 30-215, serving entry points),
+the vision frontend included: `forward(frontend_embeds=)` prepends the
+projected image embeddings outside decode, and `prefill` sizes the
+caches for image plus text tokens (`_ctx_len`). The
 reference scans per-slot parameters stacked over `n_cycles` and then
 runs `n_rem` remainder layers; here the same layers, in the same order
 (`cfg.layer_types`), are one list that a Python loop walks. Parameters
-are a tree {"embed", "final_norm", ["lm_head",] "layers": [block, ...]}
+are a tree {"embed", "final_norm", ["lm_head",] ["frontend_proj",]
+"layers": [block, ...]}
 (a nested dict or `api.Model`, which holds the same tree as modules);
 caches are {"pos": int, "layers": [per-layer dict]}. The reference's
 sharding constraints and rematerialisation are no-ops on one device and
@@ -32,25 +36,21 @@ def _unembed_table(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(h_last, params, cfg: ModelConfig):
-    """(B, D) -> (B, V) float32 with padded-vocab columns at -1e30."""
-    table = _unembed_table(params, cfg)
+def masked_logits(h_last, table, cfg: ModelConfig):
+    """(B, D) against a (V, D) table -> (B, V) float32 with padded-vocab
+    columns at -1e30."""
     logits = h_last.float() @ table.float().T
     if cfg.padded_vocab > cfg.vocab:
         logits[:, cfg.vocab:] = -1e30
     return logits
 
 
-def _check_supported(cfg: ModelConfig):
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder and the vision/audio "
-            f"frontends are not ported yet (ROADMAP queue 1)")
+def _logits(h_last, params, cfg: ModelConfig):
+    return masked_logits(h_last, _unembed_table(params, cfg), cfg)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """The parameter tree, drawn from `gen` on its device."""
-    _check_supported(cfg)
     params = {
         "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                             scale=0.02, dtype=cfg.dtype),
@@ -60,6 +60,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                                        scale=0.02, dtype=cfg.dtype)
+    if cfg.frontend != "none":
+        params["frontend_proj"] = dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), dtype=cfg.dtype)
     params["layers"] = [block_params(gen, cfg, blk)
                         for blk in cfg.layer_types]
     return params
@@ -72,10 +75,15 @@ def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
-            pad_to: int = 0):
-    """tokens: (B, S) integer. Returns (hidden (B, S, D), new cache)."""
+            frontend_embeds=None, pad_to: int = 0):
+    """tokens: (B, S) integer; frontend_embeds (B, F, frontend_dim), read
+    outside decode. Returns (hidden (B, F + S, D), new cache)."""
     pos = cache["pos"] if mode == "decode" else 0
     x = _embed(tokens, params["embed"], cfg.embed_scale)
+    if cfg.frontend != "none" and mode != "decode" \
+            and frontend_embeds is not None:
+        fe = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
     new_layers = []
     for i, blk in enumerate(cfg.layer_types):
         c = cache["layers"][i] if mode == "decode" else None
@@ -86,14 +94,24 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
     return x, {"pos": pos, "layers": new_layers}
 
 
-def prefill(params, cfg: ModelConfig, tokens, pad_to: int = 0):
-    """pad_to: the context the caches are sized for (>= the prompt).
-    Returns (logits (B, V) float32 at the last prompt token, cache)."""
-    ctx = tokens.shape[1]
+def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None,
+            pad_to: int = 0):
+    """pad_to: the context the caches are sized for (>= the prompt, image
+    tokens included). Returns (logits (B, V) float32 at the last prompt
+    token, cache)."""
+    ctx = _ctx_len(cfg, tokens, frontend_embeds)
     h, cache = forward(params, cfg, tokens, mode="prefill",
+                       frontend_embeds=frontend_embeds,
                        pad_to=max(pad_to, ctx))
     cache["pos"] = ctx
     return _logits(h[:, -1], params, cfg), cache
+
+
+def _ctx_len(cfg: ModelConfig, tokens, frontend_embeds) -> int:
+    n = tokens.shape[1]
+    if cfg.frontend != "none" and frontend_embeds is not None:
+        n += frontend_embeds.shape[1]
+    return n
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):

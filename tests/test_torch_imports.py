@@ -33,7 +33,7 @@ def test_port_modules_import_without_jax_or_reference():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.decision_megakernel", "kernels.decode_attention",
                  "kernels.ssd_scan", "models.api", "models.blocks",
-                 "models.bridge", "configs.registry", "launch.steps",
+                 "models.bridge", "models.moe", "models.encdec", "configs.registry", "launch.steps",
                  "serving.scenarios", "serving.recovery", "serving.overload",
                  "serving.faults", "distributed.checkpoint",
                  "serving.hierarchy", "distributed.elastic",

@@ -271,13 +271,6 @@ def test_repeat_kv_matches_reference():
         np.asarray(ref_repeat(jnp.asarray(x), 3)))
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-2b", "mixtral-8x7b",
-                                  "whisper-tiny", "phi-3-vision-4.2b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Model(smoke_variant(get_config(name)), device="cpu")
-
-
 def test_cache_bridge_runs_on_the_card_unless_asked():
     """`cache_from_jax(device=None)` means the card, as every entry point
     of the port: without one it raises; `device="cpu"` stays on the CPU."""
