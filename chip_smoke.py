@@ -56,14 +56,15 @@ Phases, each printing one JSON line; any failed check exits nonzero
      shapes of phase 5h's families (`K3_ZOO`: recurrentgemma's g = 10,
      d = 256 ring wrapped at 2,048, phi-3-vision's d = 96, granite-moe's
      g = 3, whisper's 1,500-frame cross-attention and 448-slot ring,
-     mixtral's g = 4), with their shared memory against the opt-in
+     mixtral's g = 4) and of phase 5i's trained granite-3-2b (g = 4,
+     d = 64, 528 slots), with their shared memory against the opt-in
      limit, in bf16 and float32: float32 within 1e-5 of the output's
      scale, bf16 within one unit in the last place (2^-7 relative) plus
      that;
   3d. k4 check — the SSD scan kernel K4 against its plain version at the
      SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128),
-     at S=2,048 (16 chunks a chain), at one chunk (S=128) and at the
-     smoke shapes, in bf16 and float32: y and the final state within
+     at S=2,048 (16 chunks a chain), at one chunk (S=128), at phase 5i's
+     B=2 and at the smoke shapes, in bf16 and float32: y and the final state within
      1e-4 of their scale (bf16 y within 2^-7 relative plus that);
   4c/4d. k3/k4 times — as phase 4 at the serving shapes, beside the bound
      and, for K3, `F.scaled_dot_product_attention` on pre-laid-out
@@ -170,9 +171,38 @@ Phases, each printing one JSON line; any failed check exits nonzero
      (recurrentgemma 3 layers, whisper 2 + 2, the others 2), weights
      drawn on the card, run there and then moved to the CPU: identical
      greedy tokens, logits within 1e-3;
+  5i. training — the zoo's training path (`Model.value_and_grad`,
+     `launch.steps.make_train_step`, AdamW, `training.train_loop.train`,
+     `python -m repro_torch.launch.train`) on the card: one float32 train
+     step of each family's smoke variant (dense GQA, Mamba-2, RG-LRU, MoE,
+     vision, encoder-decoder) and of granite-3-2b cut to one layer at
+     full width (1 x 1,024 tokens), card against CPU (`TRAIN_TOL`: loss,
+     ce, aux, grad_norm within 1e-5 relative; each gradient leaf within
+     1e-4 of its scale; each parameter after the AdamW step, at its peak
+     lr of 1e-3, within 1e-4 of its scale plus the most the measured
+     gradient difference can move AdamW's step there, and every leaf's
+     update larger than that limit, so that a missing one would show);
+     `granite-3-2b` at full width (40 layers, bf16,
+     remat, 4 x 4,096 tokens in 2 microbatches: 1 warm-up and 3 timed
+     steps) and `mamba2-1.3b` (48 layers, 2 x 4,096: 1 + 2): finite loss,
+     grad_norm, lr, ms, tokens/s and peak memory each step, one step under
+     the profiler (device ms, busy share, six leading operations), the
+     model FLOPs beside their time at the bf16 peak and the float32
+     attention products run beside theirs at the float32 peak, no K3/K4
+     call while training; then the trained weights serve: granite-3-2b
+     4 x 512 and 16 greedy steps (K3 launches = 40 x 16), mamba2-1.3b one
+     2 x 1,024 prefill (K4 launches = 48), no plain call, and in float32
+     on the card and then on the CPU, as in 5h (2 x 64, 8 steps:
+     identical greedy tokens, logits within 1e-3); then
+     `examples/torch_train_small.py --preset tiny` (the loss falls by
+     more than 0.3 over 40 steps) and with `--compress-grads`, a run cut
+     at step 15 (checkpoints every 10) resumed to 25 (losses within 1e-6
+     of the uncut run's, bitwise reported), and `python -m
+     repro_torch.launch.train --smoke --steps 5` as a subprocess;
   6. the kernels line (launches of every driven path: K1 the main path,
      5f and 5g's hierarchy, K2 5b, 5c, 5f's hyperfleet and 5g's span, K3
-     5d and 5h by model),
+     5d, 5h by model and 5i's trained granite, K4 5e and 5i's trained
+     mamba2),
      then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -1647,7 +1677,8 @@ K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
 # partial group; g d / 8 = 320 pairs > 256 threads; d = 256, the
 # kernel's largest), phi-3-vision's d = 96, granite-moe's g = 3, whisper's
 # cross-attention over 1,500 frames (all valid, pos past them) and its
-# 448-slot self-attention ring, mixtral's windowed g = 4
+# 448-slot self-attention ring, mixtral's windowed g = 4; and phase 5i's
+# trained granite-3-2b, 4 x 512 then 16 steps in a 528-slot cache
 K3_ZOO = {
     "recurrentgemma-2b": dict(B=4, K=1, g=10, d=256, C=2048, valid=2112,
                               window=2048),
@@ -1657,7 +1688,8 @@ K3_ZOO = {
                                pos=1500),
     "whisper-tiny/self": dict(B=8, K=6, g=1, d=64, C=448, valid=68),
     "mixtral-8x7b": dict(B=4, K=8, g=4, d=128, C=1024, valid=540,
-                         window=4096)}
+                         window=4096),
+    "granite-3-2b": dict(B=4, K=8, g=4, d=64, C=528, valid=528)}
 K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
 
 
@@ -1743,8 +1775,10 @@ def k4_inputs(seed, B, S, nh, P, N, G, chunk, dtype=torch.bfloat16):
 def phase_k4_check(k4):
     cases = [K4_SERVE, dict(B=2, S=32, nh=16, P=8, N=16, G=1, chunk=16),
              dict(B=2, S=64, nh=4, P=16, N=16, G=2, chunk=16),
-             # 16 chunks a chain (longer than a cluster could hold); one chunk
-             dict(K4_SERVE, B=2, S=2048, nh=16), dict(K4_SERVE, S=128)]
+             # 16 chunks a chain (longer than a cluster could hold); one
+             # chunk; phase 5i's trained mamba2-1.3b, a 2 x 1,024 prefill
+             dict(K4_SERVE, B=2, S=2048, nh=16), dict(K4_SERVE, S=128),
+             dict(K4_SERVE, B=2)]
     max_abs = 0.0
     for seed, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1904,12 +1938,15 @@ def serve(model, batch, pad_to, steps):
 def device_profile(fn, wall_ms):
     """One call of `fn` under torch.profiler: its device time, its kernel
     launches, the device's busy share of `wall_ms` (the same work timed
-    without the profiler), the six kernels with the most device time and
-    K3's device time (`decode_attention_cluster`)."""
+    without the profiler), its device time by kind (float32 FFMA GEMMs,
+    tensor-core GEMMs, the rest), the six kernels with the most device
+    time and K3's device time (`decode_attention_cluster`). It records
+    the device's activity alone: host-side operator events, which no
+    number here reads, take minutes to gather for a training step's
+    hundreds of thousands of operations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -1921,7 +1958,15 @@ def device_profile(fn, wall_ms):
     rows.sort(reverse=True)
     launches = sum(r[2] for r in rows)
     device_ms = sum(r[0] for r in rows)
+    f32_gemm = sum(ms for ms, name, _ in rows
+                   if "gemm" in name and "f32f32_f32f32" in name)
+    tc_gemm = sum(ms for ms, name, _ in rows
+                  if ("gemm" in name or "nvjet" in name)
+                  and "f32f32_f32f32" not in name)
     return dict(device_ms=device_ms, kernel_launches=launches,
+                by_kind_ms=dict(float32_ffma_gemm=f32_gemm,
+                                tensor_core_gemm=tc_gemm,
+                                other=device_ms - f32_gemm - tc_gemm),
                 device_busy_share=device_ms / wall_ms if wall_ms else None,
                 k3_device_ms=sum(r[0] for r in rows
                                  if "decode_attention_cluster" in r[1]),
@@ -1982,13 +2027,16 @@ def greedy_run(model, batch, pad_to, steps):
     return out
 
 
-def card_then_cpu(cfg, prompt_len, extra, steps=8, tol=1e-3):
-    """The same float32 model (weights drawn on the card, seed 1) run on
-    the card (kernels), then moved to the CPU (plain versions) and run
-    again on the same inputs: identical greedy tokens, logits within
-    `tol`, up to the first step whose tokens differ."""
+def card_then_cpu(cfg, prompt_len, extra, steps=8, tol=1e-3, weights=None):
+    """The same float32 model (weights drawn on the card, seed 1, or the
+    state dict `weights` cast to float32) run on the card (kernels), then
+    moved to the CPU (plain versions) and run again on the same inputs:
+    identical greedy tokens, logits within `tol`, up to the first step
+    whose tokens differ."""
     from repro_torch.models import Model, greedy_sample
     model = Model(cfg, seed=1)
+    if weights is not None:
+        model.load_state_dict(weights)
     batch = zoo_batch(cfg, 2, prompt_len, extra, seed=9)
     pad_to = prompt_len + (0 if cfg.is_encdec else extra) + steps
     card = greedy_run(model, batch, pad_to, steps)
@@ -2004,6 +2052,17 @@ def card_then_cpu(cfg, prompt_len, extra, steps=8, tol=1e-3):
         if not same:
             break
     return same, worst, tol
+
+
+def zoo_counts(k3, k4):
+    """K3 and K4 launches and plain calls since their last reset; in a
+    CPU rehearsal (DEV "cpu") the plain calls stand for the launches."""
+    a, b = k3.decode_attention, k4.ssd_scan
+    if DEV == "cuda":
+        return dict(k3_launches=a.launches, k3_plain_calls=a.plain_calls,
+                    k4_launches=b.launches, k4_plain_calls=b.plain_calls)
+    return dict(k3_launches=a.plain_calls, k3_plain_calls=0,
+                k4_launches=b.plain_calls, k4_plain_calls=0)
 
 
 def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
@@ -2037,10 +2096,7 @@ def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
                                                       steps)
     finally:
         moe.moe_layer.tap = None
-    counts = dict(k3_launches=k3.decode_attention.launches,
-                  k3_plain_calls=k3.decode_attention.plain_calls,
-                  k4_launches=k4.ssd_scan.launches,
-                  k4_plain_calls=k4.ssd_scan.plain_calls)
+    counts = zoo_counts(k3, k4)
     moe_row = {}
     if n_moe:
         dropped = [int(d) for _, _, d in drops]
@@ -2137,6 +2193,339 @@ def phase_zoo_families(k3, k4):
     return out
 
 
+# -- phase 5i: the zoo's training path on the card ----------------------------
+
+TRAIN_FAMILIES = ("granite-3-2b", "mamba2-1.3b", "recurrentgemma-2b",
+                  "granite-moe-3b-a800m", "phi-3-vision-4.2b", "whisper-tiny")
+# card against CPU: loss, ce, aux and grad_norm within 1e-5 relative; each
+# gradient leaf within 1e-4 of its largest magnitude; each parameter after
+# one AdamW step within 1e-4 of its scale (max(|p|, lr)) plus what the
+# measured gradient difference moves the step: AdamW's first step is
+# lr g / (|g| + eps'), eps' = eps / clip scale, which moves by at most
+# 2 lr |dg| / (|g| - |dg| + eps') (at most 2 lr, where the signs may differ)
+TRAIN_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
+# the step at its peak rate (no warm-up), so that an update of about lr =
+# 1e-3 an element stands well above the parameters' limit; a leaf is
+# "seen" when leaving its update out would break that limit
+TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=0)
+# full width: (arch, batch, sequence, microbatches, warm-up, timed steps,
+# serving check: (batch, prompt, decode steps, K3 launches, K4 launches))
+TRAIN_WIDE = (("granite-3-2b", 4, 4096, 2, 1, 3, (4, 512, 16, 40 * 16, 0)),
+              ("mamba2-1.3b", 2, 4096, 1, 1, 2, (2, 1024, 0, 0, 48)))
+TRAIN_LOOP_STEPS = 40
+# the trained weights' card-against-CPU check: 2 x this prompt, 8 steps
+TRAINED_CPU_PROMPT = 64
+
+
+def train_once(model, batch, ocfg):
+    """One AdamW step by hand (value_and_grad, then update from a fresh
+    state): the numbers and tensors the card-against-CPU check reads, on
+    the CPU."""
+    from repro_torch.training import optimizer as opt
+    (loss, mets), grads = model.value_and_grad(batch)
+    params = dict(model.named_parameters())
+    before = {k: p.detach().to("cpu", torch.float32, copy=True)
+              for k, p in params.items()}
+    _, om = opt.update(ocfg, grads, opt.init(params), params)
+    after = {k: p.detach().float().cpu() for k, p in params.items()}
+    return dict(loss=float(loss), ce=float(mets["ce"]),
+                aux=float(mets["aux"]), grad_norm=float(om["grad_norm"]),
+                lr=float(om["lr"]),
+                grads={k: g.float().cpu() for k, g in grads.items()},
+                params=after,
+                updates={k: after[k] - before[k] for k in after})
+
+
+def train_card_against_cpu(name, cfg, B, S):
+    """The same float32 model (weights drawn on the card, seed 1, then
+    copied to the CPU) takes one train step on each: `TRAIN_TOL`."""
+    import copy
+    from repro_torch.models import Model
+    from repro_torch.training.data import batch_for
+    from repro_torch.training.optimizer import AdamWConfig
+    card = Model(cfg, device=DEV, seed=1)
+    cpu = copy.deepcopy(card).to("cpu")
+    batch = batch_for(cfg, S, B, seed=11)
+    ocfg = AdamWConfig(**TRAIN_CHECK_OPT)
+    got = train_once(card, batch, ocfg)
+    del card
+    torch.cuda.empty_cache()
+    want = train_once(cpu, batch, ocfg)
+    del cpu
+    lr = want["lr"]
+    row = dict(model=name, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, batch=B, seq=S, dtype="float32", lr=lr,
+               loss=(got["loss"], want["loss"]))
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in ("loss", "ce", "grad_norm")}
+    rel["aux"] = abs(got["aux"] - want["aux"]) / max(abs(want["aux"]), 1.0)
+    eps = ocfg.eps / min(1.0, ocfg.clip_norm / want["grad_norm"])
+    grad_err = param_err = 0.0
+    flips = n = 0
+    unseen, margin = [], (float("inf"), None, 0.0, 0.0)
+    for k, gc in want["grads"].items():
+        gd = (got["grads"][k] - gc).abs()
+        grad_err = max(grad_err, float(gd.max()) /
+                       max(float(gc.abs().max()), 1e-30))
+        pc = want["params"][k]
+        pd = (got["params"][k] - pc).abs()
+        scale = max(float(pc.abs().max()), lr)
+        moved = lr * torch.clamp(
+            2 * gd / ((gc.abs() - gd).clamp_min(0) + eps), max=2.0)
+        param_err = max(param_err,
+                        float((pd - moved).max()) / scale)
+        # the error a missing update would give, against the limit
+        limit = TRAIN_TOL["param"] * scale
+        upd = want["updates"][k].abs()
+        ratio = float((upd - moved).max()) / limit
+        if ratio <= 1.0:
+            unseen.append(k)
+        if ratio < margin[0]:
+            margin = (ratio, k, float(upd.max()), limit)
+        flips += int((gc.abs() < gd).sum())
+        n += pc.numel()
+    row.update(rel_err=rel, grad_max_rel_err=grad_err,
+               param_max_err_beyond_step_sensitivity=param_err,
+               grad_elements_sign_uncertain=flips, params=n,
+               leaves=len(want["params"]),
+               leaves_seen=len(want["params"]) - len(unseen),
+               leaves_unseen=unseen,
+               least_margin=dict(leaf=margin[1], largest_update=margin[2],
+                               limit=margin[3],
+                               update_beyond_sensitivity_over_limit=margin[0]),
+               tolerance=TRAIN_TOL, optimizer=TRAIN_CHECK_OPT)
+    check(max(rel.values()) <= TRAIN_TOL["loss"]
+          and grad_err <= TRAIN_TOL["grad"]
+          and param_err <= TRAIN_TOL["param"],
+          f"{name}: card vs CPU train step {row}")
+    check(not unseen, f"{name}: the step check cannot see an update of "
+          f"{unseen}")
+    return row
+
+
+def phase_train_checks():
+    """5i.1: each assigned family's smoke variant and granite-3-2b cut to
+    one layer at full width, one float32 train step, card against CPU."""
+    from repro_torch.configs import get_config, smoke_variant
+    t0 = time.perf_counter()
+    rows = {}
+    for name in TRAIN_FAMILIES:
+        cfg = smoke_variant(get_config(name)).replace(dtype=torch.float32)
+        rows[name] = train_card_against_cpu(name, cfg, 2, 24)
+    wide = get_config("granite-3-2b").replace(n_layers=1,
+                                              dtype=torch.float32)
+    rows["granite-3-2b/1-layer"] = train_card_against_cpu(
+        "granite-3-2b/1-layer", wide, 1, 1024)
+    emit("train_card_vs_cpu", seconds=time.perf_counter() - t0, runs=rows)
+    return rows
+
+
+def attention_train_flops(cfg, B, S):
+    """(the attention products of a training step by the usual count:
+    forward QK and PV over the causal half, backward twice that; the
+    float32 products this port runs: the live blocks of `flash_attention`
+    (`attention._blocks`), forward twice under remat and 5 products in
+    the backward)."""
+    from repro_torch.models.attention import _blocks
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
+    usual = 6.0 * S * S * cfg.hd * cfg.n_heads * B * n_attn
+    bq = min(cfg.attn_chunk, S)
+    n_live = len(_blocks(S // bq, S // bq, bq, bq, S, True, 0, "cpu"))
+    passes = (4 if cfg.remat else 2) + 5
+    run = passes * 2.0 * bq * bq * cfg.hd * cfg.n_heads * B * n_attn * n_live
+    return usual, run
+
+
+def phase_train_wide(name, B, S, k, warm, timed, serving, k3, k4):
+    """5i.2-4: `arch` at full width in bf16 (remat as configured): warm-up
+    and timed steps of `make_train_step`, each with its loss, grad_norm,
+    lr, ms, tokens/s and peak memory; one step under the profiler; then
+    the trained weights serve through K3 / K4, counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import AdamWConfig
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    model = Model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = init_opt_state(model)
+    step = make_train_step(model, AdamWConfig(), microbatches=k)
+    stream = TokenStream(cfg.vocab, S, B, seed=0).batches()
+    k3.reset_counts()
+    k4.reset_counts()
+    steps = []
+    for i in range(warm + timed):
+        batch = next(stream)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(step=i, warmup=i < warm, loss=float(mets["loss"]),
+                          grad_norm=float(mets["grad_norm"]),
+                          lr=float(mets["lr"]), ms=ms,
+                          tokens_per_s=B * S / ms * 1e3,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+    kernel_calls = zoo_counts(k3, k4)
+    step_ms = float(np.median([r["ms"] for r in steps[warm:]]))
+    batch = next(stream)
+    t0 = time.perf_counter()
+    prof = device_profile(lambda: step(state, batch), step_ms)
+    prof["profiled_step_s"] = time.perf_counter() - t0
+    prof.pop("k3_device_ms")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    tokens = B * S
+    flops = 6.0 * n_params * tokens
+    attn_usual, attn_run = attention_train_flops(cfg, B, S)
+    row = dict(model=name, layers=cfg.n_layers, d_model=cfg.d_model,
+               params=n_params, dtype=str(cfg.dtype).split(".")[-1],
+               remat=cfg.remat, batch=B, seq=S, microbatches=k,
+               tokens_per_step=tokens, steps=steps, step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3,
+               peak_gb=max(r["peak_gb"] for r in steps),
+               train_kernel_calls=kernel_calls, step_profile=prof,
+               model_flops=flops + attn_usual, flops_6nt=flops,
+               attention_flops=attn_usual,
+               model_flops_ms_at_bf16_peak=(flops + attn_usual)
+               / BF16_FLOPS * 1e3,
+               attention_float32_flops_run=attn_run,
+               attention_float32_ms_at_fp32_peak=attn_run / FP32_FLOPS * 1e3)
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in steps), f"{name}: non-finite training step {steps}")
+    check(kernel_calls["k3_plain_calls"] == kernel_calls["k4_plain_calls"]
+          == 0, f"{name}: plain-version calls in training {kernel_calls}")
+    # serve the trained weights
+    sb, prompt, dsteps, want_k3, want_k4 = serving
+    inputs = zoo_batch(cfg, sb, prompt, 0)
+    k3.reset_counts()
+    k4.reset_counts()
+    if dsteps:
+        pre_ms, dec_ms, finite, _, _ = serve(model, inputs, prompt + dsteps,
+                                             dsteps)
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(inputs, pad_to=prompt)
+        finite = bool(torch.isfinite(logits).all())
+        pre_ms, dec_ms = (time.perf_counter() - t0) * 1e3, None
+    served = dict(batch=sb, prompt=prompt, decode_steps=dsteps,
+                  prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+                  logits_finite=finite, **zoo_counts(k3, k4))
+    # the trained weights in float32, card against CPU, as in 5h
+    weights = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    same, worst, tol = card_then_cpu(cfg.replace(dtype=torch.float32),
+                                     TRAINED_CPU_PROMPT, 0, weights=weights)
+    del weights
+    served["cpu_check"] = dict(dtype="float32", batch=2,
+                               prompt=TRAINED_CPU_PROMPT, steps=8,
+                               identical_tokens=same,
+                               logits_max_abs_err=worst, tolerance=tol)
+    emit("train_wide", **row, serve_trained=served,
+         seconds=time.perf_counter() - t_phase)
+    check(finite, f"{name}: trained weights give non-finite logits")
+    check(served["k3_launches"] == want_k3 and served["k4_launches"]
+          == want_k4, f"{name}: serving launches {served}, want K3 "
+          f"{want_k3}, K4 {want_k4}")
+    check(served["k3_plain_calls"] == served["k4_plain_calls"] == 0,
+          f"{name}: plain-version calls serving {served}")
+    check(same and worst <= tol, f"{name}: trained weights, card vs CPU "
+          f"tokens identical={same}, logits error {worst}")
+    return row, served
+
+
+def phase_train_loop():
+    """5i.5: `examples/torch_train_small.py --preset tiny` (the loss
+    falls over `TRAIN_LOOP_STEPS` steps) and with `--compress-grads`; a
+    run cut at step 15 (checkpoints every 10) resumed to step 25 against
+    the uncut run; `python -m repro_torch.launch.train --smoke --steps 5`
+    in a subprocess."""
+    import importlib.util
+    import shutil
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import Model
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train_loop import TrainConfig, train
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke_train"
+    shutil.rmtree(out, ignore_errors=True)
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_small", root / "examples" / "torch_train_small.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    dev = [] if DEV == "cuda" else ["--device", "cpu"]
+    tiny = example.main(["--preset", "tiny", "--steps",
+                         str(TRAIN_LOOP_STEPS), "--ckpt",
+                         str(out / "tiny")] + dev)
+    comp = example.main(["--preset", "tiny", "--steps", "25",
+                         "--compress-grads", "--ckpt", str(out / "comp")]
+                        + dev)
+
+    def run(n_steps, ckpt, skip=0):
+        data = TokenStream(256, 32, 8, seed=0)
+        for _ in range(skip):
+            next(data.batches(1))
+        model = Model(smoke_variant(ARCHS["granite-3-2b"]).replace(
+            vocab=256), device=DEV)
+        return train(model, data, TrainConfig(
+            n_steps=n_steps, ckpt_every=10, ckpt_dir=str(ckpt)),
+            log=lambda s: None)
+    full = run(25, out / "full")
+    run(15, out / "cut")
+    resumed = run(25, out / "cut", skip=10)
+    loss_diff = float(np.abs(resumed["losses"] - full["losses"][10:]).max())
+    params_equal = all(torch.equal(resumed["params"][k], p)
+                       for k, p in full["params"].items())
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+           "--steps", "5"] + dev
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")},
+                         timeout=300)
+    launcher = dict(command=" ".join(cmd[1:]), returncode=res.returncode,
+                    wall_s=time.perf_counter() - t0,
+                    last_line=(res.stdout.strip().splitlines() or [""])[-1])
+    row = dict(tiny=dict(steps=TRAIN_LOOP_STEPS,
+                         first_loss=tiny["first_loss"],
+                         final_loss=tiny["final_loss"]),
+               compressed=dict(steps=25, first_loss=comp["first_loss"],
+                               final_loss=comp["final_loss"]),
+               resume=dict(cut_at=15, checkpoint_every=10, resumed_to=25,
+                           losses_bitwise=loss_diff == 0.0,
+                           loss_max_abs_diff=loss_diff,
+                           params_bitwise=params_equal, tolerance=1e-6),
+               launcher=launcher, seconds=time.perf_counter() - t_phase)
+    emit("train_loop", **row)
+    shutil.rmtree(out, ignore_errors=True)
+    check(tiny["final_loss"] < tiny["first_loss"] - 0.3,
+          f"tiny preset: loss did not fall {row['tiny']}")
+    check(np.isfinite(comp["final_loss"])
+          and comp["final_loss"] < comp["first_loss"],
+          f"--compress-grads: {row['compressed']}")
+    check(loss_diff <= 1e-6, f"resume: losses differ by {loss_diff}")
+    check(res.returncode == 0 and "->" in launcher["last_line"],
+          f"launcher: {launcher} {res.stderr[-2000:]}")
+    return row
+
+
+def phase_training(k3, k4):
+    """Phase 5i: training on the card."""
+    t0 = time.perf_counter()
+    checks = phase_train_checks()
+    wide = {name: phase_train_wide(name, B, S, k, warm, timed, serving, k3,
+                                   k4)
+            for name, B, S, k, warm, timed, serving in TRAIN_WIDE}
+    loop = phase_train_loop()
+    emit("training", seconds=time.perf_counter() - t0)
+    return checks, wide, loop
+
+
 def main():
     smi_line = phase_device()
     phase_build()
@@ -2174,9 +2563,15 @@ def main():
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
                             k3, k4, want_k3=0, want_k4=48)
     zoo = phase_zoo_families(k3, k4)
+    _, trained, _ = phase_training(k3, k4)
     k3_by_path = {"dense_serving/qwen2.5-3b": dense["k3_launches"],
                   **{f"zoo_families/{k}": v["k3_launches"]
-                     for k, v in zoo.items()}}
+                     for k, v in zoo.items()},
+                  "train_serve/granite-3-2b":
+                      trained["granite-3-2b"][1]["k3_launches"]}
+    k4_by_path = {"ssm_serving/mamba2-1.3b": ssm["k4_launches"],
+                  "train_serve/mamba2-1.3b":
+                      trained["mamba2-1.3b"][1]["k4_launches"]}
     main8, knn1 = times[8], knn_times[1]
     print(json.dumps({"kernels": [{
         "name": "decision_megakernel", "route": "cuda",
@@ -2257,7 +2652,8 @@ def main():
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:87",
         "function": "ssd_scan",
-        "launches": ssm["k4_launches"], "checked_against_plain": True,
+        "launches": sum(k4_by_path.values()),
+        "launches_by_path": k4_by_path, "checked_against_plain": True,
         "max_abs_err": k4_abs, "ms": k4_times["ms"],
         "plain_ms": k4_times["plain_ms"], "bound_ms": k4_times["bound_ms"],
         "bound_by": k4_times["bound_by"], "library_ms": None,

@@ -1,25 +1,30 @@
 """The Model facade: one module per architecture config.
 
-Port of `repro.models.api` (lines 18-63), serving entry points.
-`Model` is an `nn.Module` that holds its parameter tree (the reference
-passes the tree to every call instead), built on the card unless the
-caller asks for the CPU, and dispatches on `cfg.is_encdec` as the
-reference's facade does: `model` for the decoder-only families (dense,
-MoE, SSM, the RG-LRU hybrid, the vision-language model), `encdec` for
-the encoder-decoder.
+Port of `repro.models.api` (lines 18-63). `Model` is an `nn.Module`
+that holds its parameter tree (the reference passes the tree to every
+call instead), built on the card unless the caller asks for the CPU,
+and dispatches on `cfg.is_encdec` as the reference's facade does:
+`model` for the decoder-only families (dense, MoE, SSM, the RG-LRU
+hybrid, the vision-language model), `encdec` for the encoder-decoder.
 
     model = Model(get_config("qwen2.5-3b"))        # device=None: cuda
     logits, cache = model.prefill({"tokens": tokens}, pad_to=1024)
     logits, cache = model.decode(cache, greedy_sample(logits)[:, None])
+    (loss, mets), grads = model.value_and_grad({"tokens": t, "labels": l})
 
 A batch holds `tokens` and, for a vision model, `frontend_embeds`
 (B, F, frontend_dim); for the encoder-decoder, `frames` (B, S_enc,
-frontend_dim) and the decoder prefix `tokens`. Training (`loss`) waits
-for the training slice.
+frontend_dim) and the decoder `tokens`; a training batch adds `labels`
+and optionally `loss_mask`. The parameters' leaves are named by their
+dotted paths in the tree (`flatten_tree`, the state-dict keys); the
+optimizer, the gradients and the checkpoints use those names;
+`stacked_leaves` groups them as the reference stacks them into one
+leaf. The parameters do not require gradients: `value_and_grad` turns that on
+for its one call, so the serving path builds no autograd graph.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -94,8 +99,54 @@ class Model(Params):
         self.load_state_dict(dict(flatten_tree(tree)))
         return self
 
+    def stacked_leaves(self) -> List[Tuple[str, ...]]:
+        """The parameter names grouped as the reference stacks them into
+        one leaf: pattern slot s's layers over the cycles (`slot{s}`), and
+        the encoder's and the decoder's layers (`enc`, `dec`); the
+        remainder layers and every other leaf stand alone. A statistic
+        the reference takes per leaf (the int8 codec's scale) is taken
+        over such a group."""
+        cfg, n_pat = self.cfg, len(self.cfg.pattern)
+        groups: Dict[object, List[str]] = {}
+        for name, _ in self.named_parameters():
+            head, _, rest = name.partition(".")
+            idx, _, leaf = rest.partition(".")
+            if cfg.is_encdec and head in ("enc", "dec"):
+                key = (head, leaf)
+            elif head == "layers" and int(idx) < cfg.n_cycles * n_pat:
+                key = (head, int(idx) % n_pat, leaf)
+            else:
+                key = name
+            groups.setdefault(key, []).append(name)
+        return [tuple(g) for g in groups.values()]
+
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def loss(self, batch: Dict):
+        """(ce + 0.01 aux, {"ce", "aux"}) of a training batch, float32
+        scalars; the graph reaches the parameters only where they
+        require gradients (see `value_and_grad`)."""
+        b = {k: self._input(v) for k, v in batch.items()}
+        return _family(self.cfg).loss_fn(self, self.cfg, b)
+
+    def value_and_grad(self, batch: Dict):
+        """`jax.value_and_grad(model.loss, has_aux=True)`: ((loss, {"ce",
+        "aux"}), {leaf name: gradient}), each gradient in its parameter's
+        dtype, zeros for a leaf the loss does not reach."""
+        names, leaves = zip(*self.named_parameters())
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, mets = self.loss(batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return ((loss.detach(), {k: v.detach() for k, v in mets.items()}),
+                dict(zip(names, grads)))
 
     def prefill(self, batch: Dict, pad_to: int = 0):
         """batch["tokens"]: (B, S) integer, with `frontend_embeds` for a

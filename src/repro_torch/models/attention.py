@@ -1,14 +1,28 @@
-"""Attention: the blocked (flash) forward for prefill, head repetition
-for GQA, and single-token decode attention through kernel K3.
+"""Attention: blocked (flash) attention with its hand-written backward,
+head repetition for GQA, and single-token decode attention through
+kernel K3.
 
 Port of `repro.models.attention` (lines 28-255). `flash_attention` is
-the reference's blocked online softmax, forward only, in plain torch
-(the reference writes it in jnp, not Pallas); its hand-written VJP
-belongs to training and is not ported yet. `decode_attention` keeps the
-reference's (B, 1, H, d) signature and goes to K3
-(`repro_torch.kernels.decode_attention`): the CUDA kernel on CUDA
-tensors, its plain version on CPU tensors. Neither calls a library
-attention.
+the reference's `jax.custom_vjp` (lines 42-203) as a
+`torch.autograd.Function` in plain torch (the reference writes it in
+jnp, not Pallas): the forward is the blocked online softmax and saves
+only (q, k, v, o, lse), lse blocked (B, nq, H, bq); the backward
+recomputes each block's scores, walking KV blocks outside and Q blocks
+inside, with D = rowsum(dO * O), p = exp(s - lse), and dq / dk / dv
+accumulated in float32, then cast to the inputs' dtypes. No tensor of
+S x S elements is kept between the two. Prefill and training call the
+same function. `decode_attention` keeps the reference's (B, 1, H, d)
+signature and goes to K3 (`repro_torch.kernels.decode_attention`): the
+CUDA kernel on CUDA tensors, its plain version on CPU tensors. Neither
+calls a library attention.
+
+Blocks that the causal or window mask empties whole are skipped, in
+both directions: the reference's `skip_masked_blocks` (lines 206-220,
+off there by default). The result is the same: every causal row sees
+its own key, so once a row's running max is finite a masked block adds
+exp(-1e30 - m) = 0 to l and acc and leaves m, and a block masked
+before the row's first live one is wiped by that block's alpha = 0; in
+the backward a masked block's p is exactly 0.
 
 Layouts are the reference's: q, k, v (B, S, H, hd); decode caches
 (B, C, K, hd) with (C,) int32 slot positions, -1 for an empty slot.
@@ -18,6 +32,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels import decode_attention as k3
 
@@ -34,48 +49,132 @@ def _block_mask(q_pos, k_pos, kv_len: int, causal: bool, window: int):
     return m
 
 
+def _blocks(nq, nkv, bq, bkv, kv_len, causal, window, device):
+    """{(i, j): mask} over the (Q block, KV block) pairs that hold an
+    allowed position; mask None where every position is allowed."""
+    out = {}
+    for i in range(nq):
+        q0, q1 = i * bq, (i + 1) * bq - 1
+        for j in range(nkv):
+            k0, k1 = j * bkv, (j + 1) * bkv - 1
+            if (causal and k0 > q1) or (window > 0 and k1 <= q0 - window):
+                continue
+            if k1 < kv_len and (not causal or k1 <= q0) \
+                    and (window <= 0 or k0 > q1 - window):
+                out[i, j] = None
+            else:
+                out[i, j] = _block_mask(
+                    torch.arange(q0, q1 + 1, device=device),
+                    torch.arange(k0, k1 + 1, device=device),
+                    kv_len, causal, window)
+    return out
+
+
+def _masked(s, mask):
+    return s if mask is None else torch.where(mask, s, NEG_INF)
+
+
+def _heads_first(x):
+    """(B, S, H, d) -> (B, H, S, d) float32, contiguous."""
+    return x.float().transpose(1, 2).contiguous()
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's `flash` with its VJP; statics after the tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, bq, bkv):
+        B, Sq, H, d = q.shape
+        nq, nkv = Sq // bq, k.shape[1] // bkv
+        scale = d ** -0.5
+        blocks = _blocks(nq, nkv, bq, bkv, kv_len, causal, window, q.device)
+        qf, kf = _heads_first(q), _heads_first(k)
+        vt = v.transpose(1, 2)
+        o = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, nq, H, bq), dtype=torch.float32,
+                          device=q.device)
+        for i in range(nq):
+            q_i = qf[:, :, i * bq:(i + 1) * bq]
+            m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((B, H, bq, d), dtype=torch.float32,
+                              device=q.device)
+            for j in range(nkv):
+                if (i, j) not in blocks:
+                    continue
+                s = q_i @ kf[:, :, j * bkv:(j + 1) * bkv].transpose(-1, -2)
+                s = _masked(s * scale, blocks[i, j])
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                v_j = vt[:, :, j * bkv:(j + 1) * bkv]
+                pv = p.to(v.dtype).float() @ v_j.float()
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            l_safe = l.clamp_min(1e-30)
+            o[:, :, i * bq:(i + 1) * bq] = (acc / l_safe[..., None]).to(
+                q.dtype)
+            lse[:, i] = m + torch.log(l_safe)
+        o = o.transpose(1, 2).contiguous()
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.statics = (causal, window, kv_len, bq, bkv)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, kv_len, bq, bkv = ctx.statics
+        B, Sq, H, d = q.shape
+        nq, nkv = Sq // bq, k.shape[1] // bkv
+        scale = d ** -0.5
+        blocks = _blocks(nq, nkv, bq, bkv, kv_len, causal, window, q.device)
+        qf, kf, vf, gf = (_heads_first(t) for t in (q, k, v, g))
+        # D_i = rowsum(dO * O): (B, H, Sq)
+        D = (g.float() * o.float()).sum(-1).transpose(1, 2)
+        dq = torch.zeros_like(qf)
+        dk = torch.empty_like(kf)
+        dv = torch.empty_like(vf)
+        for j in range(nkv):
+            k_j = kf[:, :, j * bkv:(j + 1) * bkv]
+            v_j = vf[:, :, j * bkv:(j + 1) * bkv]
+            dk_j = torch.zeros_like(k_j)
+            dv_j = torch.zeros_like(v_j)
+            for i in range(nq):
+                if (i, j) not in blocks:
+                    continue
+                rows = slice(i * bq, (i + 1) * bq)
+                q_i, g_i = qf[:, :, rows], gf[:, :, rows]
+                s = _masked((q_i @ k_j.transpose(-1, -2)) * scale,
+                            blocks[i, j])
+                p = torch.exp(s - lse[:, i][..., None])    # (B, H, bq, bkv)
+                dv_j = dv_j + p.transpose(-1, -2) @ g_i
+                dp = g_i @ v_j.transpose(-1, -2)
+                ds = p * (dp - D[:, :, rows][..., None]) * scale
+                dq[:, :, rows] += ds @ k_j
+                dk_j = dk_j + ds.transpose(-1, -2) @ q_i
+            dk[:, :, j * bkv:(j + 1) * bkv] = dk_j
+            dv[:, :, j * bkv:(j + 1) * bkv] = dv_j
+        return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None, None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None, block_q: int = 512,
                     block_kv: int = 512):
-    """Blocked attention, forward. q, k, v: (B, S, H, hd) with the KV
-    heads already repeated to H. A block size that does not divide its
+    """Blocked attention, differentiable. q, k, v: (B, S, H, hd) with the
+    KV heads already repeated to H. A block size that does not divide its
     length becomes the whole length (reference lines 206-220). Scores,
     the running (m, l, acc) and the PV product accumulate in float32; p
     is cast to v's dtype before the PV product. Queries start at
     position 0 (the reference's `q_offset` has no caller)."""
-    B, Sq, H, d = q.shape
-    Sk = k.shape[1]
+    Sq, Sk = q.shape[1], k.shape[1]
     bq = block_q if Sq % block_q == 0 else Sq
     bkv = block_kv if Sk % block_kv == 0 else Sk
     kv_len = Sk if kv_len is None else int(kv_len)
-    scale = d ** -0.5
-    dev = q.device
-    kf = k.float()
-    out = torch.empty_like(q)
-    for i in range(Sq // bq):
-        q_i = q[:, i * bq:(i + 1) * bq].float()
-        q_pos = i * bq + torch.arange(bq, device=dev)
-        m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, bq, H, d), dtype=torch.float32, device=dev)
-        for j in range(Sk // bkv):
-            k_j = kf[:, j * bkv:(j + 1) * bkv]
-            v_j = v[:, j * bkv:(j + 1) * bkv]
-            k_pos = j * bkv + torch.arange(bkv, device=dev)
-            s = torch.einsum("bqhd,bchd->bhqc", q_i, k_j) * scale
-            mask = _block_mask(q_pos, k_pos, kv_len, causal, window)
-            s = torch.where(mask[None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            pv = torch.einsum("bhqc,bchd->bqhd", p.to(v_j.dtype).float(),
-                              v_j.float())
-            acc = acc * alpha.transpose(1, 2)[..., None] + pv
-            m = m_new
-        o = acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]
-        out[:, i * bq:(i + 1) * bq] = o.to(q.dtype)
-    return out
+    return _Flash.apply(q, k, v, bool(causal), int(window), kv_len, bq, bkv)
 
 
 def repeat_kv(x, n_rep: int):

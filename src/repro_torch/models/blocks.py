@@ -3,8 +3,10 @@ MoE MLP.
 
 Port of `repro.models.blocks` (lines 31-432). A block is
 pre-norm -> mixer -> residual [-> pre-norm -> mlp -> residual]; mamba2
-SSD blocks have no MLP. Two modes are ported, the serving ones:
+SSD blocks have no MLP. Every mixer runs in the reference's three
+modes:
 
+  train   - the full sequence, causal, no cache;
   prefill - the full prompt, causal, returns the populated cache;
   decode  - one token, reads and writes the cache.
 
@@ -12,20 +14,25 @@ Decode writes the new token's K/V slot (`slot = pos % C`, the ring
 buffer of reference lines 89-99) into the cache's tensors in place
 instead of returning updated copies, so a cache passed to decode must
 not be reused afterwards; the SSD and RG-LRU states and conv windows
-are replaced by new tensors. The SSD prefill pads the prompt to its
-chunk with dt = 0 (exact no-op steps, reference lines 263-272) and runs
-kernel K4 (`repro_torch.kernels.ssd_scan`); its decode recurrence
-(lines 324-345) is plain torch, as in the reference, which has no
-kernel there. The RG-LRU (griffin / recurrentgemma, lines 146-211) is
-plain torch too: its prefill is the reference's log-depth
-`associative_scan` spelled in torch ops (`_lru_scan`), so products and
-sums associate as the reference's do.
+are replaced by new tensors. Train and prefill write into no tensor
+that autograd saved. The SSD prefill pads the prompt to its chunk with
+dt = 0 (exact no-op steps, reference lines 263-272) and runs kernel K4
+(`repro_torch.kernels.ssd_scan`), which has no backward; training runs
+the model's own chunked scan (`ssd_chunked_train`, the reference's
+`_ssd_chunked`, lines 252-308) in torch under autograd: every chunk's
+state-independent products at once under `torch.utils.checkpoint` (the
+reference's chunk body sits under `jax.checkpoint`), then the state
+recurrence chunk by chunk. Its decode recurrence (lines 324-345) is
+plain torch, as in the reference, which has no kernel there. The RG-LRU
+(griffin / recurrentgemma, lines 146-211) is plain torch too: its
+prefill and train scan is the reference's log-depth `associative_scan`
+spelled in torch ops (`_lru_scan`), so products and sums associate as
+the reference's do.
 
-`block_forward` returns (x, new_cache): the reference's third output,
-the MoE auxiliary loss, is a training term that serving does not read
-(`moe.moe_layer` still computes and returns it). The MoE MLP drops
-pairs past the capacity at prefill and none at decode
-(`no_drop=(mode == "decode")`, reference line 424).
+`block_forward` returns (x, new_cache, aux): aux is the MoE layer's
+load-balance loss, a float32 scalar, and 0.0 for a dense MLP or none.
+The MoE MLP drops pairs past the capacity in train and prefill and none
+at decode (`no_drop=(mode == "decode")`, reference line 424).
 """
 from __future__ import annotations
 
@@ -36,16 +43,10 @@ from ..kernels import ssd_scan as k4
 from .attention import decode_attention, flash_attention, repeat_kv
 from .config import BlockCfg, ModelConfig
 from .layers import apply_act, apply_norm, apply_rope, dense_init, mlp, \
-    mlp_params, norm_params
+    mlp_params, norm_params, remat
 from .moe import moe_layer, moe_params
 
-MODES = ("prefill", "decode")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, the model zoo's "
-        f"training slice)")
+MODES = ("train", "prefill", "decode")
 
 
 # -- causal depthwise conv (width w) ------------------------------------------
@@ -122,7 +123,9 @@ def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                             block_q=min(cfg.attn_chunk, S),
                             block_kv=min(cfg.attn_chunk, S))
         C = blk.cache_len(max(pad_to, S))
-        if S <= C:
+        if mode == "train":
+            new_cache = None
+        elif S <= C:
             padw = (0, 0, 0, 0, 0, C - S)
             new_cache = {
                 "k": F.pad(k, padw), "v": F.pad(v, padw),
@@ -236,8 +239,9 @@ def rglru_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
         a, b = _lru_gates(causal_conv(u_in, p["conv"], w), p)
         _, h = _lru_scan(a, b)
         y = h.to(x.dtype)
-        new_cache = {"h": h[:, -1].contiguous(),
-                     "conv": u_in[:, -(w - 1):].contiguous()}
+        new_cache = None if mode == "train" else {
+            "h": h[:, -1].contiguous(),
+            "conv": u_in[:, -(w - 1):].contiguous()}
     return (y * gate) @ p["w_out"], new_cache
 
 
@@ -275,21 +279,90 @@ def ssd_params(gen, cfg: ModelConfig, dtype=None):
     }
 
 
+def _pad_to_chunk(xh, Bm, Cm, dt, chunk: int):
+    """Zero-pad the sequence axis to a multiple of the chunk: dt = 0
+    makes the padded steps exact no-ops (decay 1, input 0)."""
+    pad = (-xh.shape[1]) % chunk
+    if not pad:
+        return xh, Bm, Cm, dt
+    return (F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(Bm, (0, 0, 0, 0, 0, pad)),
+            F.pad(Cm, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)))
+
+
 def ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
     """The prefill scan: pad S to the chunk with dt = 0 (decay 1, input
     0: exact no-op steps), run K4, cut the padding. xh (B, S, nh, P);
     Bm/Cm (B, S, G, N) float32; dt (B, S, nh) float32; A (nh,) float32.
     Returns (y (B, S, nh, P) in xh's dtype, final state (B, nh, P, N))."""
     S = xh.shape[1]
-    pad = (-S) % chunk
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+    xh, Bm, Cm, dt = _pad_to_chunk(xh, Bm, Cm, dt, chunk)
     y, state = k4.ssd_scan(xh.contiguous(), Bm.contiguous(),
                            Cm.contiguous(), dt.contiguous(), A, chunk=chunk)
     return y[:, :S], state
+
+
+def _segsum(dA):
+    """(..., Q) -> (..., Q, Q): cs_q - cs_k on and below the diagonal,
+    -inf above it (cs the cumulative sum)."""
+    Q = dA.shape[-1]
+    cs = dA.cumsum(-1)
+    keep = torch.ones((Q, Q), dtype=torch.bool, device=dA.device).tril()
+    return torch.where(keep, cs[..., :, None] - cs[..., None, :],
+                       -torch.inf)
+
+
+def _ssd_local(xc, Bc, Cc, dtc, dAc):
+    """Every chunk's state-independent work at once (reference lines
+    280-300): the masked intra-chunk product, the decays and each
+    chunk's own state contribution. xc (B, nc, Q, nh, P); Bc/Cc
+    (B, nc, Q, nh, N) float32; dtc/dAc (B, nc, Q, nh) float32. Returns
+    (y_intra (B, nc, Q, nh, P), st (B, nc, nh, P, N), decay_in
+    (B, nc, Q, nh), chunk_decay (B, nc, nh)), float32."""
+    dA_t = dAc.transpose(2, 3)                              # (B, nc, nh, Q)
+    cum = dA_t.cumsum(-1)
+    L = torch.exp(_segsum(dA_t))                            # (B,nc,nh,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    M = scores * L * dtc.transpose(2, 3)[:, :, :, None, :]
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M.to(xc.dtype).float(),
+                           xc.float())
+    decay_out = torch.exp(cum[..., -1:] - cum)              # (B, nc, nh, Q)
+    contrib = dtc * decay_out.transpose(2, 3)               # (B, nc, Q, nh)
+    st = torch.einsum("bcqhn,bcqhp->bchpn", Bc * contrib[..., None],
+                      xc.float())
+    return (y_intra, st, torch.exp(cum).transpose(2, 3),
+            torch.exp(cum[..., -1]))
+
+
+def ssd_chunked_train(xh, Bm, Cm, dt, A, chunk: int):
+    """The training scan, differentiable: the reference's `_ssd_chunked`
+    in torch. Each chunk's state-independent work (`_ssd_local`) runs for
+    all chunks at once and again in the backward (`remat`, as the
+    reference's chunk body under `jax.checkpoint`), so no chunk's (Q, Q)
+    products are kept; only the state recurrence walks the chunks in
+    order, state_c = state_(c-1) exp(sum dA_c) + st_c, from zero. Same
+    arguments and results as `ssd_chunked`."""
+    Bsz, S, nh, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xh, Bm, Cm, dt = _pad_to_chunk(xh, Bm, Cm, dt, chunk)
+    nc = xh.shape[1] // chunk
+    xc = xh.reshape(Bsz, nc, chunk, nh, P)
+    Bc = Bm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(nh // G, dim=3)
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).repeat_interleave(nh // G, dim=3)
+    dtc = dt.reshape(Bsz, nc, chunk, nh)
+    y_intra, st, decay_in, chunk_decay = remat(True, _ssd_local, xc, Bc, Cc,
+                                               dtc, dtc * A)
+    state = torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
+                        device=xh.device)
+    entering = []
+    # unbind: one backward node for all chunks, not a full-size zero
+    # fill per chunk as indexing's backward would make
+    for st_c, decay_c in zip(st.unbind(1), chunk_decay.unbind(1)):
+        entering.append(state)
+        state = state * decay_c[:, :, None, None] + st_c
+    y_inter = torch.einsum("bcqhn,bchpn->bcqhp", Cc * decay_in[..., None],
+                           torch.stack(entering, 1))
+    y = (y_intra + y_inter).to(xh.dtype)
+    return y.reshape(Bsz, nc * chunk, nh, P)[:, :S], state
 
 
 def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
@@ -331,11 +404,11 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
         Bm = Bm.reshape(B, S, G, N).float()
         Cm = Cm.reshape(B, S, G, N).float()
         dt = _softplus(dt_raw.float() + p["dt_bias"])
-        y, final_state = ssd_chunked(xh, Bm, Cm, dt, A,
-                                     min(cfg.ssm_chunk, S))
+        scan = ssd_chunked_train if mode == "train" else ssd_chunked
+        y, final_state = scan(xh, Bm, Cm, dt, A, min(cfg.ssm_chunk, S))
         y = y + p["D_skip"][None, None, :, None] * xh.float()
         y = y.reshape(B, S, di).to(x.dtype)
-        new_cache = {"state": final_state,
+        new_cache = None if mode == "train" else {"state": final_state,
                      "conv_x": xr[:, -(w - 1):].contiguous(),
                      "conv_B": Br[:, -(w - 1):].contiguous(),
                      "conv_C": Cr[:, -(w - 1):].contiguous()}
@@ -385,24 +458,25 @@ def block_params(gen, cfg: ModelConfig, blk: BlockCfg):
 
 def block_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                   pos: int, pad_to: int = 0):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux); new_cache is None in train."""
     if mode not in MODES:
-        raise _not_ported(f"mode {mode!r}")
+        raise ValueError(f"mode {mode!r} not in {MODES}")
     h = apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
     mix, new_cache = _MIXERS[blk.mixer][1](h, p["mixer"], cfg, blk, mode,
                                            cache, pos, pad_to)
     x = x + mix
+    aux = 0.0
     if blk.mlp != "none":
         h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
         if blk.mlp == "moe":
-            out, _ = moe_layer(h2, p["mlp"], top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor,
-                               act=cfg.act, glu=cfg.glu,
-                               no_drop=(mode == "decode"))
+            out, aux = moe_layer(h2, p["mlp"], top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 act=cfg.act, glu=cfg.glu,
+                                 no_drop=(mode == "decode"))
         else:
             out = mlp(h2, p["mlp"], cfg.act, cfg.glu)
         x = x + out
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def block_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,

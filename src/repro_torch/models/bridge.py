@@ -23,7 +23,11 @@ params)`).
     transposed.
   * bfloat16 leaves arrive as `ml_dtypes.bfloat16` arrays, which
     `torch.from_numpy` refuses; they are read through a 16-bit integer
-    view of the same bits.
+    view of the same bits. Every other dtype comes across as it is, so
+    any tree shaped like the parameters (their gradients, AdamW's
+    float32 `m` and `v`, the compression error buffers) crosses with
+    `params_from_jax` too, leaf for leaf under the same names;
+    `opt_state_from_jax` carries a whole optimizer state.
 """
 from __future__ import annotations
 
@@ -66,8 +70,9 @@ def _unstack(tree: Dict, n: int):
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The reference's parameter tree (numpy leaves) as the port's state
-    dict (CPU tensors, for `Model.load_state_dict`)."""
+    """The reference's parameter tree (numpy leaves), or any tree shaped
+    like it, as the port's state dict (CPU tensors named by leaf, dtypes
+    kept; for `Model.load_state_dict`)."""
     if cfg.is_encdec:
         port = {k: tree[k] for k in ("frontend_proj", "embed", "pos_dec",
                                      "enc_norm", "dec_norm")}
@@ -78,6 +83,18 @@ def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
                                      "frontend_proj") if k in tree}
         port["layers"] = _layers(tree, cfg)
     return {k: _tensor(v) for k, v in flatten_tree(port)}
+
+
+def opt_state_from_jax(state: Dict, cfg: ModelConfig) -> Dict:
+    """The reference's AdamW state {"m", "v", "step"[, "ef"]} (numpy
+    leaves) as the port's: each tree by leaf name, float32 kept, and
+    `step` an int32 scalar tensor (CPU tensors; move them with the
+    model)."""
+    out = {k: params_from_jax(state[k], cfg)
+           for k in ("m", "v", "ef") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out
 
 
 def cache_from_jax(cache: Dict, cfg: ModelConfig, device=None) -> Dict:

@@ -1,8 +1,8 @@
-"""Whisper-style encoder-decoder: parameters, the encoder, and the
-serving path (prefill, then decode steps).
+"""Whisper-style encoder-decoder: parameters, the encoder, the training
+loss and the serving path (prefill, then decode steps).
 
-Port of the serving half of `repro.models.encdec` (lines 29-110 and
-143-249; `_masked_logits` is `model.masked_logits` on the tied table).
+Port of `repro.models.encdec` (lines 29-249; `_masked_logits` is
+`model.masked_logits` on the tied table).
 The audio frontend is the reference's stub: precomputed frames (B,
 S_enc, frontend_dim) through one linear projection, plus a sinusoidal
 position table. The encoder is bidirectional; the decoder
@@ -22,7 +22,11 @@ port's style: {"pos": int, "enc_len": int, "positions": (C,) int32
 shared by the layers, "layers": [{"self_k", "self_v", "cross_k",
 "cross_v"}, ...]}, the self-attention tensors and `positions` written
 in place by decode, so a cache passed to `decode_step` must not be
-reused. `loss_fn` (lines 124-137) is training and waits for that slice.
+reused. `loss_fn` (lines 112-137) runs the encoder and the decoder
+over the whole sequence, causal self-attention and bidirectional
+cross-attention through `flash_attention`, each layer under
+`torch.utils.checkpoint` when `cfg.remat` and autograd records, as the
+reference's scanned bodies sit under `jax.checkpoint`.
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ import torch.nn.functional as F
 
 from .attention import decode_attention, flash_attention, repeat_kv
 from .config import ModelConfig
-from .layers import apply_norm, dense_init, mlp, mlp_params, norm_params, \
-    sinusoidal_pos
+from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
+    mlp, mlp_params, norm_params, remat, sinusoidal_pos
 from .model import masked_logits
 
 
@@ -97,12 +101,40 @@ def encode(params, cfg: ModelConfig, frames):
     x = frames.to(cfg.dtype) @ params["frontend_proj"]
     x = x + sinusoidal_pos(x.shape[1], cfg.d_model, cfg.dtype,
                            x.device)[None]
+
+    def body(h, lp):
+        s = apply_norm(h, lp["norm1"], cfg.norm, cfg.norm_eps)
+        h = h + _mha(s, s, lp["attn"], cfg, causal=False)
+        return h + mlp(apply_norm(h, lp["norm2"], cfg.norm, cfg.norm_eps),
+                       lp["mlp"], cfg.act, cfg.glu)
     for lp in params["enc"]:
-        s = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
-        x = x + _mha(s, s, lp["attn"], cfg, causal=False)
-        x = x + mlp(apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps),
-                    lp["mlp"], cfg.act, cfg.glu)
+        x = remat(cfg.remat, body, x, lp)
     return apply_norm(x, params["enc_norm"], cfg.norm, cfg.norm_eps)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: frames (B, S_enc, frontend_dim), tokens (B, S_dec), labels
+    (B, S_dec), optional loss_mask. Returns (ce, {"ce", "aux": 0})."""
+    enc_out = encode(params, cfg, batch["frames"])
+    tokens = batch["tokens"]
+    x = embed_lookup(tokens, params["embed"]) \
+        + params["pos_dec"][None, :tokens.shape[1]]
+
+    def body(h, lp):
+        s = apply_norm(h, lp["norm1"], cfg.norm, cfg.norm_eps)
+        h = h + _mha(s, s, lp["attn"], cfg, causal=True)
+        c = apply_norm(h, lp["norm_x"], cfg.norm, cfg.norm_eps)
+        h = h + _mha(c, enc_out, lp["xattn"], cfg, causal=False)
+        return h + mlp(apply_norm(h, lp["norm2"], cfg.norm, cfg.norm_eps),
+                       lp["mlp"], cfg.act, cfg.glu)
+    for lp in params["dec"]:
+        x = remat(cfg.remat, body, x, lp)
+    x = apply_norm(x, params["dec_norm"], cfg.norm, cfg.norm_eps)
+    ce = chunked_ce_loss(x, params["embed"], batch["labels"],
+                         batch.get("loss_mask"), cfg.loss_chunk,
+                         valid_vocab=cfg.vocab)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=ce.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, enc_len: int, device=None):

@@ -1,18 +1,26 @@
-"""Shared layers: init, norms, RoPE and (gated) MLPs.
+"""Shared layers: init, norms, RoPE, (gated) MLPs, the embedding lookup
+and the chunked cross-entropy loss.
 
-Port of `repro.models.layers` (lines 19-115; `sinusoidal_pos`, the
+Port of `repro.models.layers` (lines 19-183; `sinusoidal_pos`, the
 encoder-decoder's position table, lines 79-88). Parameters are plain
 tensors in nested dicts, laid out as the reference's (`x @ W`, W of
 shape (in, out)); functions are pure. Compute follows the input dtype
-with float32 statistics where the reference takes them (norms, RoPE).
-The chunked cross-entropy loss is training and is not ported yet; the
-embedding is a plain row index (`model._embed`), which returns the same
-rows as the reference's one-hot matmul.
+with float32 statistics where the reference takes them (norms, RoPE,
+the loss).
+
+`embed_lookup` indexes the table's rows, which are the rows the
+reference's one-hot matmul returns; its backward sums each row's
+gradient over the tokens in float32 and rounds once, as the one-hot
+matmul's float32 accumulation does, instead of the bfloat16
+accumulation of indexing's own backward. `remat` is the reference's
+`jax.checkpoint`: `torch.utils.checkpoint` (non-reentrant), which keeps
+a function's inputs and runs it again in the backward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
@@ -107,3 +115,79 @@ def mlp(x, p, act: str = "silu", glu: bool = True):
     up = x @ p["up"]
     h = apply_act(x @ p["gate"], act) * up if glu else apply_act(up, act)
     return h @ p["down"]
+
+
+# -- embedding and the chunked cross-entropy loss -----------------------------
+
+class _Embed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (table.shape, table.dtype)
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.zeros(shape, dtype=torch.float32, device=g.device)
+        acc.index_put_((tokens.reshape(-1).long(),),
+                       g.reshape(-1, shape[1]).float(), accumulate=True)
+        return acc.to(dtype), None
+
+
+def embed_lookup(tokens, table):
+    """table[tokens]: (B, S) integer -> (B, S, D); the table's gradient
+    sums in float32 and rounds once to the table's dtype."""
+    return _Embed.apply(table, tokens)
+
+
+def remat(on: bool, fn, *args):
+    """fn(*args), under `torch.utils.checkpoint` when `on` and autograd
+    records (the reference's `jax.checkpoint`)."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _chunk_ce(h, table, labels, mask, valid_vocab: int):
+    """CE over one token chunk; float32 logits from the table-dtype
+    product, padded vocabulary rows at -1e30. Returns (sum of the masked
+    losses, sum of the mask)."""
+    logits = (h @ table.T).float()                       # (T, Vp)
+    if valid_vocab and valid_vocab < table.shape[0]:
+        pad = torch.arange(table.shape[0], device=h.device) < valid_vocab
+        logits = torch.where(pad[None, :], logits, -1e30)
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels[:, None])[:, 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(h, table, labels, mask=None, chunk: int = 1024,
+                    valid_vocab: int = 0):
+    """Mean cross-entropy of h (B, S, D) against the (V, D) unembedding
+    at labels (B, S), over the positions `mask` (B, S) keeps (all by
+    default). Chunks are taken along the sequence, cs = max(chunk // B,
+    1) positions of every row at a time (one chunk when S % cs or S <=
+    cs); each chunk's logits are recomputed in the backward, so the
+    (B, S, V) logits are never resident (reference lines 135-183)."""
+    B, S, D = h.shape
+    labels = labels.long()
+    mask_f = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+              if mask is None else mask.float())
+
+    def one(hc, lc, mc):
+        return checkpoint(_chunk_ce, hc.reshape(-1, D), table,
+                          lc.reshape(-1), mc.reshape(-1), valid_vocab,
+                          use_reentrant=False, preserve_rng_state=False)
+    cs = max(chunk // B, 1)
+    if S % cs != 0 or S <= cs:
+        loss, cnt = one(h, labels, mask_f)
+    else:
+        loss = cnt = 0.0
+        for hc, lc, mc in zip(h.split(cs, 1), labels.split(cs, 1),
+                              mask_f.split(cs, 1)):
+            l, k = one(hc, lc, mc)
+            loss, cnt = loss + l, cnt + k
+    return loss / cnt.clamp_min(1.0)

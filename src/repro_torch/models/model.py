@@ -1,19 +1,21 @@
 """Decoder-only model over a repeating block pattern: init, caches,
-prefill and decode.
+the training loss, prefill and decode.
 
-Port of `repro.models.model` (lines 30-215, serving entry points),
-the vision frontend included: `forward(frontend_embeds=)` prepends the
-projected image embeddings outside decode, and `prefill` sizes the
-caches for image plus text tokens (`_ctx_len`). The
-reference scans per-slot parameters stacked over `n_cycles` and then
-runs `n_rem` remainder layers; here the same layers, in the same order
-(`cfg.layer_types`), are one list that a Python loop walks. Parameters
-are a tree {"embed", "final_norm", ["lm_head",] ["frontend_proj",]
-"layers": [block, ...]}
+Port of `repro.models.model` (lines 30-215), the vision frontend
+included: `forward(frontend_embeds=)` prepends the projected image
+embeddings outside decode, `loss_fn` cuts their positions before the
+loss, and `prefill` sizes the caches for image plus text tokens
+(`_ctx_len`). The reference scans per-slot parameters stacked over
+`n_cycles` and then runs `n_rem` remainder layers; here the same
+layers, in the same order (`cfg.layer_types`), are one list that a
+Python loop walks. In train mode with `cfg.remat`, each cycle of
+`cfg.pattern` layers runs under `torch.utils.checkpoint`, as the
+reference's scanned body sits under `jax.checkpoint` (line 124); the
+remainder layers are not checkpointed. Parameters are a tree {"embed",
+"final_norm", ["lm_head",] ["frontend_proj",] "layers": [block, ...]}
 (a nested dict or `api.Model`, which holds the same tree as modules);
 caches are {"pos": int, "layers": [per-layer dict]}. The reference's
-sharding constraints and rematerialisation are no-ops on one device and
-are dropped; `loss_fn` is training and waits for that slice.
+sharding constraints are no-ops on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ import torch
 
 from .blocks import block_cache_spec, block_forward, block_params
 from .config import ModelConfig
-from .layers import apply_norm, dense_init, norm_params
+from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
+    norm_params, remat
 
 
 def _embed(tokens, table, scale: float):
     """Table rows of the tokens times `scale` rounded to the table's
     dtype (the reference's one-hot matmul returns the same rows)."""
-    x = table[tokens]
+    x = embed_lookup(tokens, table)
     s = float(torch.tensor(scale, dtype=table.dtype))
     return x * s
 
@@ -74,24 +77,63 @@ def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None):
                        for blk in cfg.layer_types]}
 
 
+def _train_layers(params, cfg: ModelConfig, x):
+    """Every layer in train mode: (hidden, the MoE aux losses summed in
+    layer order)."""
+    layers, types = params["layers"], cfg.layer_types
+    period = len(cfg.pattern)
+
+    def run(h, aux, lo, hi):
+        for i in range(lo, hi):
+            h, _, a = block_forward(h, layers[i], cfg, types[i], "train",
+                                    None, 0)
+            aux = aux + a
+        return h, aux
+    aux = 0.0
+    for c in range(cfg.n_cycles):
+        x, aux = remat(cfg.remat, run, x, aux, c * period, (c + 1) * period)
+    return run(x, aux, cfg.n_cycles * period, cfg.n_layers)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
             frontend_embeds=None, pad_to: int = 0):
     """tokens: (B, S) integer; frontend_embeds (B, F, frontend_dim), read
-    outside decode. Returns (hidden (B, F + S, D), new cache)."""
+    outside decode. Returns (hidden (B, F + S, D), new cache (None in
+    train), the MoE aux loss summed over layers (train; else 0.0))."""
     pos = cache["pos"] if mode == "decode" else 0
     x = _embed(tokens, params["embed"], cfg.embed_scale)
     if cfg.frontend != "none" and mode != "decode" \
             and frontend_embeds is not None:
         fe = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
         x = torch.cat([fe, x], dim=1)
-    new_layers = []
-    for i, blk in enumerate(cfg.layer_types):
-        c = cache["layers"][i] if mode == "decode" else None
-        x, nc = block_forward(x, params["layers"][i], cfg, blk, mode, c, pos,
-                              pad_to)
-        new_layers.append(nc)
+    aux, new_cache = 0.0, None
+    if mode == "train":
+        x, aux = _train_layers(params, cfg, x)
+    else:
+        new_layers = []
+        for i, blk in enumerate(cfg.layer_types):
+            c = cache["layers"][i] if mode == "decode" else None
+            x, nc, _ = block_forward(x, params["layers"][i], cfg, blk, mode,
+                                     c, pos, pad_to)
+            new_layers.append(nc)
+        new_cache = {"pos": pos, "layers": new_layers}
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return x, {"pos": pos, "layers": new_layers}
+    return x, new_cache, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: tokens (B, S), labels (B, S), optional loss_mask and
+    frontend_embeds (B, F, frontend_dim). Returns (ce + 0.01 aux,
+    {"ce", "aux"}), float32 scalars (reference lines 174-187)."""
+    h, _, aux = forward(params, cfg, batch["tokens"], mode="train",
+                        frontend_embeds=batch.get("frontend_embeds"))
+    if cfg.frontend != "none" and "frontend_embeds" in batch:
+        h = h[:, batch["frontend_embeds"].shape[1]:]
+    ce = chunked_ce_loss(h, _unembed_table(params, cfg), batch["labels"],
+                         batch.get("loss_mask"), cfg.loss_chunk,
+                         valid_vocab=cfg.vocab)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None,
@@ -100,9 +142,9 @@ def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None,
     tokens included). Returns (logits (B, V) float32 at the last prompt
     token, cache)."""
     ctx = _ctx_len(cfg, tokens, frontend_embeds)
-    h, cache = forward(params, cfg, tokens, mode="prefill",
-                       frontend_embeds=frontend_embeds,
-                       pad_to=max(pad_to, ctx))
+    h, cache, _ = forward(params, cfg, tokens, mode="prefill",
+                          frontend_embeds=frontend_embeds,
+                          pad_to=max(pad_to, ctx))
     cache["pos"] = ctx
     return _logits(h[:, -1], params, cfg), cache
 
@@ -117,6 +159,7 @@ def _ctx_len(cfg: ModelConfig, tokens, frontend_embeds) -> int:
 def decode_step(params, cfg: ModelConfig, cache, tokens):
     """tokens: (B, 1). Returns (logits (B, V) float32, new cache); the
     attention caches are written in place (see `blocks`)."""
-    h, new_cache = forward(params, cfg, tokens, mode="decode", cache=cache)
+    h, new_cache, _ = forward(params, cfg, tokens, mode="decode",
+                              cache=cache)
     new_cache["pos"] = cache["pos"] + 1
     return _logits(h[:, 0], params, cfg), new_cache

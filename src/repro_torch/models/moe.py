@@ -15,6 +15,15 @@ the expert products are plain matmuls, outside any kernel.
 Top-k breaks ties as `lax.top_k` does, the lower expert index first: a
 stable descending sort, since `torch.topk`'s tie order is unspecified.
 
+Under autograd the layer is differentiable exactly where the
+reference's is: through the router's softmax into the top-k weights
+and the aux loss's mean probabilities, the expert GEMMs, the scatter
+and the gather. The expert indices, ranks, kept mask and the aux
+loss's dispatch fractions `ce` are integers or built from them and
+carry no gradient. The scatter's backward is a gather, and the
+gather's backward adds into the (E, C, D) buffer only at kept pairs'
+own slots and zeros at dropped ones, so it is deterministic.
+
 `moe_layer_sharded` (reference lines 86-135) is the same function under
 a device mesh; `moe_layer(mesh=...)` refuses it, naming ROADMAP queue 1
 items 7 and 8. `moe_layer.tap`, None by default, is called with each

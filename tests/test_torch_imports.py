@@ -37,7 +37,9 @@ def test_port_modules_import_without_jax_or_reference():
                  "serving.scenarios", "serving.recovery", "serving.overload",
                  "serving.faults", "distributed.checkpoint",
                  "serving.hierarchy", "distributed.elastic",
-                 "distributed.compression", "launch.serve"):
+                 "distributed.compression", "launch.serve",
+                 "launch.train", "training.data", "training.optimizer",
+                 "training.train_loop"):
         assert f"repro_torch.{name}" in mods
     assert not [m for m in mods if _foreign(m) or m == "ml_dtypes"]
 
