@@ -128,7 +128,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      controller crash at t = 5.3 resumed from a `CheckpointManager` on
      disk: completions identical to the uncrashed run's. Then
      `hyperfleet_10k`: the megakernel refuses its 10,000 instances by
-     name, and 2,000 of its requests run on the staged torch backend
+     name, and 1,000 of its requests run on the staged torch backend
      with one K2 launch per scoring call; every 16th lookup and the last,
      recorded through `knn_topk.tap`, held against the plain version
      (idx rows identical on >= 99%, d2 within rtol 1e-5 plus 1e-6 of
@@ -138,8 +138,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
      one balanced cell against the single controller (identical
      per-request trajectories) and at two cells with `RecoveryConfig()`
      (every request terminal once, none failed, retries > 0 and the cell
-     managers' retries summing to the router's); `hyperfleet_10k` on 5f's
-     2,000 requests in balanced cells at 16 (K1 at I = 1,024) and 32
+     managers' retries summing to the router's); `hyperfleet_10k` on
+     1,000 requests in balanced cells at 16 (K1 at I = 1,024) and 32
      (I = 512) cells with exact digests and at 16 with int8 digests
      (terminal once, K1 launches = the cells' fired batches less degraded
      ones, no plain call, no K2 launch, each cell's shape variants equal
@@ -148,7 +148,9 @@ Phases, each printing one JSON line; any failed check exits nonzero
      call, every 16th and the last held against the plain version as 5f
      holds its calls); span at 16 cells on the staged torch backend with
      K2 (completions identical to 5f's unsharded staged run, one K2
-     launch per scoring call, no K1 launch); K1 alone at I = 512 and
+     launch per scoring call, no K1 launch), and span on `cluster` at 2
+     cells (200 requests; each decision's choice and est_T kept for 5k,
+     as for the 16-cell run); K1 alone at I = 512 and
      1,024 (R = 8, 64): exact against the plain version on dyadic inputs,
      then call ms, device ms and bound, and at R = 8 the device ms
      without the TPOT heads; the cells' hot-path clocks per call; and
@@ -158,11 +160,11 @@ Phases, each printing one JSON line; any failed check exits nonzero
      runs there, recovery being off);
   5h. zoo families — at full width, random seeded bf16 weights drawn on
      the card, through `Model.prefill` / `Model.decode`:
-     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 64 steps),
-     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 64 steps),
+     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 32 steps),
+     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 32 steps),
      `phi-3-vision-4.2b` (32, 4 x 576 image embeddings + 64 tokens, pad_to
-     1,024, 64 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
-     decoder tokens, 64 steps) and `mixtral-8x7b` (8 of 32 layers, cut
+     1,024, 32 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
+     decoder tokens, 32 steps) and `mixtral-8x7b` (8 of 32 layers, cut
      to fit the card; 4 x 512, pad_to 1,024, 32 steps): finite logits, K3
      launches = attention calls x steps, no K4 launch, no plain call,
      MoE pairs dropped at prefill capacity and none at decode, prefill
@@ -183,7 +185,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      gradient difference can move AdamW's step there, and every leaf's
      update larger than that limit, so that a missing one would show);
      `granite-3-2b` at full width (40 layers, bf16,
-     remat, 4 x 4,096 tokens in 2 microbatches: 1 warm-up and 3 timed
+     remat, 4 x 4,096 tokens in 2 microbatches: 1 warm-up and 2 timed
      steps) and `mamba2-1.3b` (48 layers, 2 x 4,096: 1 + 2): finite loss,
      grad_norm, lr, ms, tokens/s and peak memory each step, one step under
      the profiler (device ms, busy share, six leading operations), the
@@ -199,8 +201,32 @@ Phases, each printing one JSON line; any failed check exits nonzero
      at step 15 (checkpoints every 10) resumed to 25 (losses within 1e-6
      of the uncut run's, bitwise reported), and `python -m
      repro_torch.launch.train --smoke --steps 5` as a subprocess;
+  5k. span over torch.distributed — this process rank 0 of a gloo group,
+     the other ranks (every group's, spawned at the phase's start) on
+     the same card in `cell_worker`, the
+     ``("cell",)`` mesh pinned with `sharding_rules`: `cluster` (200
+     requests) over 2 and over 4 ranks, `hyperfleet_10k` (5f's 1,000
+     requests, 4,096 padded columns a rank) over 4: completions, every
+     decision's choice and est_T identical to 5g's emulation, one K2
+     launch on rank 0 per scoring call, 4 all-reduces a scanned row plus
+     1 a scan and 3 broadcasts a scan, every worker joined as many
+     collectives as rank 0 (plus the stop header) and exited 0; NCCL
+     with one rank per card when the machine has 4 cards, else a line
+     saying it was not run and why; then `python -m
+     repro_torch.launch.serve --scenario cluster --cells 2 --cell-routing
+     span --dist-backend gloo` in two processes started as torchrun
+     starts them (its JSON names the backend and counts the
+     collectives; every request terminal once);
+  5j. examples — `examples/torch_{quickstart, budget_serving,
+     serve_cluster, zoo_serving}.py` at the reference's sizes as a user
+     runs them (their printed lines kept): every request terminal once,
+     K1 launches = the RouteBalance arms' fired batches, K2 launches =
+     the BEST-Route arms' scoring calls (serve_cluster), no plain call,
+     and the recorded K1 calls (the first, every 16th, the last) held
+     against the plain version;
   6. the kernels line (launches of every driven path: K1 the main path,
-     5f and 5g's hierarchy, K2 5b, 5c, 5f's hyperfleet and 5g's span, K3
+     5f and 5g's hierarchy and 5j's examples, K2 5b, 5c, 5f's hyperfleet,
+     5g's span, 5k's span over ranks and 5j's serve_cluster, K3
      5d, 5h by model and 5i's trained granite, K4 5e and 5i's trained
      mamba2),
      then the card's `nvidia-smi` line, then the last line
@@ -228,8 +254,14 @@ K_NN = 10
 K1_FUNCTION = "decision_fused"
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, the script's seconds so far, the rest."""
+    print(json.dumps({"phase": phase,
+                      "t_s": time.perf_counter() - T_START, **kw}),
+          flush=True)
 
 
 def fail(msg):
@@ -1300,12 +1332,12 @@ def hold_recorded_k2(kt, rec):
                 idx_row_agreement=n_agree / n_rows, d2_max_abs_err=worst)
 
 
-HYPERFLEET_N = 2000
+HYPERFLEET_N = 1000      # 5f, 5g and 5k (cut from 2,000: time)
 
 
 def phase_hyperfleet(mk, kt):
     """`hyperfleet_10k`: the megakernel refuses its 10,000-instance roster
-    by name; about 2,000 of its requests run on the staged torch backend
+    by name; 1,000 of its requests run on the staged torch backend
     with the KNN kernel, one K2 launch per scoring call. Returns (row,
     the built run, the staged run's completion tuples)."""
     from repro_torch.core import RBConfig, RouteBalance
@@ -1364,7 +1396,8 @@ def phase_hyperfleet(mk, kt):
 
 HIER_N = 400                      # cluster cells: 5f's request count
 HIER_FLEET = ((16, "exact", 1024), (32, "exact", 512), (16, "int8", 1024))
-LAUNCHER_N = 200
+SPAN_CLUSTER_N = 200    # 5g's span emulation on `cluster` and 5k's runs
+LAUNCHER_N = 100        # each launcher run (cut from 200: time)
 
 
 def hier_run(mk, kt, run, make, reqs, tap=None):
@@ -1559,11 +1592,14 @@ def phase_hierarchy(mk, kt, scen):
 
     # span: one logical decision sharded over 16 cells, staged torch + K2
     reqs = fleet.requests(HYPERFLEET_N, seed=0)
-    span, m, wall, k1, k2 = hier_run(
-        mk, kt, fleet, lambda: build_scheduler(
-            RBConfig(decision_backend="torch", knn_backend="kernel",
-                     charge_compute=False), fleet.bundle(), fleet.tiers,
-            HierarchyConfig(n_cells=16, routing="span")), reqs)
+    with DecideRecorder() as rec:
+        span, m, wall, k1, k2 = hier_run(
+            mk, kt, fleet, lambda: build_scheduler(
+                _span_cfg(), fleet.bundle(), fleet.tiers,
+                HierarchyConfig(n_cells=16, routing="span")), reqs)
+    out["span_emulated"] = {("hyperfleet_10k", 16): dict(
+        completions=completion_tuples(reqs), decisions=rec.calls,
+        measured_decide_ms_per_req=m["measured_decide_ms_per_req"])}
     calls = len(span.compute_log)
     same = completion_tuples(reqs) == scen["fleet_completions"]
     out["span"] = dict(cells=16, requests=len(reqs), served=m["n"],
@@ -1581,13 +1617,34 @@ def phase_hierarchy(mk, kt, scen):
     check(k2[0] == calls > 0 and k2[1] == 0,
           f"span: {k2} K2 launches for {calls} scoring calls")
     check(sum(k1) == 0, "span: K1 ran on the staged backend")
+    span_k2 = k2[0]
+
+    # span on `cluster`: the emulation 5k is held to
+    for n_cells in SPAN_CLUSTER_CELLS:
+        reqs = run.requests(SPAN_CLUSTER_N, seed=0)
+        with DecideRecorder() as rec:
+            sched, m, wall, k1, k2 = hier_run(
+                mk, kt, run, lambda: build_scheduler(
+                    _span_cfg(), run.bundle(), run.tiers,
+                    HierarchyConfig(n_cells=n_cells, routing="span")), reqs)
+        label = f"cluster/span {n_cells} cells"
+        check_span_run(label, sched, m, reqs, k1, k2)
+        span_k2 += k2[0]
+        out["span_emulated"][("cluster", n_cells)] = dict(
+            completions=completion_tuples(reqs), decisions=rec.calls,
+            measured_decide_ms_per_req=m["measured_decide_ms_per_req"])
+        emit("hierarchy_span_cluster", cells=n_cells, requests=len(reqs),
+             served=m["n"], failed=m["failed"],
+             scoring_calls=len(sched.compute_log), knn_launches=k2[0],
+             measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
+             quality=m["quality"], mean_e2e=m["mean_e2e"], wall_s=wall)
 
     out["k1_times"] = phase_k1_cells(mk)
     out["launcher"] = phase_launcher()
     out["k1_launches"] = k1_total
-    out["k2_launches_span"] = k2[0]
+    out["k2_launches_span"] = span_k2
     emit("hierarchy_done", seconds=time.perf_counter() - t_phase,
-         k1_launches=k1_total, k2_launches_span=k2[0])
+         k1_launches=k1_total, k2_launches_span=span_k2)
     return out
 
 
@@ -1666,6 +1723,403 @@ def phase_launcher():
     check(m["n"] + m["failed"] + m["shed"] == LAUNCHER_N,
           f"launcher: {LAUNCHER_N} requests, not all terminal once")
     return row
+
+
+# -- the span arm over torch.distributed (phase 5k) -----------------------------
+
+SPAN_CFG_KW = dict(decision_backend="torch", knn_backend="kernel",
+                   charge_compute=False)
+SPAN_CLUSTER_CELLS = (2,)
+# (ranks, ((world, 5g's emulation it is held to), ...)); the padded
+# column axis is the same at every cell count here (cluster's 48
+# instances pad to 64 at 2 and 4 cells, hyperfleet_10k's 10,000 to
+# 16,384 at 4 and 16), so 5g's emulation is the same scan
+SPAN_DIST = ((2, (("cluster", 2),)),
+             (4, (("cluster", 2), ("hyperfleet_10k", 16))))
+SPAN_TIMEOUT_S = 120          # rendezvous and every collective of a group
+
+
+def _span_cfg():
+    from repro_torch.core import RBConfig
+    return RBConfig(**SPAN_CFG_KW)
+
+
+class DecideRecorder:
+    """While active, keeps each staged decision's (choice, est_T) as
+    `repro_torch.core.decision.decide` returns them (the scheduler looks
+    the function up at every call)."""
+
+    def __enter__(self):
+        from repro_torch.core import decision
+        self.mod, self.orig, self.calls = decision, decision.decide, []
+
+        def decide(*args, **kw):
+            choice, est_T = self.orig(*args, **kw)
+            self.calls.append((choice.copy(), est_T.copy()))
+            return choice, est_T
+        decision.decide = decide
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decide = self.orig
+
+
+def check_span_run(label, sched, m, reqs, k1, k2):
+    """A span run's invariants: every request terminal once, one K2
+    launch per scoring call, no plain call, no K1 launch."""
+    from repro_torch.serving.metrics import check_terminal_states
+    check_terminal_states(reqs)
+    check(m["n"] + m["failed"] + m["shed"] == len(reqs),
+          f"{label}: {len(reqs)} requests, not all terminal once")
+    calls = len(sched.compute_log)
+    check(k2[0] == calls > 0 and k2[1] == 0,
+          f"{label}: {k2} K2 launches for {calls} scoring calls")
+    check(sum(k1) == 0, f"{label}: K1 ran on the staged backend")
+
+
+def span_rank(init_method, rank, world, backend, device, queue):
+    """Rank `rank` (> 0) of a 5k group, in a process of its own: join,
+    answer rank 0's scans in `cell_worker` until it stops them, and put
+    this rank's collective counts on `queue`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import decision
+    from repro_torch.launch.mesh import make_cell_mesh
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SPAN_TIMEOUT_S))
+    try:
+        scans = decision.cell_worker(make_cell_mesh(world), device)
+        f = decision.sharded_greedy_scan
+        queue.put(dict(rank=rank, scans=scans, all_reduces=f.all_reduces,
+                       broadcasts=f.broadcasts,
+                       broadcast_bytes=f.broadcast_bytes))
+    finally:
+        dist.destroy_process_group()
+
+
+def span_dist_run(mk, kt, mesh, name, run, n_req, world, emu):
+    """One span run with this process as rank 0 of `mesh`'s group: the
+    completions and every decision's choice and est_T identical to 5g's
+    emulation, K2 once per scoring call, and the collectives the scan
+    spells (4 all-reduces a row and 1 a scan in the full latency mode,
+    3 broadcasts a scan)."""
+    from repro_torch.core import decision
+    from repro_torch.core.decision import bucket_pow2
+    from repro_torch.serving.hierarchy import HierarchyConfig, build_scheduler
+    label = f"{name}/span over {world} ranks"
+    reqs = run.requests(n_req, seed=0)
+    decision.reset_counts()
+    with DecideRecorder() as rec:
+        sched, m, wall, k1, k2 = hier_run(
+            mk, kt, run, lambda: build_scheduler(
+                _span_cfg(), run.bundle(), run.tiers,
+                HierarchyConfig(n_cells=world, routing="span")), reqs)
+    f = decision.sharded_greedy_scan
+    ar, bc, nbytes = f.all_reduces, f.broadcasts, f.broadcast_bytes
+    check_span_run(label, sched, m, reqs, k1, k2)
+    calls = len(sched.compute_log)
+    rows = sum(bucket_pow2(len(c)) for c, _ in rec.calls)
+    same = completion_tuples(reqs) == emu["completions"]
+    same_dec = len(rec.calls) == len(emu["decisions"]) and all(
+        np.array_equal(c, ce) and e.tobytes() == ee.tobytes()
+        for (c, e), (ce, ee) in zip(rec.calls, emu["decisions"]))
+    row = dict(
+        world=name, ranks=world, requests=len(reqs), served=m["n"],
+        failed=m["failed"], scoring_calls=calls, rows_scanned=rows,
+        knn_launches_rank0=k2[0], knn_plain_calls=k2[1],
+        all_reduces_per_rank=ar, all_reduces_per_request=ar / len(reqs),
+        all_reduces_per_row=(ar - calls) / max(rows, 1), broadcasts=bc,
+        broadcast_bytes=nbytes, identical_completions=same,
+        identical_choices_est_T=same_dec,
+        measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
+        emulated_decide_ms_per_req_5g=emu["measured_decide_ms_per_req"],
+        quality=m["quality"], mean_e2e=m["mean_e2e"], wall_s=wall)
+    # what the ranks add to a request's decision, per all-reduce made
+    row["added_ms_per_all_reduce"] = (
+        (row["measured_decide_ms_per_req"]
+         - row["emulated_decide_ms_per_req_5g"])
+        / max(row["all_reduces_per_request"], 1e-9))
+    emit("span_dist", **row)
+    check(sched.policy._cell_mesh is mesh,
+          f"{label}: the scheduler did not take the pinned mesh")
+    check(same, f"{label}: completions differ from 5g's emulation")
+    check(same_dec, f"{label}: choices or est_T differ from 5g's emulation")
+    check(ar == 4 * rows + calls and bc == 3 * calls,
+          f"{label}: {ar} all-reduces, {bc} broadcasts for {calls} scans "
+          f"of {rows} rows")
+    return row
+
+
+def spawn_span_ranks(backend, world):
+    """Start ranks 1..world-1 of a 5k group (`span_rank`, spawned) on a
+    fresh `FileStore` under `build/`; they wait for rank 0 at the
+    rendezvous. Returns (init method, processes, their queue)."""
+    import multiprocessing
+    store = Path(__file__).resolve().parent / "build" / (
+        f"span_store_{backend}_{world}")
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    init = f"file://{store}"
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=span_rank,
+                         args=(init, r, world, backend, DEV, queue))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    return init, procs, queue
+
+
+def span_group(mk, kt, backend, world, runs, worlds, emulated, spawned):
+    """Join the spawned ranks as rank 0 over `backend`, drive `runs` with
+    the mesh pinned, stop the workers and hold their counts to rank
+    0's."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import decision
+    from repro_torch.distributed.shardctx import sharding_rules
+    from repro_torch.launch.mesh import make_cell_mesh
+    init, procs, queue = spawned
+    t0 = time.perf_counter()
+    out = dict(backend=backend, ranks=world, runs={})
+    dist.init_process_group(
+        backend, init_method=init, rank=0, world_size=world,
+        timeout=datetime.timedelta(seconds=SPAN_TIMEOUT_S))
+    out["rendezvous_wait_s"] = time.perf_counter() - t0
+    try:
+        mesh = make_cell_mesh(world)
+        check(mesh is not None and mesh.size() == world,
+              f"{backend}/{world}: no cell mesh")
+        sums = [0, 0]
+        try:
+            with sharding_rules(mesh):
+                for name, emu_cells in runs:
+                    run, n_req = worlds[name]
+                    row = span_dist_run(mk, kt, mesh, name, run, n_req,
+                                        world, emulated[(name, emu_cells)])
+                    out["runs"][name] = row
+                    sums[0] += row["all_reduces_per_rank"]
+                    sums[1] += row["broadcasts"]
+        finally:
+            decision.stop_cell_workers(mesh, DEV)
+        ranks = [queue.get(timeout=SPAN_TIMEOUT_S) for _ in procs]
+    finally:
+        if dist.is_initialized():     # a scan left part way tore it down
+            dist.destroy_process_group()
+    for p in procs:
+        p.join(SPAN_TIMEOUT_S)
+    codes = [p.exitcode for p in procs]
+    out.update(worker_ranks=ranks, exit_codes=codes,
+               seconds=time.perf_counter() - t0)
+    emit("span_dist_group", **out)
+    check(codes == [0] * len(procs), f"{backend}/{world}: exit codes {codes}")
+    for r in ranks:
+        check(r["all_reduces"] == sums[0] and r["broadcasts"] == sums[1] + 1,
+              f"{backend}/{world}: rank {r['rank']} joined {r} collectives,"
+              f" rank 0 {sums} (+ the stop header)")
+    return out
+
+
+def phase_span_launcher():
+    """`python -m repro_torch.launch.serve --scenario cluster --cells 2
+    --cell-routing span --dist-backend gloo` in two processes on the
+    card, started as `torchrun` starts them (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT in the environment, env://
+    rendezvous on the loopback): rank 0 prints the JSON line, its
+    collectives counted, every request terminal once; rank 1 prints
+    nothing. (torchrun itself is left out: on some Python versions its
+    argument parser takes the launcher's `--n` for an ambiguous
+    abbreviation of its own options.)"""
+    import signal
+    import socket
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--scenario",
+           "cluster", "--cells", "2", "--cell-routing", "span",
+           "--dist-backend", "gloo", "--n", str(LAUNCHER_N)]
+    if DEV != "cuda":
+        cmd += ["--device", "cpu"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True,
+        env={**os.environ, "PYTHONPATH": str(root / "src"),
+             "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": "2",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(300 - (time.perf_counter() - t0), 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(10)
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    check(codes == [0, 0], f"span launcher ranks exited {codes}: "
+          f"{outs[0][1][-1500:]} {outs[-1][1][-1500:]}")
+    check(not outs[1][0].strip(), "span launcher: rank 1 printed "
+          f"{outs[1][0][:200]}")
+    m = json.loads(outs[0][0])
+    row = dict(command=" ".join(cmd[1:]), ranks=2, wall_s=wall, **{
+        k: m.get(k) for k in ("cells", "cell_routing", "decision_backend",
+                              "dist_backend", "n", "failed", "shed",
+                              "span_all_reduces", "span_broadcasts",
+                              "span_broadcast_bytes", "quality", "mean_e2e",
+                              "measured_decide_ms_per_req")})
+    emit("span_dist_launcher", **row)
+    check(m["cells"] == 2 and m["dist_backend"] == "gloo"
+          and m["span_all_reduces"] > 0 and m["span_broadcasts"] > 0,
+          f"span launcher: {row}")
+    check(m["n"] + m["failed"] + m["shed"] == LAUNCHER_N,
+          f"span launcher: {LAUNCHER_N} requests, not all terminal once")
+    return row
+
+
+def phase_span_dist(mk, kt, scen, emulated):
+    """Phase 5k: the span arm with one cell per rank over
+    `torch.distributed`, this process rank 0 and the others spawned:
+    gloo at 2 and 4 ranks on the one card (`SPAN_DIST`), held to 5g's
+    emulation; NCCL with one rank per card when the machine has 4
+    cards; then the launcher under torchrun."""
+    t_phase = time.perf_counter()
+    worlds = {"cluster": (scen["worlds"]["cluster"][0], SPAN_CLUSTER_N),
+              "hyperfleet_10k": (scen["fleet_run"], HYPERFLEET_N)}
+    groups = [("gloo", w, runs) for w, runs in SPAN_DIST]
+    n_cards = torch.cuda.device_count() if DEV == "cuda" else 0
+    if n_cards >= 4:
+        groups.append(("nccl", 4, SPAN_DIST[1][1]))
+        nccl = "run"
+    else:
+        nccl = (f"not run: {n_cards} card(s); NCCL takes one card per "
+                "rank, so its 4-rank layout needs 4 cards (written, not "
+                "verified on this machine)")
+    emit("span_dist_nccl", status=nccl)
+    # every group's workers start now: a later group's reach the card
+    # while an earlier group runs
+    spawned = [spawn_span_ranks(b, w) for b, w, _ in groups]
+    try:
+        out = {f"{b}/{w}": span_group(mk, kt, b, w, runs, worlds, emulated,
+                                      sp)
+               for (b, w, runs), sp in zip(groups, spawned)}
+    finally:
+        for _, procs, _ in spawned:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    out["nccl"] = nccl
+    out["launcher"] = phase_span_launcher()
+    out["k2_launches"] = sum(r["knn_launches_rank0"] for g in out.values()
+                             if isinstance(g, dict) and "runs" in g
+                             for r in g["runs"].values())
+    emit("span_dist_done", seconds=time.perf_counter() - t_phase,
+         k2_launches=out["k2_launches"])
+    return out
+
+
+# -- the four serving examples (phase 5j) -------------------------------------
+
+EXAMPLES = ("quickstart", "budget_serving", "serve_cluster", "zoo_serving")
+EXAMPLE_ARGV = ()     # the reference's sizes (a rehearsal may shrink them)
+
+
+def example_launches(rows):
+    """(K1, K2) launches the example's arms must make: one K1 launch per
+    fired batch of a RouteBalance engine (the hierarchy's cell engines
+    too), one K2 launch per scoring call of a baseline."""
+    k1 = k2 = 0
+    for row in rows:
+        eng = row["engine"]
+        for e in getattr(eng, "engines", None) or [eng]:
+            if e.policy.name == "routebalance":
+                k1 += len(e.compute_log)
+            else:
+                k2 += len(e.compute_log)
+    return k1, k2
+
+
+def phase_examples(mk, kt):
+    """Phase 5j: `examples/torch_{quickstart, budget_serving,
+    serve_cluster, zoo_serving}.py` on the card at the reference's sizes,
+    each run as a user runs it (`main([])`), its printed lines kept:
+    every request terminal once, K1 and K2 launches as its arms need
+    (`example_launches`) with no plain call, and the recorded K1 calls
+    (the first, every 16th, the last) held against the plain version."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.serving.metrics import check_terminal_states
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    out = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", root / "examples" / f"torch_{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        rec = K1Recorder(events=0)
+        mk.reset_counts()
+        kt.reset_counts()
+        mk.decision_megakernel.tap = rec
+        printed = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rows = mod.main(list(EXAMPLE_ARGV) + (
+                    [] if DEV == "cuda" else ["--device", "cpu"]))
+            wall = time.perf_counter() - t0
+        finally:
+            mk.decision_megakernel.tap = None
+        k1, k2 = k1_counts(mk), k2_counts(kt)
+        want = example_launches(rows)
+        cells = {}
+        for row in rows:
+            reqs, m = row["requests"], row["metrics"]
+            check_terminal_states(reqs)
+            check(m["n"] + m["failed"] + m["shed"] == len(reqs),
+                  f"{name}/{row['cell']}: requests not all terminal once")
+            cells[row["cell"]] = {k: m.get(k) for k in (
+                "n", "failed", "shed", "quality", "mean_e2e", "p99_e2e",
+                "cost_per_req", "mix", "exhausted_frac", "served_quality",
+                "throughput", "measured_decide_ms_mean",
+                "measured_decide_ms_per_req", "mean_batch_size")}
+            bal = getattr(row["engine"], "balancer", None)
+            if bal is not None:
+                cells[row["cell"]].update(
+                    digests=bal.digests_sent, wire_bytes=bal.bytes_sent,
+                    imbalance=bal.imbalance())
+        held = hold_recorded_k1(mk, rec, f"example {name}")
+        out[name] = dict(k1_launches=k1[0], k1_plain_calls=k1[1],
+                         k2_launches=k2[0], k2_plain_calls=k2[1],
+                         wall_s=wall, cells=cells,
+                         printed=printed.getvalue().splitlines(),
+                         recorded_vs_plain=held)
+        emit("example", name=name, **out[name])
+        check((k1[0], k2[0]) == want and k1[0] > 0,
+              f"example {name}: (K1, K2) launches {(k1[0], k2[0])}, its "
+              f"arms need {want}")
+        check(k1[1] == 0 and k2[1] == 0,
+              f"example {name}: plain calls K1 {k1[1]}, K2 {k2[1]}")
+        check(rec.n == k1[0], f"example {name}: the tap saw {rec.n} of "
+              f"{k1[0]} K1 calls")
+    check(out["serve_cluster"]["k2_launches"] > 0,
+          "serve_cluster: the BEST-Route arms made no K2 launch")
+    emit("examples_done", seconds=time.perf_counter() - t_phase)
+    return out
 
 
 # -- model-zoo kernels: K3 decode attention, K4 SSD scan ----------------------
@@ -2169,10 +2623,10 @@ def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
 # least 2 layers as in 5d). mixtral's 32 layers (about 93 GB of bf16) do
 # not fit one 80 GB card, so its depth is cut to 8.
 ZOO_FAMILIES = (
-    ("recurrentgemma-2b", 4, 2048, 2048, 64, 8 * 64, 0, None, (3, 0)),
-    ("granite-moe-3b-a800m", 8, 512, 1024, 64, 32 * 64, 0, None, (2, 0)),
-    ("phi-3-vision-4.2b", 4, 64, 1024, 64, 32 * 64, 576, None, (2, 32)),
-    ("whisper-tiny", 8, 4, 0, 64, 2 * 4 * 64, 1500, None, (2, 1500)),
+    ("recurrentgemma-2b", 4, 2048, 2048, 32, 8 * 32, 0, None, (3, 0)),
+    ("granite-moe-3b-a800m", 8, 512, 1024, 32, 32 * 32, 0, None, (2, 0)),
+    ("phi-3-vision-4.2b", 4, 64, 1024, 32, 32 * 32, 576, None, (2, 32)),
+    ("whisper-tiny", 8, 4, 0, 32, 2 * 4 * 32, 1500, None, (2, 1500)),
     ("mixtral-8x7b", 4, 512, 1024, 32, 8 * 32, 0, 8, (2, 0)),
 )
 
@@ -2210,7 +2664,7 @@ TRAIN_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
 TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=0)
 # full width: (arch, batch, sequence, microbatches, warm-up, timed steps,
 # serving check: (batch, prompt, decode steps, K3 launches, K4 launches))
-TRAIN_WIDE = (("granite-3-2b", 4, 4096, 2, 1, 3, (4, 512, 16, 40 * 16, 0)),
+TRAIN_WIDE = (("granite-3-2b", 4, 4096, 2, 1, 2, (4, 512, 16, 40 * 16, 0)),
               ("mamba2-1.3b", 2, 4096, 1, 1, 2, (2, 1024, 0, 0, 48)))
 TRAIN_LOOP_STEPS = 40
 # the trained weights' card-against-CPU check: 2 x this prompt, 8 steps
@@ -2554,10 +3008,17 @@ def main():
     knn_counts["hyperfleet_10k/torch"] = scen["hyperfleet"]["knn_launches"]
     hier = phase_hierarchy(mk, kt, scen)
     knn_counts["span"] = hier["k2_launches_span"]
+    span_dist = phase_span_dist(mk, kt, scen, hier.pop("span_emulated"))
+    knn_counts["span_dist"] = span_dist["k2_launches"]
     scen_k1 = dict(total=scen["k1_launches"],
                    by_cell={k: v["k1_launches"]
                             for k, v in scen["cells"].items()})
     del scen
+    examples = phase_examples(mk, kt)
+    for name, ex in examples.items():
+        if ex["k2_launches"]:
+            knn_counts[f"examples/{name}"] = ex["k2_launches"]
+    examples_k1 = {name: ex["k1_launches"] for name, ex in examples.items()}
     dense = phase_zoo_serving("dense_serving", "qwen2.5-3b", 8, 512, 1024,
                               64, k3, k4, want_k3=36 * 64, want_k4=0)
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
@@ -2579,11 +3040,13 @@ def main():
         "replaces": "src/repro/kernels/decision_megakernel.py:283",
         "function": "decision_call",
         "launches": (launches[12.0] + launches[30.0] + scen_k1["total"]
-                     + hier["k1_launches"]),
+                     + hier["k1_launches"] + sum(examples_k1.values())),
         "launches_by_path": {"main_12rps": launches[12.0],
                              "main_30rps": launches[30.0],
                              "scenarios": scen_k1["total"],
-                             "hierarchy": hier["k1_launches"]},
+                             "hierarchy": hier["k1_launches"],
+                             **{f"examples/{k}": v
+                                for k, v in examples_k1.items()}},
         "launches_by_scenario": scen_k1["by_cell"],
         "hierarchy": {"by_run": {k: v["k1_launches"]
                                  for k, v in hier["fleet"].items()},

@@ -27,8 +27,12 @@ takes rosters of at most `kernels.decision_megakernel.MAX_I` instances
 and refuses a larger one when the policy attaches to its sim (the
 hierarchy, `serving.hierarchy`, splits such a fleet into cells).
 `RBConfig.shard_cells > 1` (the hierarchy's span routing) runs the
-staged torch backend's scan cell-sharded, bitwise the unsharded scan;
-`cell_tag` keys the hot-path cache per cell engine. The reference's
+staged torch backend's scan cell-sharded, bitwise the unsharded scan:
+over the ranks of a ``("cell",)`` mesh when there is one (a mesh pinned
+with `distributed.shardctx.sharding_rules` whose "cell" dimension has
+`shard_cells` ranks, else `launch.mesh.make_cell_mesh`; this process is
+then rank 0), else as the single-program emulation; `cell_tag` keys the
+hot-path cache per cell engine. The reference's
 names "fused", "jax" and "pallas" raise ValueError naming the port's
 counterpart.
 """
@@ -222,6 +226,7 @@ class RouteBalancePolicy(SchedulingPolicy):
             raise ValueError(f"affinity_weight={cfg.affinity_weight}")
         self.bundle = None
         self._fused = None                    # lazily-built FusedHotPath
+        self._cell_mesh = None                # the span scan's mesh
 
     def engine_overrides(self) -> dict:
         cfg = self.cfg
@@ -239,6 +244,7 @@ class RouteBalancePolicy(SchedulingPolicy):
 
     def on_attach(self, sim: ClusterSim):
         self._fused = None                    # new sim -> new roster
+        self._cell_mesh = self._resolve_cell_mesh()
         if self.cfg.decision_backend == "megakernel":
             from ..kernels.decision_megakernel import MAX_I
             if len(sim.instances) > MAX_I:
@@ -250,6 +256,23 @@ class RouteBalancePolicy(SchedulingPolicy):
                     "(repro_torch.serving.hierarchy.build_scheduler), or "
                     "use decision_backend='torch' (the staged torch "
                     "backend)")
+
+    def _resolve_cell_mesh(self):
+        """The span scan's mesh, as the reference's hot path resolves it
+        (`repro.core.hotpath`, lines 212-226): a pinned mesh whose
+        "cell" dimension has `shard_cells` ranks, else
+        `make_cell_mesh(shard_cells)`; None (the emulation) without
+        one."""
+        n = self.cfg.shard_cells
+        if n <= 1:
+            return None
+        from ..distributed.shardctx import current
+        mesh = current()
+        names = () if mesh is None else (mesh.mesh_dim_names or ())
+        if "cell" in names and mesh.size(names.index("cell")) == n:
+            return mesh
+        from ..launch.mesh import make_cell_mesh
+        return make_cell_mesh(n)
 
     def shed_verdict(self, req: Request, controller) -> bool:
         if not self.cfg.shed:
@@ -363,7 +386,8 @@ class RouteBalancePolicy(SchedulingPolicy):
                 maxb, budgets, len_in, price_in, price_out, cfg.weights,
                 latency_mode=cfg.latency_mode, lpt=cfg.lpt,
                 budget_filter=cfg.budget_filter, affinity=aff,
-                device=self.bundle.device, n_cells=cfg.shard_cells)
+                device=self.bundle.device, n_cells=cfg.shard_cells,
+                mesh=self._cell_mesh)
         else:
             # the host loop evaluates the decision arithmetic in float32,
             # the tensor core's precision, so the quantized Eq. 1 tie

@@ -32,12 +32,24 @@ places arrivals from telemetry digests exchanged every
 --cell-routing span instead shards the scan of ONE controller over the
 cells (choices bitwise the single controller's); in the port that arm
 runs on the staged torch backend, and the printed `decision_backend`
-says so.
+says so. Started by `torchrun` with one process per cell, the span runs
+over `torch.distributed` (`core.decision.sharded_greedy_scan(mesh=)`):
+rank 0 serves and prints the JSON line, the other ranks answer its
+scans (`core.decision.cell_worker`) until it stops them. The backend is
+named by --dist-backend (nccl: one card per rank; gloo: any number of
+ranks on one card or on the CPU); a world size other than --cells is an
+error. Started without `torchrun`, span runs the single-process
+emulation.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --cells 2 \
+        --cell-routing span --dist-backend gloo --device cpu --n 40
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import os
 
 # the zoo pool's world (a copy of `examples/zoo_serving.py`'s tables)
 CAPS = {"gemma3-27b": 0.68, "mixtral-8x7b": 0.62, "phi3-mini-3.8b": 0.50,
@@ -89,6 +101,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the estimators and decisions "
                          "(default the card; 'cpu' to run without one)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend of the span arm under "
+                         "torchrun (one process per cell)")
     return ap.parse_args(argv)
 
 
@@ -178,11 +193,81 @@ def serve(args):
     return m, reqs, eng
 
 
-def main(argv=None):
-    m, _, _ = serve(parse_args(argv))
+DIST_TIMEOUT_S = 600         # rendezvous and every collective of the span
+
+
+def _print(m):
     print(json.dumps({k: v for k, v in m.items()
                       if not isinstance(v, tuple)}, indent=1,
                      default=str))
+
+
+def serve_distributed(args, world: int, rank: int, local_rank: int):
+    """The span arm with one process per cell, as `torchrun` starts it:
+    rank 0 runs `serve` with the ``("cell",)`` mesh pinned and returns
+    its metrics; the other ranks answer its scans and return None."""
+    import torch
+    import torch.distributed as dist
+
+    from ..core.decision import (cell_worker, reset_counts,
+                                 sharded_greedy_scan, stop_cell_workers)
+    from ..distributed.shardctx import sharding_rules
+    from .mesh import make_cell_mesh
+    if world != args.cells:
+        raise SystemExit(f"torchrun started {world} processes for --cells "
+                         f"{args.cells}: the span arm runs one per cell")
+    if args.cell_routing != "span" or args.dist_backend is None:
+        raise SystemExit("under torchrun the launcher runs --cell-routing "
+                         "span with --dist-backend nccl or gloo")
+    if torch.device(args.device).type == "cuda":
+        # NCCL: a card per rank; gloo may put every rank on one card
+        n_dev = torch.cuda.device_count()
+        if args.dist_backend == "nccl" and n_dev < world:
+            raise SystemExit(f"nccl needs a card per rank: {n_dev} cards "
+                             f"for {world} ranks")
+        torch.cuda.set_device(local_rank % max(n_dev, 1))
+    elif args.dist_backend == "nccl":
+        raise SystemExit("nccl runs on the card, not on --device cpu")
+    dist.init_process_group(args.dist_backend,
+                            timeout=datetime.timedelta(
+                                seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = make_cell_mesh(args.cells)
+        if rank:
+            cell_worker(mesh, args.device)
+            return None
+        reset_counts()
+        try:
+            with sharding_rules(mesh):
+                m, _, _ = serve(args)
+        finally:
+            stop_cell_workers(mesh, args.device)
+        m["dist_backend"] = args.dist_backend
+        m["span_all_reduces"] = sharded_greedy_scan.all_reduces
+        m["span_broadcasts"] = sharded_greedy_scan.broadcasts
+        m["span_broadcast_bytes"] = sharded_greedy_scan.broadcast_bytes
+        return m
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        if world > 1 or args.cells > 1:
+            m = serve_distributed(args, world, rank,
+                                  int(os.environ.get("LOCAL_RANK", rank)))
+            if m is not None:
+                _print(m)
+            return m
+    elif args.dist_backend is not None:
+        raise SystemExit("--dist-backend is for runs under torchrun; "
+                         "without it span runs the single-process "
+                         "emulation")
+    m, _, _ = serve(args)
+    _print(m)
     return m
 
 

@@ -240,14 +240,6 @@ def test_sharded_scan_is_bitwise_the_unsharded_scan(mode, affinity):
             assert a.numpy().tobytes() == b.numpy().tobytes()
 
 
-def test_sharded_scan_refuses_a_mesh():
-    """The reference's `make_cell_mesh` arm (one cell per device) is not
-    ported: a mesh is refused by name, and `mesh=None` emulates."""
-    from repro_torch.core.decision import sharded_greedy_scan
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        sharded_greedy_scan(*([None] * 13), n_cells=4, mesh=object())
-
-
 def test_build_scheduler_span_returns_sharded_engine():
     import repro_torch.core as P
     from repro_torch.serving.hierarchy import (HierarchicalScheduler,

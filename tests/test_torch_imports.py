@@ -37,7 +37,8 @@ def test_port_modules_import_without_jax_or_reference():
                  "serving.scenarios", "serving.recovery", "serving.overload",
                  "serving.faults", "distributed.checkpoint",
                  "serving.hierarchy", "distributed.elastic",
-                 "distributed.compression", "launch.serve",
+                 "distributed.compression", "distributed.shardctx",
+                 "launch.mesh", "launch.sharding", "launch.serve",
                  "launch.train", "training.data", "training.optimizer",
                  "training.train_loop"):
         assert f"repro_torch.{name}" in mods
@@ -87,3 +88,27 @@ def test_zoo_model_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "budget_serving",
+                                  "serve_cluster", "zoo_serving",
+                                  "train_small"])
+def test_port_examples_import_neither_jax_nor_reference(name):
+    tree = ast.parse((ROOT / "examples" / f"torch_{name}.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert any(n.startswith("repro_torch") for n in names)
+    assert not [n for n in names if _foreign(n)]
+
+
+def test_cell_worker_without_device_needs_cuda(monkeypatch):
+    """A span worker started without a device runs on the card, or
+    raises; it never lands on the CPU."""
+    from repro_torch.core.decision import cell_worker
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cell_worker(mesh=None)
