@@ -56,8 +56,9 @@ Phases, each printing one JSON line; any failed check exits nonzero
      shapes of phase 5h's families (`K3_ZOO`: recurrentgemma's g = 10,
      d = 256 ring wrapped at 2,048, phi-3-vision's d = 96, granite-moe's
      g = 3, whisper's 1,500-frame cross-attention and 448-slot ring,
-     mixtral's g = 4) and of phase 5i's trained granite-3-2b (g = 4,
-     d = 64, 528 slots), with their shared memory against the opt-in
+     mixtral's g = 4), of phase 5i's trained granite-3-2b (g = 4,
+     d = 64, 528 slots) and of phase 5l's granite-moe rank (B = 4,
+     g = 3), with their shared memory against the opt-in
      limit, in bf16 and float32: float32 within 1e-5 of the output's
      scale, bf16 within one unit in the last place (2^-7 relative) plus
      that;
@@ -217,6 +218,24 @@ Phases, each printing one JSON line; any failed check exits nonzero
      span --dist-backend gloo` in two processes started as torchrun
      starts them (its JSON names the backend and counts the
      collectives; every request terminal once);
+  5l. model distribution — (a) `python -m repro_torch.launch.dryrun
+     --all --both-meshes` as a subprocess (CPU work): 0 errors, exactly
+     the reference's skips (long_500k for the 7 full-attention archs on
+     both meshes), the per-device GB of mixtral-8x7b and gemma3-27b
+     `train_4k`; (b) `granite-moe-3b-a800m` at full width (D = 1,536, 40
+     experts, d_ff 512, top-8, 32 layers) in float32 on 4 gloo ranks on
+     the one card, spawned, mesh (data 2, model 2), weights drawn on the
+     card from one seed on every rank, each rank keeping its half of the
+     experts' d_ff: 8 x 512 prompts (pad_to 1,024), 4 rows a data shard,
+     prefill and 8 greedy steps under the residual rule; each data
+     shard's tokens identical to one process on the card running its
+     rows with `moe_layer`, logits within 1e-3, the two "model" ranks
+     of a shard bitwise alike, 2 all-reduces per MoE layer per forward,
+     K3 launches = 32 x 8 on every rank, no plain call, no K4; (c)
+     `shardmap_allreduce` of each rank's 64 MB float32 gradient on the
+     same ranks over ("data",) and ("data", "model"): bitwise the
+     one-process arithmetic, its ms; NCCL (a card a rank) is written,
+     not run (one card);
   5j. examples — `examples/torch_{quickstart, budget_serving,
      serve_cluster, zoo_serving}.py` at the reference's sizes as a user
      runs them (their printed lines kept): every request terminal once,
@@ -227,8 +246,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
   6. the kernels line (launches of every driven path: K1 the main path,
      5f and 5g's hierarchy and 5j's examples, K2 5b, 5c, 5f's hyperfleet,
      5g's span, 5k's span over ranks and 5j's serve_cluster, K3
-     5d, 5h by model and 5i's trained granite, K4 5e and 5i's trained
-     mamba2),
+     5d, 5h by model, 5i's trained granite and 5l's ranks, K4 5e and
+     5i's trained mamba2),
      then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -2030,6 +2049,336 @@ def phase_span_dist(mk, kt, scen, emulated):
     return out
 
 
+# -- phase 5l: the model-distribution layer ----------------------------------
+
+MESH_ARCH = "granite-moe-3b-a800m"
+# 8 x 512 prompts (pad_to 1,024), 8 greedy steps, 4 rows a data shard
+MESH_SERVE = dict(batch=8, prompt=512, pad_to=1024, steps=8)
+MESH_SEED = 5
+MESH_AR_NUMEL = 16 * 2 ** 20         # 64 MB of float32 a rank (5l(c))
+MESH_AR_AXES = (("data",), ("data", "model"))
+MESH_TIMEOUT_S = 120                 # rendezvous and every collective
+MESH_LIMIT_S = 240                   # the ranks are killed past this
+
+
+def phase_dryrun():
+    """5l(a): `python -m repro_torch.launch.dryrun --all --both-meshes`
+    as a subprocess (CPU work): 0 errors, the reference's skips
+    (long_500k for the 7 full-attention archs, on both meshes), and the
+    per-device GB of mixtral-8x7b and gemma3-27b `train_4k`."""
+    from repro_torch.configs import LONG_CONTEXT_OK, SHAPES, list_archs
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--force"], cwd=root, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"dry run exited {r.returncode}: "
+          f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    runs = root / "build" / "dryrun"
+    recs = {}
+    for a in list_archs():
+        for sh in SHAPES:
+            for mesh in ("16x16", "2x16x16"):
+                recs[(a, sh, mesh)] = json.loads(
+                    (runs / f"{a}__{sh}__{mesh}.json").read_text())
+    status = {k: v["status"] for k, v in recs.items()}
+    skipped = {k for k, v in status.items() if v == "skipped"}
+    want = {(a, "long_500k", m) for a in list_archs()
+            if a not in LONG_CONTEXT_OK for m in ("16x16", "2x16x16")}
+    gb = {f"{a}/{m}": {k: v / 1e9 for k, v in
+                       recs[(a, "train_4k", m)]["bytes_per_device"].items()}
+          for a in ("mixtral-8x7b", "gemma3-27b")
+          for m in ("16x16", "2x16x16")}
+    row = dict(cells=len(recs), ok=sum(v == "ok" for v in status.values()),
+               skipped=len(skipped),
+               errors=sum(v == "error" for v in status.values()),
+               train_4k_gb_per_device=gb,
+               xla=recs[("qwen3-0.6b", "train_4k", "16x16")]["xla"],
+               seconds=wall)
+    emit("mesh_dryrun", **row)
+    check(row["errors"] == 0 and skipped == want and row["ok"] == 66,
+          f"dry run: {row['ok']} ok, {row['errors']} errors, skipped "
+          f"{sorted(skipped ^ want)} differ from the reference's")
+    return row
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_groups(axes):
+    """The rank groups of `axes` on the (data 2, model 2) mesh (rank r
+    at data r // 2, model r % 2)."""
+    return [[0, 2], [1, 3]] if axes == ("data",) else [[0, 1, 2, 3]]
+
+
+def mesh_ar_inputs(device, numel):
+    """Every rank's 5l(c) gradient, drawn from the rank's own seed."""
+    out = []
+    for r in range(4):
+        gen = torch.Generator(device=device).manual_seed(900 + r)
+        out.append(torch.randn(numel, generator=gen, device=device)
+                   * (10.0 ** -(r + 1)))
+    return out
+
+
+def allreduce_one_process(xs, group):
+    """`shardmap_allreduce`'s arithmetic over `group`'s inputs in one
+    process: each scale, their MAX, the int8 levels summed as int32,
+    the mean, in float32."""
+    scale = torch.stack([torch.clamp(xs[r].abs().max() / 127.0, min=1e-12)
+                         for r in group]).max()
+    s = sum(torch.clamp(torch.round(xs[r] / scale), -127, 127)
+            .to(torch.int8).to(torch.int32) for r in group)
+    return s.float() * scale / len(group)
+
+
+def mesh_rank(init_method, rank, world, device, cfg, serve, ar_numel,
+              queue):
+    """One rank of phase 5l, in a process of its own: join the gloo group,
+    build the (data 2, model 2) mesh, draw the float32 model on the card
+    from MESH_SEED, keep this rank's half of the experts, serve its data
+    shard's rows under the residual rule (K3 counted from 0), then
+    `shardmap_allreduce` this rank's 64 MB gradient over each axes set,
+    held bitwise against the one-process arithmetic; put the results on
+    `queue`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import shardmap_allreduce
+    from repro_torch.distributed.shardctx import sharding_rules
+    from repro_torch.kernels import decode_attention as k3
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import residual_spec
+    from repro_torch.models import Model, greedy_sample, moe
+    globals()["DEV"] = device
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "gloo", init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    out = dict(rank=rank, rendezvous_s=time.perf_counter() - t0)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        j = mesh.get_local_rank("data")
+        t1 = time.perf_counter()
+        model = Model(cfg, device=None if device == "cuda" else device,
+                      seed=MESH_SEED)
+        moe.shard_experts_(model, mesh)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        _sync(device)
+        out["init_s"] = time.perf_counter() - t1
+        out["params_kept"] = sum(p.numel() for p in model.parameters())
+        rows = serve["batch"] // 2
+        tokens = zoo_batch(cfg, serve["batch"], serve["prompt"], 0)[
+            "tokens"][j * rows:(j + 1) * rows]
+        logits, reduces = [], []
+        k3.reset_counts()
+        k4.reset_counts()
+        with sharding_rules(mesh, residual=residual_spec(mesh)):
+            moe.moe_layer_sharded.all_reduces = 0
+            _sync(device)
+            t1 = time.perf_counter()
+            lg, cache = model.prefill({"tokens": tokens},
+                                      pad_to=serve["pad_to"])
+            _sync(device)
+            t2 = time.perf_counter()
+            reduces.append(moe.moe_layer_sharded.all_reduces)
+            logits.append(lg.cpu().numpy())
+            for _ in range(serve["steps"]):
+                moe.moe_layer_sharded.all_reduces = 0
+                lg, cache = model.decode(cache, greedy_sample(lg)[:, None])
+                reduces.append(moe.moe_layer_sharded.all_reduces)
+                logits.append(lg.cpu().numpy())
+            _sync(device)
+            t3 = time.perf_counter()
+        out.update(zoo_counts(k3, k4), prefill_ms=(t2 - t1) * 1e3,
+                   decode_ms_per_step=(t3 - t2) * 1e3 / serve["steps"],
+                   all_reduces_per_forward=reduces, logits=logits)
+        del model, cache, lg
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # 5l(c): every rank's gradient, the one-process arithmetic
+        xs = mesh_ar_inputs(device, ar_numel)
+        ar = {}
+        for axes in MESH_AR_AXES:
+            group = next(g for g in mesh_groups(axes) if rank in g)
+            got = shardmap_allreduce(xs[rank], mesh, axes)
+            want = allreduce_one_process(xs, group)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            times = []
+            for _ in range(3):
+                _sync(device)
+                t1 = time.perf_counter()
+                shardmap_allreduce(xs[rank], mesh, axes)
+                _sync(device)
+                times.append((time.perf_counter() - t1) * 1e3)
+            ar["+".join(axes)] = dict(bitwise=same, ms=sorted(times)[1],
+                                      ranks=len(group))
+        out["allreduce"] = ar
+    finally:
+        dist.destroy_process_group()
+    queue.put(out)
+
+
+def mesh_one_process(cfg, serve, device):
+    """Each data shard's rows served by one process with the whole model
+    and `moe_layer` (no mesh): every step's logits (numpy), prefill ms
+    and decode ms a step."""
+    from repro_torch.models import Model, greedy_sample
+    model = Model(cfg, device=None if device == "cuda" else device,
+                  seed=MESH_SEED)
+    rows = serve["batch"] // 2
+    tokens = zoo_batch(cfg, serve["batch"], serve["prompt"], 0)["tokens"]
+    out = []
+    for j in range(2):
+        _sync(device)
+        t1 = time.perf_counter()
+        lg, cache = model.prefill({"tokens": tokens[j * rows:(j + 1) * rows]},
+                                  pad_to=serve["pad_to"])
+        _sync(device)
+        t2 = time.perf_counter()
+        logits = [lg.cpu().numpy()]
+        for _ in range(serve["steps"]):
+            lg, cache = model.decode(cache, greedy_sample(lg)[:, None])
+            logits.append(lg.cpu().numpy())
+        _sync(device)
+        t3 = time.perf_counter()
+        out.append(dict(logits=logits, prefill_ms=(t2 - t1) * 1e3,
+                        decode_ms_per_step=(t3 - t2) * 1e3 / serve["steps"]))
+    del model, cache, lg
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh():
+    """Phase 5l: (a) the dry run; (b) granite-moe at full width (float32)
+    on 4 gloo ranks on the one card, mesh (data 2, model 2): each data
+    shard's tokens identical to one process running its rows with
+    `moe_layer`, logits within 1e-3, 2 all-reduces per MoE layer per
+    forward, K3 launches = attention layers x steps on every rank, no
+    plain call; (c) `shardmap_allreduce` on the same ranks, bitwise the
+    one-process arithmetic. NCCL (a card a rank) is written, not run:
+    one card here."""
+    import multiprocessing
+    import queue as stdqueue
+    import signal
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    dry = phase_dryrun()
+    cfg = get_config(MESH_ARCH).replace(dtype=torch.float32)
+    serve = dict(MESH_SERVE)
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
+    n_moe = sum(b.mlp == "moe" for b in cfg.layer_types)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    store = Path(__file__).resolve().parent / "build" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(f"file://{store}", r, 4, DEV, cfg, serve,
+                               MESH_AR_NUMEL, queue)) for r in range(4)]
+    for p in procs:
+        p.start()
+    ranks = []
+    try:      # drain the queue first: a rank exits once its put is read
+        deadline = t0 + MESH_LIMIT_S
+        while len(ranks) < 4:
+            if not any(p.is_alive() for p in procs) and queue.empty():
+                break
+            try:
+                ranks.append(queue.get(timeout=max(
+                    min(deadline - time.perf_counter(), 5.0), 0.1)))
+            except stdqueue.Empty:
+                if time.perf_counter() > deadline:
+                    break
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGKILL)
+                p.join(10)
+    ranks_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * 4 and len(ranks) == 4,
+          f"5l ranks exit codes {codes}, {len(ranks)} reported "
+          f"(limit {MESH_LIMIT_S} s)")
+    ranks.sort(key=lambda r: r["rank"])
+    one = mesh_one_process(cfg, serve, DEV)
+    worst, same, agree = 0.0, True, True
+    for r in ranks:
+        ref = one[r["rank"] // 2]["logits"]
+        for gl, cl in zip(r["logits"], ref):
+            worst = max(worst, float(np.abs(gl - cl).max()))
+            same &= bool(np.array_equal(gl.argmax(-1), cl.argmax(-1)))
+    for j in range(2):
+        agree &= all(np.array_equal(a, b) for a, b in zip(
+            ranks[2 * j]["logits"], ranks[2 * j + 1]["logits"]))
+    reduces = [r["all_reduces_per_forward"] for r in ranks]
+    dec = sum(r["decode_ms_per_step"] for r in ranks) / 4
+    dec_one = sum(o["decode_ms_per_step"] for o in one) / 2
+    per_step = 2 * n_moe
+    row = dict(
+        model=MESH_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        experts=cfg.n_experts, d_ff=cfg.d_ff, dtype="float32",
+        mesh={"data": 2, "model": 2}, backend="gloo", ranks=4, **serve,
+        rows_per_rank=serve["batch"] // 2,
+        params_kept_per_rank=[r["params_kept"] for r in ranks],
+        k3_launches_per_rank=[r["k3_launches"] for r in ranks],
+        k3_plain_calls=sum(r["k3_plain_calls"] for r in ranks),
+        k4_launches=sum(r["k4_launches"] for r in ranks),
+        all_reduces_per_forward=reduces[0],
+        sharded_prefill_ms=[r["prefill_ms"] for r in ranks],
+        sharded_decode_ms_per_step=[r["decode_ms_per_step"] for r in ranks],
+        one_process_prefill_ms=[o["prefill_ms"] for o in one],
+        one_process_decode_ms_per_step=[o["decode_ms_per_step"]
+                                        for o in one],
+        gloo_ms_added_per_all_reduce=(dec - dec_one) / per_step,
+        identical_tokens=same, logits_max_abs_err=worst, tolerance=1e-3,
+        model_ranks_agree=agree, init_s=[r["init_s"] for r in ranks],
+        rendezvous_s=[r["rendezvous_s"] for r in ranks], ranks_s=ranks_s)
+    emit("mesh_serving", **row)
+    ar = {k: dict(v, numel=MESH_AR_NUMEL, mb=MESH_AR_NUMEL * 4 / 2 ** 20,
+                  ms_per_rank=[r["allreduce"][k]["ms"] for r in ranks],
+                  bitwise_every_rank=all(r["allreduce"][k]["bitwise"]
+                                         for r in ranks))
+          for k, v in ranks[0]["allreduce"].items()}
+    emit("mesh_allreduce", **ar)
+    nccl = ("not run: one card; NCCL takes one card per rank (written, not "
+            "verified on this machine)")
+    emit("mesh_nccl", status=nccl)
+    check(same and worst <= 1e-3, f"5l: tokens identical={same}, logits "
+          f"error {worst} (one process, moe_layer)")
+    check(agree, "5l: the two model ranks of a data shard disagree")
+    check(all(x == [per_step] * (serve["steps"] + 1) for x in reduces),
+          f"5l: all-reduces per forward {reduces}, want {per_step}")
+    check(row["k3_launches_per_rank"] == [n_attn * serve["steps"]] * 4
+          and row["k3_plain_calls"] == 0 and row["k4_launches"] == 0,
+          f"5l: K3 {row['k3_launches_per_rank']} (want {n_attn} x "
+          f"{serve['steps']}), plain {row['k3_plain_calls']}")
+    check(all(v["bitwise_every_rank"] for v in ar.values()),
+          f"5l(c): shardmap_allreduce not bitwise {ar}")
+    seconds = time.perf_counter() - t_phase
+    emit("mesh_done", seconds=seconds, dryrun_s=dry["seconds"],
+         script_s=time.perf_counter() - T_START,
+         k3_launches=sum(row["k3_launches_per_rank"]))
+    return dict(dryrun=dry, serving=row, allreduce=ar,
+                k3_launches=sum(row["k3_launches_per_rank"]),
+                seconds=seconds)
+
+
 # -- the four serving examples (phase 5j) -------------------------------------
 
 EXAMPLES = ("quickstart", "budget_serving", "serve_cluster", "zoo_serving")
@@ -2131,13 +2480,16 @@ K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
 # partial group; g d / 8 = 320 pairs > 256 threads; d = 256, the
 # kernel's largest), phi-3-vision's d = 96, granite-moe's g = 3, whisper's
 # cross-attention over 1,500 frames (all valid, pos past them) and its
-# 448-slot self-attention ring, mixtral's windowed g = 4; and phase 5i's
-# trained granite-3-2b, 4 x 512 then 16 steps in a 528-slot cache
+# 448-slot self-attention ring, mixtral's windowed g = 4; phase 5i's
+# trained granite-3-2b, 4 x 512 then 16 steps in a 528-slot cache; and
+# phase 5l's granite-moe rank, 4 rows of 512 then 8 steps
 K3_ZOO = {
     "recurrentgemma-2b": dict(B=4, K=1, g=10, d=256, C=2048, valid=2112,
                               window=2048),
     "phi-3-vision-4.2b": dict(B=4, K=32, g=1, d=96, C=1024, valid=700),
     "granite-moe-3b-a800m": dict(B=8, K=8, g=3, d=64, C=1024, valid=600),
+    "granite-moe-3b-a800m/mesh": dict(B=4, K=8, g=3, d=64, C=1024,
+                                      valid=520),
     "whisper-tiny/cross": dict(B=8, K=6, g=1, d=64, C=1500, valid=1500,
                                pos=1500),
     "whisper-tiny/self": dict(B=8, K=6, g=1, d=64, C=448, valid=68),
@@ -3010,6 +3362,7 @@ def main():
     knn_counts["span"] = hier["k2_launches_span"]
     span_dist = phase_span_dist(mk, kt, scen, hier.pop("span_emulated"))
     knn_counts["span_dist"] = span_dist["k2_launches"]
+    mesh = phase_mesh()
     scen_k1 = dict(total=scen["k1_launches"],
                    by_cell={k: v["k1_launches"]
                             for k, v in scen["cells"].items()})
@@ -3029,7 +3382,8 @@ def main():
                   **{f"zoo_families/{k}": v["k3_launches"]
                      for k, v in zoo.items()},
                   "train_serve/granite-3-2b":
-                      trained["granite-3-2b"][1]["k3_launches"]}
+                      trained["granite-3-2b"][1]["k3_launches"],
+                  f"mesh_serving/{MESH_ARCH}": mesh["k3_launches"]}
     k4_by_path = {"ssm_serving/mamba2-1.3b": ssm["k4_launches"],
                   "train_serve/mamba2-1.3b":
                       trained["mamba2-1.3b"][1]["k4_launches"]}

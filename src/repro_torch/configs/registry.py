@@ -1,17 +1,20 @@
 """Architecture registry: the ten assigned configs, the paper's Qwen2.5
-routing pool and the smoke-reduced variants.
+routing pool, the smoke-reduced variants, which (arch x shape) cells
+apply, and each cell's abstract inputs.
 
-Port of `repro.configs.registry` (lines 1-150 and 199-215) without jax:
-the same entries, field for field. `input_specs` (abstract inputs for
-the dry run) is not ported here.
+Port of `repro.configs.registry` without jax: the same entries, field
+for field. `input_specs` gives the reference's `ShapeDtypeStruct`s as
+tensors on the meta device: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
-from ..models.config import BlockCfg, ModelConfig
+import torch
+
+from ..models.config import BlockCfg, ModelConfig, ShapeSpec
 
 ARCHS: Dict[str, ModelConfig] = {}
 
@@ -111,6 +114,23 @@ QWEN25_POOL: Dict[str, ModelConfig] = {
     )}
 
 
+# long_500k applicability: the sub-quadratic families only
+LONG_CONTEXT_OK = {"mamba2-1.3b", "recurrentgemma-2b", "mixtral-8x7b"}
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True
+
+
+def skip_reason(arch: str, shape: str) -> Optional[str]:
+    if shape_applicable(arch, shape):
+        return None
+    return ("long_500k requires sub-quadratic attention; "
+            f"{arch} is a full-attention family (see DESIGN.md)")
+
+
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Same family, tiny widths, CPU-runnable (one cycle of the pattern
     plus one remainder layer)."""
@@ -130,6 +150,37 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         frontend_dim=12 if cfg.frontend_dim else 0,
         n_frontend_tokens=4 if cfg.n_frontend_tokens else 0,
         attn_chunk=16, loss_chunk=64, remat=False)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """The cell's batch as meta tensors (no allocation): int32 tokens
+    and labels, bfloat16 audio frames or image embeddings, keyed and
+    shaped as the reference's."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        return {"tokens": _meta((B, 1), i32)}
+    if cfg.is_encdec:
+        dec = min(cfg.dec_max_len, S)
+        out = {"frames": _meta((B, S, cfg.frontend_dim), bf16),
+               "tokens": _meta((B, dec), i32)}
+        if shape.kind == "train":
+            out["labels"] = _meta((B, dec), i32)
+        return out
+    st = S
+    if cfg.frontend == "vision":
+        st = max(S - cfg.n_frontend_tokens, 1)
+    out = {"tokens": _meta((B, st), i32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((B, st), i32)
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = _meta(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), bf16)
+    return out
 
 
 def get_config(name: str) -> ModelConfig:

@@ -6,9 +6,11 @@ Port of `repro.distributed.compression`. `compress_decompress` (lines
 scale max|g + e| / 127, rounding half to even, and EF-SGD error
 feedback, the error carried to the next step; trees are flat dicts by
 leaf name, as the optimizer's, and the leaves the reference stacks into
-one share its scale (`groups`). `shardmap_allreduce` (line 68), the
-int8-payload all-reduce over a device mesh, refuses: meshes are ROADMAP
-queue 1 items 7 and 8.
+one share its scale (`groups`). `shardmap_allreduce` (lines 68-86) is
+the int8-payload all-reduce over a mesh's axes: each rank quantizes with
+the largest scale of the group (one MAX), the int32 levels are summed
+(one SUM), and every rank dequantizes the mean; each is an all-reduce
+on the mesh's sub-group of each axis, in turn.
 
 The digests (lines 84-206) are in numpy. Each cell summarizes its
 dead-reckoned telemetry into per-tier occupancy / depth / free vectors;
@@ -29,6 +31,12 @@ from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def _quantize(x, scale):
+    """int8 levels: round half to even, clamp to +-127."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
 @torch.no_grad()
@@ -51,7 +59,7 @@ def compress_decompress(grads: Mapping[str, torch.Tensor],
         amax = torch.stack([x.abs().max() for x in gf.values()]).max()
         scale = torch.clamp(amax / 127.0, min=1e-12)
         for k, x in gf.items():
-            q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+            q = _quantize(x, scale)
             deq = q.float() * scale
             ghat[k], new_e[k] = deq.to(grads[k].dtype), x - deq
             sq = new_e[k].square().sum()
@@ -60,12 +68,24 @@ def compress_decompress(grads: Mapping[str, torch.Tensor],
             {"compression_err_sq": err})
 
 
+@torch.no_grad()
 def shardmap_allreduce(x, mesh, axes=("data",)):
-    """The int8-payload all-reduce over a mesh's data axes: not ported."""
-    raise NotImplementedError(
-        "shardmap_allreduce: the all-reduce over a device mesh is not "
-        "ported yet (ROADMAP queue 1, items 7 and 8); on one device "
-        "compress_decompress is the codec")
+    """The mean of `x` over the ranks of the mesh's `axes`, sent as int8
+    levels: this rank's scale max(|x|) / 127 (at least 1e-12, in x's
+    dtype), the group's largest scale (a MAX, taken in float32, which
+    holds a bfloat16 scale exactly), the int8 levels summed as int32 (a
+    SUM), then `sum * scale / n` in float32, cast back to x's dtype."""
+    scale = torch.clamp(x.abs().max() / 127.0, min=1e-12)
+    smax = scale.float().reshape(1)
+    for a in axes:
+        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    scale = smax[0].to(scale.dtype)
+    s = _quantize(x, scale).to(torch.int32)
+    n = 1
+    for a in axes:
+        dist.all_reduce(s, group=mesh.get_group(a))
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return (s.float() * scale / n).to(x.dtype)
 
 _DIGEST_MAGIC = b"RBTD"
 _DIGEST_VERSION = 1

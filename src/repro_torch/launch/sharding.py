@@ -1,18 +1,287 @@
-"""The layout of the cell-sharded decision scan.
+"""Placement plans for every tree a cell's step reads.
 
-Port of `repro.launch.sharding.cell_specs` (lines 185-194), as
-`torch.distributed` placements over the one dimension of a
-`make_cell_mesh` mesh. The rest of that module (the parameter,
-optimizer, batch and cache rules of the model zoo) belongs to the
-model-distribution layer, which is not ported yet (ROADMAP queue 1,
-item 7).
+Port of `repro.launch.sharding`. A plan entry names, for each dimension
+of a tensor, the mesh axes that shard it (a tuple per dimension, () for
+none); `to_named` turns entries into DTensor placements. The rules read
+only axis names and sizes, so they run on a `DeviceMesh` or on a
+mapping {axis: size} alike. The policy is the reference's:
+
+  * params     - Megatron TP over "model" (attention heads, MLP hidden,
+                 vocab), optional FSDP over "data" on the largest free
+                 dimension;
+  * opt state  - ZeRO: the moments take the parameter's entry plus
+                 "data" on a free dimension;
+  * batch      - the leading dimension over ("pod", "data") when it
+                 divides;
+  * KV caches  - the batch over the data axes, then KV heads over
+                 "model" when they divide, else the cache's sequence,
+                 else head_dim;
+  * residual   - the (B, S, D) residual stream over the batch axes.
+
+A dimension is sharded only when the axes' size divides it.
+
+The reference stacks pattern slot s's layers over the cycles into one
+leaf (`slot{s}`, and the encoder-decoder's `enc` / `dec`); the port
+keeps a leaf per layer (`Model.stacked_leaves`). Parameters and their
+optimizer state are planned per stacked group, over the stacked shape
+(n_cycles,) + layer shape and under the reference's own path
+(`['slot0']['mixer']['conv_x']['w']`), so that its substring rules and
+FSDP's choice of dimension come out as on the reference's leaves. Where
+that choice is the stack dimension (mamba2's `conv_x.w` and `out_norm`
+under FSDP), the plan places whole layers on the "data" ranks, and the
+per-device bytes count it so. Caches are planned per layer: the
+reference never shards a cache's stack dimension.
+
+`cell_specs` is the layout of the hierarchy's cell-sharded decision
+scan.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.placement_types import Placement
+
+from ..distributed.shardctx import axis_sizes, batch_axes, placements
+
+Spec = Tuple[Tuple[str, ...], ...]
+
+
+class Placed(NamedTuple):
+    """One planned tensor: its (stacked) shape, dtype and plan entry."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Spec
+
+
+def _axsize(mesh, names) -> int:
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in ((names,) if isinstance(names, str) else names):
+        n *= sizes[a]
+    return n
+
+
+def _div(dim: int, mesh, names) -> bool:
+    n = _axsize(mesh, names)
+    return dim % n == 0 and dim >= n
+
+
+def _spec(ndim: int, dim: Optional[int] = None, axes=()) -> Spec:
+    """An entry of `ndim` dimensions, dimension `dim` over `axes` (a name
+    or a tuple of names), the others unsharded."""
+    parts = [()] * ndim
+    if dim is not None:
+        parts[dim] = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# the reference's leaf paths
+
+def _path(parts) -> str:
+    return "".join(f"['{p}']" for p in parts)
+
+
+def reference_path(cfg, name: str) -> Tuple[str, bool]:
+    """(the reference's `keystr` of the leaf that holds the port's
+    parameter or cache leaf `name`, whether that leaf is stacked over
+    layers)."""
+    head, *rest = name.split(".")
+    if cfg.is_encdec and head in ("enc", "dec"):
+        return _path([head] + rest[1:]), True
+    if cfg.is_encdec and head == "layers":            # decoder caches
+        return _path(rest[1:]), True
+    if head == "layers":
+        i, n_pat = int(rest[0]), len(cfg.pattern)
+        if i < cfg.n_cycles * n_pat:
+            return _path([f"slot{i % n_pat}"] + rest[1:]), True
+        return _path([f"rem{i - cfg.n_cycles * n_pat}"] + rest[1:]), False
+    return _path([head] + rest), False
+
+
+def stacked_shapes(cfg, leaves: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{reference path: (shape, dtype)} of a tree by leaf name (the
+    parameters, or anything shaped like them): a stacked group's shape is
+    (its layer count,) + the layer's."""
+    out: Dict[str, list] = {}
+    for name, t in leaves.items():
+        path, stacked = reference_path(cfg, name)
+        if path in out:
+            out[path][0] += 1
+        else:
+            out[path] = [1 if stacked else 0, tuple(t.shape), t.dtype]
+    return {p: (((n,) if n else ()) + shape, dtype)
+            for p, (n, shape, dtype) in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# parameter rules
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh) -> Spec:
+    M, nd = "model", len(shape)
+
+    def col():     # (.., D_in, D_out): shard the output dimension
+        return _spec(nd, nd - 1, M) \
+            if _div(shape[-1], mesh, M) else _spec(nd)
+
+    def row():     # (.., D_in, D_out): shard the input dimension
+        return _spec(nd, nd - 2, M) \
+            if nd >= 2 and _div(shape[-2], mesh, M) else _spec(nd)
+
+    if "embed" in path or "lm_head" in path:
+        if _div(shape[0], mesh, M):
+            return _spec(nd, 0, M)             # vocab-sharded
+        if _div(shape[1], mesh, M):
+            return _spec(nd, 1, M)
+        return _spec(nd)
+    if any(k in path for k in ("wq", "wk", "wv", "up", "gate",
+                               "w_in", "w_gate_branch", "w_i", "w_r",
+                               "in_z", "in_x", "in_dt", "frontend_proj")):
+        return col()
+    if any(k in path for k in ("wo", "down", "out_proj", "w_out")):
+        return row()
+    if "conv_x" in path:                            # (width, di)
+        return col()
+    if ("conv" in path and "conv_B" not in path and "conv_C" not in path
+            and nd == 2):                           # rglru conv (width, W)
+        return col()
+    if ("out_norm" in path or "lam" in path) and _div(shape[-1], mesh, M):
+        return _spec(nd, nd - 1, M)
+    return _spec(nd)  # norms, routers, scalars, biases, pos_dec, in_B/in_C
+
+
+def _with_fsdp(spec: Spec, shape, mesh) -> Spec:
+    """Add "data" on the largest unsharded dimension it divides (the
+    last of equals, as the reference's `max` over (size, index))."""
+    cand = [(shape[i], i) for i in range(len(shape))
+            if not spec[i] and _div(shape[i], mesh, "data")]
+    if not cand:
+        return spec
+    _, i = max(cand)
+    return spec[:i] + (("data",),) + spec[i + 1:]
+
+
+def param_pspecs(model, mesh, fsdp: bool = False) -> Dict[str, Placed]:
+    """The parameters' plan: {reference path: Placed} over the stacked
+    groups of `model`'s `param_specs()`."""
+    out = {}
+    for path, (shape, dtype) in stacked_shapes(
+            model.cfg, model.param_specs()).items():
+        spec = param_spec(path, shape, mesh)
+        # never FSDP the embedding: a d_model shard puts a data-axis sum
+        # on every CE chunk, and a (model, data) vocab shard conflicts
+        # with the data-sharded batch of the chunked-CE logits
+        if fsdp and "embed" not in path and "lm_head" not in path:
+            spec = _with_fsdp(spec, shape, mesh)
+        out[path] = Placed(shape, dtype, spec)
+    return out
+
+
+def opt_pspecs(model, mesh) -> Dict[str, object]:
+    """ZeRO: AdamW's float32 moments take the parameter's entry plus
+    "data" on a free dimension; the step is replicated."""
+    mv = {}
+    for path, (shape, _) in stacked_shapes(
+            model.cfg, model.param_specs()).items():
+        spec = _with_fsdp(param_spec(path, shape, mesh), shape, mesh)
+        mv[path] = Placed(shape, torch.float32, spec)
+    return {"m": mv, "v": dict(mv), "step": Placed((), torch.int32, ())}
+
+
+# ---------------------------------------------------------------------------
+# batch / cache rules
+
+def batch_pspecs(batch: Mapping[str, torch.Tensor], mesh
+                 ) -> Dict[str, Placed]:
+    ba = batch_axes(mesh)
+    out = {}
+    for k, t in batch.items():
+        nd, lead = t.dim(), ()
+        if nd and ba and _div(t.shape[0], mesh, ba):
+            lead = ba
+        elif nd and _div(t.shape[0], mesh, "data"):
+            lead = ("data",)
+        out[k] = Placed(tuple(t.shape), t.dtype,
+                        _spec(nd, 0 if lead else None, lead))
+    return out
+
+
+def cache_pspecs(cache, mesh, batch: int) -> Dict[str, Placed]:
+    """The decode cache's plan, per layer leaf by dotted name (the
+    reference's entry for the stacked leaf less its stack dimension);
+    the positions and the host-side counters (`pos`, `enc_len`, Python
+    integers) are not planned."""
+    from ..models.api import flatten_tree
+    ba = batch_axes(mesh)
+    bdim_shard = ba if (ba and batch % _axsize(mesh, ba) == 0) else \
+        (("data",) if batch % _axsize(mesh, "data") == 0 else ())
+    out = {}
+    for name, t in flatten_tree(cache):
+        if not isinstance(t, torch.Tensor):
+            continue
+        leaf, shp, nd = name.split(".")[-1], tuple(t.shape), t.dim()
+        parts = [()] * nd
+        if nd == 0 or leaf in ("positions", "pos", "enc_len"):
+            out[name] = Placed(shp, t.dtype, tuple(parts))
+            continue
+        # the batch dimension: 0 in a layer's cache (the reference's rule
+        # on its stacked leaves picks 1 there)
+        bdim = 1 if (nd >= 2 and shp[0] != batch and shp[1] == batch) else 0
+        if shp[bdim] == batch and bdim_shard:
+            parts[bdim] = bdim_shard
+        if leaf in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+            # KV heads first, else the cache's sequence, head_dim last
+            # (sharding head_dim gathers the whole cache every step)
+            C, K, hd = shp[-3], shp[-2], shp[-1]
+            if _div(K, mesh, "model"):
+                parts[-2] = ("model",)
+            elif _div(C, mesh, "model"):
+                parts[-3] = ("model",)
+            elif _div(hd, mesh, "model"):
+                parts[-1] = ("model",)
+        elif leaf == "state":                       # (B, nh, P, N)
+            if _div(shp[-3], mesh, "model"):
+                parts[-3] = ("model",)
+        elif leaf.startswith("conv") or leaf == "h":   # (.., W) channels
+            if _div(shp[-1], mesh, "model"):
+                parts[-1] = ("model",)
+        out[name] = Placed(shp, t.dtype, tuple(parts))
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def to_named(plan: Mapping[str, Placed], mesh) -> Dict[str, list]:
+    """{name: the entry's DTensor placements over `mesh`}."""
+    return {k: placements(p.spec, mesh) for k, p in plan.items()}
+
+
+def bytes_per_device(plan: Mapping[str, Placed], mesh) -> int:
+    """The bytes one device holds of `plan`'s tensors under their DTensor
+    placements (each `Shard(d)` divides dimension d by its mesh
+    dimension's size)."""
+    sizes = list(axis_sizes(mesh).values())
+    total = 0
+    for name, pls in to_named(plan, mesh).items():
+        p = plan[name]
+        shape = list(p.shape)
+        for size, pl in zip(sizes, pls):
+            if isinstance(pl, Shard):
+                shape[pl.dim] //= size
+        n = p.dtype.itemsize
+        for s in shape:
+            n *= s
+        total += n
+    return total
+
+
+def residual_spec(mesh, seq_shard: bool = False) -> Spec:
+    """The (B, S, D) residual stream: the batch over the batch axes, and
+    with `seq_shard` the sequence over "model"."""
+    return (batch_axes(mesh), ("model",) if seq_shard else (), ())
 
 
 def cell_specs() -> Tuple[Placement, Placement, Placement]:

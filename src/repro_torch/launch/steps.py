@@ -1,6 +1,6 @@
-"""Train, prefill and decode steps.
+"""Train, prefill and decode steps, and each cell's placement plan.
 
-Port of `repro.launch.steps` (lines 22-99). The reference's steps take
+Port of `repro.launch.steps`. The reference's steps take
 the parameter tree as their first argument for `jax.jit`; the port's
 `Model` holds its parameters, so the steps close over it and the train
 step updates them in place.
@@ -15,14 +15,29 @@ error-feedback codec before the update, one scale for each of the
 reference's stacked leaves (`Model.stacked_leaves`), and the state
 carries the error buffers as `ef` (`init_opt_state(model,
 compression=True)`).
+
+`lower_cell(cfg, shape, mesh)` is the reference's plan for one (arch x
+shape) cell on a mesh, without the lowering: the port does not compile
+a step to HLO, so it returns the placement plans of every tree the
+cell's step reads (`launch.sharding`) with the reference's `meta` (the
+FSDP rule, the residual rule, the mesh and the microbatch count). The
+reference's `donate` has no counterpart: the port's train step updates
+the parameters and its state in place, and decode writes its caches in
+place, always.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from ..configs.registry import input_specs
 from ..distributed.compression import compress_decompress
+from ..distributed.shardctx import axis_sizes, batch_axes
 from ..models.api import Model, greedy_sample
+from ..models.config import ModelConfig, ShapeSpec
 from ..training import optimizer as opt
+from . import sharding as shr
 
 
 def make_train_step(model: Model, ocfg: opt.AdamWConfig,
@@ -89,3 +104,45 @@ def make_decode_step(model: Model):
         logits, cache = model.decode(cache, tokens)
         return greedy_sample(logits)[:, None], cache
     return decode_step
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
+               fsdp: Optional[bool] = None,
+               seq_shard_resid: Optional[bool] = None):
+    """(plan, meta) of one cell on `mesh` (a `DeviceMesh` or {axis:
+    size}), built on the meta device. plan: {"params", "batch",
+    "rules"} plus "opt" for a train cell and "cache" for a decode cell,
+    each {name: `sharding.Placed`}; meta: the reference's dict."""
+    cfg = cfg.replace(vocab_pad_to=256)
+    model = Model(cfg, device="meta")
+    big = cfg.param_counts()["total"] * 2 >= 8e9       # >= 8 GB of bf16
+    fsdp = big if fsdp is None else fsdp
+    # the residual stays replicated over "model" unless asked: a
+    # sequence-parallel residual reshards inside the attention loops
+    seq_shard_resid = bool(seq_shard_resid)
+    sizes = axis_sizes(mesh)
+    meta = {"arch": cfg.name, "shape": shape.name, "fsdp": fsdp,
+            "seq_shard_resid": seq_shard_resid, "mesh": sizes}
+    plan = {"params": shr.param_pspecs(model, mesh, fsdp=fsdp),
+            "batch": shr.batch_pspecs(input_specs(cfg, shape), mesh),
+            "rules": {"residual": shr.residual_spec(mesh, seq_shard_resid)}}
+    if shape.kind == "train":
+        plan["opt"] = shr.opt_pspecs(model, mesh)
+        # microbatches: bound the per-device float32 saved residuals
+        # (n_cycles x B / dp x S x D x 4 bytes); MoE under FSDP gets a
+        # larger budget, since each microbatch gathers the experts again
+        dp = 1
+        for a in batch_axes(mesh):
+            dp *= sizes[a]
+        B = shape.global_batch
+        resid = 4.0 * cfg.n_cycles * (B / dp) * shape.seq_len * cfg.d_model
+        target = 8e9 if (fsdp and cfg.family == "moe") else 2e9
+        k = 1
+        while resid / k > target and k < max(B // dp, 1):
+            k *= 2
+        meta["microbatches"] = k
+    elif shape.kind == "decode":
+        plan["cache"] = shr.cache_pspecs(
+            model.cache_specs(shape.global_batch, shape.seq_len), mesh,
+            shape.global_batch)
+    return plan, meta

@@ -21,6 +21,12 @@ optimizer, the gradients and the checkpoints use those names;
 `stacked_leaves` groups them as the reference stacks them into one
 leaf. The parameters do not require gradients: `value_and_grad` turns that on
 for its one call, so the serving path builds no autograd graph.
+
+`param_specs()` and `cache_specs(batch, ctx)` are the reference's
+`jax.eval_shape` trees: the same builders run with a generator that
+reports the meta device, so every leaf is a meta tensor (shape and
+dtype, no storage); `Model(cfg, device="meta")` builds a whole model
+that way, which is how the dry run plans the full-width zoo.
 """
 from __future__ import annotations
 
@@ -70,6 +76,17 @@ def _family(cfg: ModelConfig):
     return encdec if cfg.is_encdec else model
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: the builders draw
+    with `device=gen.device`, so under it every draw is a meta tensor and
+    the generator's state never moves. The card's and the CPU's draws do
+    not pass through here."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 class Model(Params):
     """Zoo model of any family. `device=None` means the card (RuntimeError
     without one); weights are drawn from `torch.Generator(device)` seeded
@@ -90,7 +107,19 @@ class Model(Params):
 
     @staticmethod
     def _generator(dev, seed: int) -> torch.Generator:
+        if dev.type == "meta":
+            return _MetaGenerator()
         return torch.Generator(device=dev).manual_seed(seed)
+
+    def param_specs(self) -> Dict[str, torch.Tensor]:
+        """The parameters by leaf name as meta tensors (no allocation)."""
+        tree = _family(self.cfg).init_params(self.cfg, _MetaGenerator())
+        return dict(flatten_tree(tree))
+
+    def cache_specs(self, batch: int, ctx: int):
+        """`init_cache(batch, ctx)`'s tree with meta tensors."""
+        return _family(self.cfg).init_cache(self.cfg, batch, ctx,
+                                            torch.device("meta"))
 
     def init(self, seed: int) -> "Model":
         """Draw every parameter anew from `seed`, in place."""

@@ -44,7 +44,7 @@ from .attention import decode_attention, flash_attention, repeat_kv
 from .config import BlockCfg, ModelConfig
 from .layers import apply_act, apply_norm, apply_rope, dense_init, mlp, \
     mlp_params, norm_params, remat
-from .moe import moe_layer, moe_params
+from .moe import moe_layer_sharded, moe_params
 
 MODES = ("train", "prefill", "decode")
 
@@ -469,10 +469,10 @@ def block_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     if blk.mlp != "none":
         h2 = apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
         if blk.mlp == "moe":
-            out, aux = moe_layer(h2, p["mlp"], top_k=cfg.top_k,
-                                 capacity_factor=cfg.capacity_factor,
-                                 act=cfg.act, glu=cfg.glu,
-                                 no_drop=(mode == "decode"))
+            out, aux = moe_layer_sharded(
+                h2, p["mlp"], top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, act=cfg.act,
+                glu=cfg.glu, no_drop=(mode == "decode"))
         else:
             out = mlp(h2, p["mlp"], cfg.act, cfg.glu)
         x = x + out

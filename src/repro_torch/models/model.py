@@ -14,13 +14,17 @@ reference's scanned body sits under `jax.checkpoint` (line 124); the
 remainder layers are not checkpointed. Parameters are a tree {"embed",
 "final_norm", ["lm_head",] ["frontend_proj",] "layers": [block, ...]}
 (a nested dict or `api.Model`, which holds the same tree as modules);
-caches are {"pos": int, "layers": [per-layer dict]}. The reference's
-sharding constraints are no-ops on one device and are dropped.
+caches are {"pos": int, "layers": [per-layer dict]}. As in the
+reference (line 111), the residual stream passes `constrain(h,
+"residual")` at the start of each train or prefill cycle: a no-op
+without a mesh and a rule pinned (`distributed.shardctx`), so a
+single-device run computes exactly what it did without it.
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed.shardctx import constrain
 from .blocks import block_cache_spec, block_forward, block_params
 from .config import ModelConfig
 from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
@@ -91,6 +95,7 @@ def _train_layers(params, cfg: ModelConfig, x):
         return h, aux
     aux = 0.0
     for c in range(cfg.n_cycles):
+        x = constrain(x, "residual")
         x, aux = remat(cfg.remat, run, x, aux, c * period, (c + 1) * period)
     return run(x, aux, cfg.n_cycles * period, cfg.n_layers)
 
@@ -110,8 +115,11 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
     if mode == "train":
         x, aux = _train_layers(params, cfg, x)
     else:
-        new_layers = []
+        new_layers, period = [], len(cfg.pattern)
         for i, blk in enumerate(cfg.layer_types):
+            if (mode == "prefill" and i % period == 0
+                    and i < cfg.n_cycles * period):
+                x = constrain(x, "residual")
             c = cache["layers"][i] if mode == "decode" else None
             x, nc, _ = block_forward(x, params["layers"][i], cfg, blk, mode,
                                      c, pos, pad_to)

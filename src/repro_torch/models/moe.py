@@ -24,17 +24,40 @@ carry no gradient. The scatter's backward is a gather, and the
 gather's backward adds into the (E, C, D) buffer only at kept pairs'
 own slots and zeros at dropped ones, so it is deterministic.
 
-`moe_layer_sharded` (reference lines 86-135) is the same function under
-a device mesh; `moe_layer(mesh=...)` refuses it, naming ROADMAP queue 1
-items 7 and 8. `moe_layer.tap`, None by default, is called with each
-call's capacity and kept mask (a bool tensor over the flattened
-(token, choice) pairs) when set, for a caller that counts drops.
+`moe_layer.tap`, None by default, is called with each call's capacity
+and kept mask (a bool tensor over the flattened (token, choice) pairs)
+when set, for a caller that counts drops.
+
+`moe_layer_sharded` (reference lines 86-135), which every MoE block
+calls, is `moe_layer` under the mesh pinned with
+`distributed.shardctx.sharding_rules`. Without a mesh, or on a mesh
+without batch axes ("pod", "data"), it is `moe_layer`. Otherwise the
+dispatch stays inside each data shard and the experts' d_ff is split
+over "model": every rank runs `moe_layer` on its rows with its d_ff
+slice of `up`, `gate` and `down`, the capacity taken from its own token
+count, then SUMs `out` over "model" (the down-projection's contraction
+over d_ff, in `out`'s dtype, as `psum` sums) and averages `aux` over
+the batch axes, each an all-reduce on the mesh's sub-group
+(`moe_layer_sharded.all_reduces` counts them). x is either
+
+  * a plain tensor: this rank's rows, the model running data-parallel
+    over the batch axes (the reference's residual rule); the expert
+    weights are then this rank's d_ff slices (`expert_shard` cuts them
+    from the full ones), or DTensors; or
+  * a `DTensor`: the whole batch laid out over the mesh, with plain
+    weights the full experts on every rank. A batch the batch axes do
+    not divide runs `moe_layer` whole, as the reference falls back; the
+    output comes back a DTensor over the same mesh.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 
+from ..distributed.shardctx import axis_sizes, batch_axes, current, \
+    placements
 from .layers import apply_act, dense_init
 
 
@@ -49,16 +72,10 @@ def moe_params(gen, d: int, f: int, n_experts: int, glu: bool,
 
 
 def moe_layer(x, p, *, top_k: int, capacity_factor: float,
-              act: str = "silu", glu: bool = True, no_drop: bool = False,
-              mesh=None):
+              act: str = "silu", glu: bool = True, no_drop: bool = False):
     """x: (..., D) -> (out (..., D) in x's dtype, aux load-balance loss, a
     float32 scalar). no_drop=True sets the capacity to the token count, so
     no pair is dropped (decode)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_layer(mesh=...): the expert-sharded MoE under a device "
-            "mesh is not ported yet (ROADMAP queue 1, items 7 and 8); pass "
-            "mesh=None")
     shape = x.shape
     D = shape[-1]
     x2 = x.reshape(-1, D)
@@ -106,3 +123,104 @@ def moe_layer(x, p, *, top_k: int, capacity_factor: float,
 
 
 moe_layer.tap = None
+
+
+# the d_ff dimension of each expert weight, split over "model"
+_FF_DIM = {"up": 2, "gate": 2, "down": 1}
+
+
+def _cut(k, w, mesh):
+    """This rank's "model" slice over d_ff of the expert weight `k` (a
+    new tensor); the router, or any weight on a mesh without "model"
+    ranks, as it is."""
+    d, m = _FF_DIM.get(k), axis_sizes(mesh).get("model", 1)
+    if d is None or m == 1:
+        return w
+    f = w.shape[d]
+    if f % m:
+        raise ValueError(f"d_ff {f} does not split over {m} 'model' ranks")
+    r = mesh.get_local_rank("model")
+    return w.narrow(d, r * (f // m), f // m).contiguous()
+
+
+def expert_shard(p, mesh):
+    """This rank's "model" slice of full expert weights over d_ff (new
+    tensors, so the full ones can go); the router stays whole."""
+    return {k: _cut(k, w, mesh) for k, w in p.items()}
+
+
+def shard_experts_(model, mesh):
+    """Keep only this rank's `expert_shard` of every MoE layer of `model`
+    (the layout `moe_layer_sharded` reads with plain rows), in place."""
+    for mod in model.modules():
+        p = dict(mod.named_parameters(recurse=False))
+        if "router" in p:
+            for k, w in expert_shard(p, mesh).items():
+                if w is not p[k]:
+                    setattr(mod, k, nn.Parameter(w, requires_grad=False))
+    return model
+
+
+def _to_local(p, mesh, full: bool):
+    """This rank's expert weights: DTensors redistributed to the d_ff
+    split and read locally; plain ones cut (`full`) or as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    out = {}
+    for k, w in p.items():
+        if isinstance(w, DTensor):
+            pl = [Replicate()] * mesh.ndim
+            if k in _FF_DIM and "model" in mesh.mesh_dim_names:
+                pl[mesh.mesh_dim_names.index("model")] = Shard(_FF_DIM[k])
+            w = w.redistribute(mesh, pl).to_local()
+        elif full:
+            w = _cut(k, w, mesh)
+        out[k] = w
+    return out
+
+
+def _all_reduce(t, group):
+    dist.all_reduce(t, group=group)
+    moe_layer_sharded.all_reduces += 1
+
+
+def moe_layer_sharded(x, p, *, top_k: int, capacity_factor: float,
+                      act: str = "silu", glu: bool = True,
+                      no_drop: bool = False):
+    """`moe_layer` under the pinned mesh (module docstring): the same
+    (out, aux)."""
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, act=act,
+              glu=glu, no_drop=no_drop)
+    mesh = current()
+    ba = batch_axes(mesh) if mesh is not None else ()
+    if not ba:
+        return moe_layer(x, p, **kw)
+    from torch.distributed.tensor import DTensor, Replicate
+    sizes = axis_sizes(mesh)
+    nb = 1
+    for a in ba:
+        nb *= sizes[a]
+    p = {k: p[k] for k in ("router", "up", "down", "gate")
+         if k != "gate" or glu}
+    whole = isinstance(x, DTensor)
+    if whole and x.shape[0] % nb:
+        full = {k: w.full_tensor() if isinstance(w, DTensor) else w
+                for k, w in p.items()}
+        out, aux = moe_layer(x.full_tensor(), full, **kw)
+        return (DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim),
+                aux)
+    rows_pl = placements((ba,) + ((),) * (x.dim() - 1), mesh)
+    xl = x.redistribute(mesh, rows_pl).to_local() if whole else x
+    out, aux = moe_layer(xl, _to_local(p, mesh, full=whole), **kw)
+    if sizes.get("model", 1) > 1:
+        _all_reduce(out, mesh.get_group("model"))
+    aux = aux.reshape(1)
+    for a in ba:
+        if sizes[a] > 1:
+            _all_reduce(aux, mesh.get_group(a))
+    aux = aux[0] / nb
+    if whole:
+        out = DTensor.from_local(out, mesh, rows_pl)
+    return out, aux
+
+
+moe_layer_sharded.all_reduces = 0

@@ -39,8 +39,10 @@ def test_port_modules_import_without_jax_or_reference():
                  "serving.hierarchy", "distributed.elastic",
                  "distributed.compression", "distributed.shardctx",
                  "launch.mesh", "launch.sharding", "launch.serve",
-                 "launch.train", "training.data", "training.optimizer",
-                 "training.train_loop"):
+                 "launch.train", "launch.dryrun", "training.data",
+                 "training.optimizer", "training.train_loop",
+                 "configs.gemma3_27b", "configs.granite_moe_3b_a800m",
+                 "configs.whisper_tiny"):
         assert f"repro_torch.{name}" in mods
     assert not [m for m in mods if _foreign(m) or m == "ml_dtypes"]
 

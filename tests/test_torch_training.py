@@ -284,12 +284,6 @@ def test_compress_decompress_stacked_leaves_bitwise(pair, name):
                 float(rm1["compression_err_sq"])) <= 1e-6
 
 
-def test_shardmap_allreduce_refuses():
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, items 7 and 8"):
-        compression.shardmap_allreduce(torch.zeros(4), mesh=object())
-
-
 # -- the token stream ---------------------------------------------------------
 
 def test_token_stream_is_the_references_byte_for_byte():

@@ -281,15 +281,6 @@ def test_moe_top_k_breaks_ties_by_lower_expert():
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
 
 
-def test_moe_layer_refuses_a_mesh():
-    _, p = _moe_inputs(glu=True)
-    p = {k: torch.from_numpy(v) for k, v in p.items()}
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, items 7"):
-        moe.moe_layer(torch.zeros(2, 32), p, top_k=2, capacity_factor=1.0,
-                      mesh=object())
-
-
 @pytest.mark.parametrize("S", [17, 32])
 def test_rglru_prefill_and_decode_match_reference(S):
     import jax

@@ -1,0 +1,178 @@
+"""The reference's side of the mesh tests, run as a script in a process of
+its own (not a test module), because the reference needs host devices:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=N \\
+        python tests/torch_mesh_reference.py IN.pkl OUT.pkl
+
+IN.pkl holds {MODE: argument}, OUT.pkl gets {MODE: result}.
+
+Meshes are built with `jax.make_mesh(..., axis_types=(Auto,) * n)`: the
+reference's `constrain` refers to its axes through
+`with_sharding_constraint`, which needs Auto axes, and `jax.make_mesh`
+makes Explicit ones by default (the reference's own
+`make_production_mesh` does, so it is not called here).
+
+The modes:
+  * moe       - `moe_layer_sharded` on a (data 2, model 2) mesh for each
+                case, the whole batch and its first 3 rows, and each data
+                half's kept (token, choice) pairs from the reference's
+                own top-k and capacity rule;
+  * allreduce - `shardmap_allreduce` on (data 2, model 1) (the first 2
+                devices) and (data 2, model 2) meshes;
+  * model     - the smoke model drawn from `jax.random.key(0)`, prefill
+                and greedy decode steps under `sharding_rules(mesh,
+                residual=residual_spec(mesh))` on (data 2, model 2);
+  * lower     - `lower_cell`'s `meta` for each (arch, shape, multi_pod)
+                on the production meshes' shapes (512 devices).
+"""
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import AxisType
+
+
+def auto_mesh(shape, names, devices=None):
+    kw = {} if devices is None else {"devices": devices}
+    return jax.make_mesh(shape, names,
+                         axis_types=(AxisType.Auto,) * len(shape), **kw)
+
+
+def kept_pairs(x, router, k, cf, no_drop):
+    """The reference's kept (token, choice) pairs of `moe_layer` on x, by
+    its own top-k, one-hot cumsum and capacity."""
+    x2 = jnp.asarray(x).reshape(-1, x.shape[-1]).astype(jnp.float32)
+    probs = jax.nn.softmax(x2 @ jnp.asarray(router), axis=-1)
+    flat = np.asarray(jax.lax.top_k(probs, k)[1]).reshape(-1)
+    T, E = x2.shape[0], router.shape[1]
+    C = T if no_drop else max(1, int(cf * k * T / E))
+    rank = np.cumsum(np.eye(E, dtype=np.int64)[flat], axis=0)[
+        np.arange(flat.size), flat] - 1
+    return C, rank < C
+
+
+def run_moe(cases):
+    from repro.distributed.shardctx import sharding_rules
+    from repro.models.moe import moe_layer_sharded
+    mesh = auto_mesh((2, 2), ("data", "model"))
+    out = {}
+    for name, case in cases.items():
+        dt = jnp.dtype(case["dtype"])
+        x = jnp.asarray(case["x"]).astype(dt)
+        p = {k: jnp.asarray(v).astype(jnp.float32 if k == "router" else dt)
+             for k, v in case["p"].items()}
+        res = {}
+        with sharding_rules(mesh):
+            for how, xs in (("whole", x), ("fallback", x[:3])):
+                o, aux = moe_layer_sharded(xs, p, **case["kw"])
+                res[how] = dict(out=np.asarray(o.astype(jnp.float32)),
+                                aux=float(aux))
+        kw = case["kw"]
+        half = x.shape[0] // 2
+        res["kept"] = [kept_pairs(x[j * half:(j + 1) * half], p["router"],
+                                  kw["top_k"], kw["capacity_factor"],
+                                  kw.get("no_drop", False))
+                       for j in range(2)]
+        res["kept_fallback"] = kept_pairs(x[:3], p["router"], kw["top_k"],
+                                          kw["capacity_factor"],
+                                          kw.get("no_drop", False))
+        out[name] = res
+    return out
+
+
+def run_allreduce(cases):
+    from repro.distributed.compression import shardmap_allreduce
+    meshes = {(2, 1): auto_mesh((2, 1), ("data", "model"),
+                                devices=jax.devices()[:2]),
+              (2, 2): auto_mesh((2, 2), ("data", "model"))}
+    out = {}
+    for name, case in cases.items():
+        x = jnp.asarray(case["same"]).astype(jnp.dtype(case["dtype"]))
+        for shape, mesh in meshes.items():
+            for axes in case["axes"]:
+                y = shardmap_allreduce(x, mesh, axes=axes)
+                out[(name, shape, axes)] = (
+                    np.asarray(y.astype(jnp.float32)), str(y.dtype))
+    return out
+
+
+def run_model(case):
+    from repro.configs import ARCHS, smoke_variant
+    from repro.distributed.shardctx import sharding_rules
+    from repro.launch.sharding import residual_spec
+    from repro.models import Model
+    from repro.models.api import greedy_sample
+    cfg = smoke_variant(ARCHS[case["arch"]]).replace(dtype=jnp.float32)
+    model = Model(cfg)
+    params = model.init(jax.random.key(0))
+    mesh = auto_mesh((2, 2), ("data", "model"))
+    logits = []
+    with sharding_rules(mesh, residual=residual_spec(mesh)):
+        lg, cache = model.prefill(params,
+                                  {"tokens": jnp.asarray(case["tokens"])},
+                                  pad_to=case["pad_to"])
+        logits.append(np.asarray(lg))
+        for _ in range(case["steps"]):
+            lg, cache = model.decode(params, cache,
+                                     greedy_sample(lg)[:, None])
+            logits.append(np.asarray(lg))
+    return dict(params=jax.tree.map(np.asarray, params), logits=logits)
+
+
+def run_lower(cells):
+    from repro.configs import get_config
+    from repro.launch.steps import lower_cell
+    from repro.models.config import SHAPES
+    meshes = {False: auto_mesh((16, 16), ("data", "model")),
+              True: auto_mesh((2, 16, 16), ("pod", "data", "model"))}
+    out = {}
+    for arch, shape, multi_pod in cells:
+        mesh = meshes[multi_pod]
+        with mesh:
+            _, meta = lower_cell(get_config(arch), SHAPES[shape], mesh)
+        out[(arch, shape, multi_pod)] = meta
+    return out
+
+
+def run_reference(args, devices, tmp_path, timeout=600):
+    """Run {MODE: argument} through this script with `devices` host
+    devices, in a subprocess bounded by `timeout` seconds; returns {MODE:
+    result}."""
+    src, dst = Path(tmp_path) / "ref_in.pkl", Path(tmp_path) / "ref_out.pkl"
+    with open(src, "wb") as fh:
+        pickle.dump(args, fh)
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}",
+           "PYTHONPATH": os.pathsep.join(
+               [str(root / "src"), str(root / "tests"),
+                os.environ.get("PYTHONPATH", "")])}
+    r = subprocess.run([sys.executable, __file__, str(src), str(dst)],
+                       env=env, cwd=root, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode:
+        raise RuntimeError(f"reference run failed:\n{r.stderr[-4000:]}")
+    with open(dst, "rb") as fh:
+        return pickle.load(fh)
+
+
+MODES = {"moe": run_moe, "allreduce": run_allreduce, "model": run_model,
+         "lower": run_lower}
+
+
+def main():
+    src, dst = sys.argv[1:3]
+    with open(src, "rb") as fh:
+        args = pickle.load(fh)
+    out = {mode: MODES[mode](arg) for mode, arg in args.items()}
+    with open(dst, "wb") as fh:
+        pickle.dump(out, fh)
+
+
+if __name__ == "__main__":
+    main()
