@@ -57,15 +57,17 @@ Phases, each printing one JSON line; any failed check exits nonzero
      d = 256 ring wrapped at 2,048, phi-3-vision's d = 96, granite-moe's
      g = 3, whisper's 1,500-frame cross-attention and 448-slot ring,
      mixtral's g = 4), of phase 5i's trained granite-3-2b (g = 4,
-     d = 64, 528 slots) and of phase 5l's granite-moe rank (B = 4,
-     g = 3), with their shared memory against the opt-in
+     d = 64, 528 slots) and of phase 5l's and 5m's ranks (granite-moe
+     B = 4, 12 / 4 heads; granite-3-2b B = 4, 16 / 4 heads; qwen2.5-3b
+     under its cut KV heads, 128 of 512 slots all, 8 and none valid,
+     its (max, exp-sum) held too), with their shared memory against the opt-in
      limit, in bf16 and float32: float32 within 1e-5 of the output's
      scale, bf16 within one unit in the last place (2^-7 relative) plus
      that;
   3d. k4 check — the SSD scan kernel K4 against its plain version at the
      SSM serving shape (B=4, S=1,024, nh=64, P=64, N=128, G=1, chunk 128),
      at S=2,048 (16 chunks a chain), at one chunk (S=128), at phase 5i's
-     B=2 and at the smoke shapes, in bf16 and float32: y and the final state within
+     B=2, at phase 5m's rank (B=2, nh=32) and at the smoke shapes, in bf16 and float32: y and the final state within
      1e-4 of their scale (bf16 y within 2^-7 relative plus that);
   4c/4d. k3/k4 times — as phase 4 at the serving shapes, beside the bound
      and, for K3, `F.scaled_dot_product_attention` on pre-laid-out
@@ -219,23 +221,43 @@ Phases, each printing one JSON line; any failed check exits nonzero
      starts them (its JSON names the backend and counts the
      collectives; every request terminal once);
   5l. model distribution — (a) `python -m repro_torch.launch.dryrun
-     --all --both-meshes` as a subprocess (CPU work): 0 errors, exactly
-     the reference's skips (long_500k for the 7 full-attention archs on
-     both meshes), the per-device GB of mixtral-8x7b and gemma3-27b
-     `train_4k`; (b) `granite-moe-3b-a800m` at full width (D = 1,536, 40
-     experts, d_ff 512, top-8, 32 layers) in float32 on 4 gloo ranks on
-     the one card, spawned, mesh (data 2, model 2), weights drawn on the
-     card from one seed on every rank, each rank keeping its half of the
-     experts' d_ff: 8 x 512 prompts (pad_to 1,024), 4 rows a data shard,
-     prefill and 8 greedy steps under the residual rule; each data
-     shard's tokens identical to one process on the card running its
-     rows with `moe_layer`, logits within 1e-3, the two "model" ranks
-     of a shard bitwise alike, 2 all-reduces per MoE layer per forward,
-     K3 launches = 32 x 8 on every rank, no plain call, no K4; (c)
+     --all` and `--all --multi-pod` as two subprocesses at once (CPU
+     work): 0 errors, exactly the reference's skips (long_500k for the 7
+     full-attention archs on both meshes), the per-device GB of
+     mixtral-8x7b and gemma3-27b `train_4k`, and (5m(c)) FLOPs, HBM
+     bytes, collectives and peak bytes per device on exactly the 36
+     serving cells of the eight executed archs; (b)
+     `granite-moe-3b-a800m` at full width (D = 1,536, 24 / 8 heads, 40
+     experts, d_ff 512, top-8, 32 layers) in float32, served as 5m
+     serves (below): 8 x 512 prompts (pad_to 1,024), 4 rows a data
+     shard, prefill and 8 greedy steps, each rank with 12 query / 4 KV
+     heads and half of every expert's d_ff; K3 = 32 x 8 a rank; (c)
      `shardmap_allreduce` of each rank's 64 MB float32 gradient on the
      same ranks over ("data",) and ("data", "model"): bitwise the
      one-process arithmetic, its ms; NCCL (a card a rank) is written,
      not run (one card);
+  5m. the placement plans run — `granite-3-2b` (a: 40 layers, D =
+     2,048, 32 / 8 heads, d_ff 8,192, vocabulary 49,155 padded to
+     49,408) and `mamba2-1.3b` (b: 48 layers, 64 SSD heads) at full
+     width and depth in float32 on 4 gloo ranks on the one card (one
+     spawn with 5l(b, c)), mesh (data 2, model 2), weights drawn on the
+     card from one seed and cut to each rank's pieces by the plan
+     (`lower_cell`, `shard_params`): (a) 8 x 512 prompts (pad_to
+     1,024), 4 rows a data shard, prefill and 16 greedy steps through
+     `lower_cell`'s steps, each rank's K3 on its 16 query / 4 KV heads;
+     (b) 4 x 1,024, prefill and 8 steps, K4 on 32 heads a rank; each
+     shard's tokens identical to one process on its rows, logits (the
+     "model" ranks' vocabulary shares put together) within 1e-3, every
+     "model" rank with the same tokens, the collectives per forward as
+     predicted (`tp_want`), K3 = 40 x 16 and K4 = 48 launches a rank, no
+     plain call; prefill ms, decode ms a step and peak memory a rank
+     beside one process; (c) is 5l(a); (d) `qwen2.5-3b` at full width,
+     4 of its 36 layers, on (data 1, model 4): its 2 KV heads of 128
+     cut to a quarter head a rank, the cache on its slots, K3 over the
+     rank's slots with every head returning its (max, exp-sum), the
+     ranks' outputs merged over "model"; 4 x 256 (pad_to 512), 8 steps,
+     tokens identical to one process, logits within 1e-3, the
+     collectives as predicted, K3 = 4 x 8 a rank;
   5j. examples — `examples/torch_{quickstart, budget_serving,
      serve_cluster, zoo_serving}.py` at the reference's sizes as a user
      runs them (their printed lines kept): every request terminal once,
@@ -246,8 +268,9 @@ Phases, each printing one JSON line; any failed check exits nonzero
   6. the kernels line (launches of every driven path: K1 the main path,
      5f and 5g's hierarchy and 5j's examples, K2 5b, 5c, 5f's hyperfleet,
      5g's span, 5k's span over ranks and 5j's serve_cluster, K3
-     5d, 5h by model, 5i's trained granite and 5l's ranks, K4 5e and
-     5i's trained mamba2),
+     5d, 5h by model, 5i's trained granite, 5l's and 5m's ranks by
+     model, K4 5e,
+     5i's trained mamba2 and 5m's ranks),
      then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -2054,29 +2077,45 @@ def phase_span_dist(mk, kt, scen, emulated):
 MESH_ARCH = "granite-moe-3b-a800m"
 # 8 x 512 prompts (pad_to 1,024), 8 greedy steps, 4 rows a data shard
 MESH_SERVE = dict(batch=8, prompt=512, pad_to=1024, steps=8)
-MESH_SEED = 5
 MESH_AR_NUMEL = 16 * 2 ** 20         # 64 MB of float32 a rank (5l(c))
 MESH_AR_AXES = (("data",), ("data", "model"))
 MESH_TIMEOUT_S = 120                 # rendezvous and every collective
-MESH_LIMIT_S = 240                   # the ranks are killed past this
+
+
+TP_EXECUTED = ("granite-3-2b", "qwen3-0.6b", "phi3-mini-3.8b",
+               "gemma3-27b", "granite-moe-3b-a800m", "mixtral-8x7b",
+               "phi-3-vision-4.2b", "mamba2-1.3b")
 
 
 def phase_dryrun():
-    """5l(a): `python -m repro_torch.launch.dryrun --all --both-meshes`
-    as a subprocess (CPU work): 0 errors, the reference's skips
-    (long_500k for the 7 full-attention archs, on both meshes), and the
-    per-device GB of mixtral-8x7b and gemma3-27b `train_4k`."""
+    """5l(a) and 5m(c): `python -m repro_torch.launch.dryrun --all` and
+    `--all --multi-pod` as two subprocesses at once (CPU work): 0
+    errors, the reference's skips (long_500k for the 7 full-attention
+    archs, on both meshes), the per-device GB of mixtral-8x7b and
+    gemma3-27b `train_4k`, and FLOPs, HBM bytes, collectives and peak
+    bytes per device on exactly the 36 serving cells of the eight
+    executed archs (the other ok cells plan-only, with a reason)."""
     from repro_torch.configs import LONG_CONTEXT_OK, SHAPES, list_archs
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    r = subprocess.run(
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--both-meshes", "--force"], cwd=root, capture_output=True,
-        text=True, timeout=300,
+         "--force"] + flag, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
         env={**os.environ, "PYTHONPATH": str(root / "src")})
+        for flag in ([], ["--multi-pod"])]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400) + (p.returncode,))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"dry run exited {r.returncode}: "
-          f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    for out, err, rc in outs:
+        check(rc == 0, f"dry run exited {rc}: {out[-1500:]} {err[-1500:]}")
     runs = root / "build" / "dryrun"
     recs = {}
     for a in list_archs():
@@ -2092,16 +2131,32 @@ def phase_dryrun():
                        recs[(a, "train_4k", m)]["bytes_per_device"].items()}
           for a in ("mixtral-8x7b", "gemma3-27b")
           for m in ("16x16", "2x16x16")}
+    counted = {k for k, v in recs.items() if "flops_per_device" in v}
+    want_counted = {k for k, v in recs.items() if v["status"] == "ok"
+                    and k[0] in TP_EXECUTED and k[1] != "train_4k"}
+    keys = ("flops_per_device", "hbm_bytes_per_device",
+            "collective_link_bytes_per_device", "peak_bytes_per_device",
+            "collectives")
+    sample = {f"{a}/{sh}": {k: recs[(a, sh, "16x16")][k] for k in keys}
+              for a, sh in (("granite-3-2b", "decode_32k"),
+                            ("granite-3-2b", "prefill_32k"),
+                            ("mamba2-1.3b", "prefill_32k"),
+                            ("mixtral-8x7b", "decode_32k"))}
     row = dict(cells=len(recs), ok=sum(v == "ok" for v in status.values()),
                skipped=len(skipped),
                errors=sum(v == "error" for v in status.values()),
-               train_4k_gb_per_device=gb,
-               xla=recs[("qwen3-0.6b", "train_4k", "16x16")]["xla"],
+               counted=len(counted),
+               plan_only=sum(1 for v in recs.values() if "plan_only" in v),
+               train_4k_gb_per_device=gb, counts_16x16=sample,
                seconds=wall)
     emit("mesh_dryrun", **row)
     check(row["errors"] == 0 and skipped == want and row["ok"] == 66,
           f"dry run: {row['ok']} ok, {row['errors']} errors, skipped "
           f"{sorted(skipped ^ want)} differ from the reference's")
+    check(counted == want_counted and len(counted) == 36
+          and row["plan_only"] == 30,
+          f"dry run: counts on {sorted(counted ^ want_counted)} differ "
+          f"from the 36 serving cells")
     return row
 
 
@@ -2137,74 +2192,218 @@ def allreduce_one_process(xs, group):
     return s.float() * scale / len(group)
 
 
-def mesh_rank(init_method, rank, world, device, cfg, serve, ar_numel,
-              queue):
-    """One rank of phase 5l, in a process of its own: join the gloo group,
-    build the (data 2, model 2) mesh, draw the float32 model on the card
-    from MESH_SEED, keep this rank's half of the experts, serve its data
-    shard's rows under the residual rule (K3 counted from 0), then
-    `shardmap_allreduce` this rank's 64 MB gradient over each axes set,
-    held bitwise against the one-process arithmetic; put the results on
-    `queue`."""
+# -- tensor-parallel serving under the placement plans (phase 5m) -------------
+
+# (label, arch, serve, (data, model) mesh, layers or 0 for all): 5l(b)
+# granite-moe, 5m(a) granite-3-2b and 5m(b) mamba2-1.3b at full width
+# and depth; 5m(d) qwen2.5-3b at full width, 4 layers, whose 2 KV heads
+# the 4 "model" ranks cut (the head-cut path)
+TP_SERVE = (("5l(b)", MESH_ARCH, MESH_SERVE, (2, 2), 0),
+            ("5m(a)", "granite-3-2b", dict(batch=8, prompt=512, pad_to=1024,
+                                           steps=16), (2, 2), 0),
+            ("5m(b)", "mamba2-1.3b", dict(batch=4, prompt=1024, pad_to=1024,
+                                          steps=8), (2, 2), 0),
+            ("5m(d)", "qwen2.5-3b", dict(batch=4, prompt=256, pad_to=512,
+                                         steps=8), (1, 4), 4))
+TP_SEED = 6
+TP_LIMIT_S = 300                     # the ranks are killed past this
+
+
+def tp_cfg(name, layers=0):
+    """The arch at full width in float32 (`layers` deep, all of them for
+    0), its vocabulary padded to 256 as the dry run plans it."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name).replace(dtype=torch.float32, vocab_pad_to=256)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def tp_cut(cfg, m):
+    """Whether the plan cuts the attention's KV heads over m "model"
+    ranks."""
+    return (any(b.mixer == "attn" for b in cfg.layer_types)
+            and cfg.n_kv_heads % m != 0)
+
+
+def tp_want(cfg, d, m, decode):
+    """The collectives one forward makes under the plan over d "data"
+    and m "model" ranks, as PERF.md predicts them: one all-reduce over
+    "model" each for the embedding, every `wo`, dense `down` and MoE
+    `out`, and the SSD's gated norm and `out_proj`, one over "data" for
+    each MoE layer's aux; one all-gather for the greedy token, at decode
+    one for each SSD layer's conv_B / conv_C channels, and where the
+    plan cuts the KV heads one for each attention layer's projections
+    and, at decode, one more for K3's outputs and (max, exp-sum) over
+    the slots."""
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
+    n_ssd = sum(b.mixer == "ssd" for b in cfg.layer_types)
+    n_dense = sum(b.mlp == "dense" for b in cfg.layer_types)
+    n_moe = sum(b.mlp == "moe" for b in cfg.layer_types)
+    cut = n_attn * (2 if decode else 1) if tp_cut(cfg, m) else 0
+    return {"all_reduce": 1 + n_attn + n_dense + 2 * n_ssd
+            + n_moe * (1 + (d > 1)),
+            "all_gather": 1 + (n_ssd if decode else 0) + cut,
+            "reduce_scatter": 0}
+
+
+def spawn_mesh_ranks(target, args, limit_s, label):
+    """Run `target(init_method, rank, 4, *args, queue)` in 4 spawned
+    processes (a FileStore under build/), drain what each puts on the
+    queue, kill any left past `limit_s`; fails unless all 4 exit 0 and
+    report. Returns (the reports by rank, seconds)."""
+    import multiprocessing
+    import queue as stdqueue
+    import signal
+    store = Path(__file__).resolve().parent / "build" / f"{label}_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=target,
+                         args=(f"file://{store}", r, 4) + tuple(args)
+                         + (queue,)) for r in range(4)]
+    for p in procs:
+        p.start()
+    ranks = []
+    try:      # drain the queue first: a rank exits once its put is read
+        deadline = t0 + limit_s
+        while len(ranks) < 4:
+            if not any(p.is_alive() for p in procs) and queue.empty():
+                break
+            try:
+                ranks.append(queue.get(timeout=max(
+                    min(deadline - time.perf_counter(), 5.0), 0.1)))
+            except stdqueue.Empty:
+                if time.perf_counter() > deadline:
+                    break
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGKILL)
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * 4 and len(ranks) == 4,
+          f"{label} ranks exit codes {codes}, {len(ranks)} reported "
+          f"(limit {limit_s} s)")
+    return sorted(ranks, key=lambda r: r["rank"]), time.perf_counter() - t0
+
+
+def _peak_bytes(device):
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _reset_peak(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _allocated(device):
+    return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+
+def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
+    """One rank of phases 5l(b, c) and 5m: join the gloo group and for
+    each (config, serve, mesh shape): build the (data, model) mesh, draw
+    the float32 model on the card from TP_SEED, cut it to this rank's
+    pieces under the plan (`lower_cell`, `shard_params`), serve its data
+    shard's rows through `lower_cell`'s prefill and decode steps (K3 /
+    K4 and the collectives counted from 0 per forward; a MoE model's
+    experts of every call recorded, `route_recorder`); then 5l(c):
+    `shardmap_allreduce` of this rank's `ar_numel` float32 gradient over
+    each MESH_AR_AXES on the (data 2, model 2) mesh, held bitwise
+    against the one-process arithmetic. Puts this rank's logits shares,
+    tokens, times, peak memory and the all-reduces on `queue`."""
     import datetime
 
     import torch.distributed as dist
 
+    from repro_torch.distributed import shardctx
     from repro_torch.distributed.compression import shardmap_allreduce
-    from repro_torch.distributed.shardctx import sharding_rules
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch import sharding as shr
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.sharding import residual_spec
-    from repro_torch.models import Model, greedy_sample, moe
+    from repro_torch.launch.steps import lower_cell
+    from repro_torch.models import Model, moe
+    from repro_torch.models.config import ShapeSpec
     globals()["DEV"] = device
     t0 = time.perf_counter()
     dist.init_process_group(
         "gloo", init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-    out = dict(rank=rank, rendezvous_s=time.perf_counter() - t0)
+    out = dict(rank=rank, rendezvous_s=time.perf_counter() - t0, runs={})
     try:
-        mesh = make_mesh((2, 2), ("data", "model"))
-        j = mesh.get_local_rank("data")
-        t1 = time.perf_counter()
-        model = Model(cfg, device=None if device == "cuda" else device,
-                      seed=MESH_SEED)
-        moe.shard_experts_(model, mesh)
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        _sync(device)
-        out["init_s"] = time.perf_counter() - t1
-        out["params_kept"] = sum(p.numel() for p in model.parameters())
-        rows = serve["batch"] // 2
-        tokens = zoo_batch(cfg, serve["batch"], serve["prompt"], 0)[
-            "tokens"][j * rows:(j + 1) * rows]
-        logits, reduces = [], []
-        k3.reset_counts()
-        k4.reset_counts()
-        with sharding_rules(mesh, residual=residual_spec(mesh)):
-            moe.moe_layer_sharded.all_reduces = 0
-            _sync(device)
+        meshes = {}
+        for cfg, serve, shape in serves:
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape, ("data", "model"))
+            mesh = meshes[shape]
+            before = _allocated(device)
             t1 = time.perf_counter()
-            lg, cache = model.prefill({"tokens": tokens},
-                                      pad_to=serve["pad_to"])
+            model = Model(cfg, device=None if device == "cuda" else device,
+                          seed=TP_SEED)
+            B, S = serve["batch"], serve["pad_to"]
+            plan, _, step = lower_cell(
+                cfg, ShapeSpec("tp_prefill", S, B, "prefill"), mesh)
+            _, _, dstep = lower_cell(
+                cfg, ShapeSpec("tp_decode", S, B, "decode"), mesh)
+            shr.shard_params(model, plan["params"], mesh, rank)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            _sync(device)
+            run = dict(init_s=time.perf_counter() - t1,
+                       params_kept=sum(p.numel()
+                                       for p in model.parameters()))
+            batch = shr.shard_batch(
+                zoo_batch(cfg, B, serve["prompt"], 0), plan["batch"], mesh,
+                rank)
+            logits, tokens, colls = [], [], []
+
+            def record(tok, lg):
+                logits.append(lg.cpu().numpy())
+                tokens.append(tok.reshape(-1).cpu().numpy())
+                colls.append({k: v["count"]
+                              for k, v in shardctx.COLLECTIVES.items()})
+                shardctx.reset_collectives()
+            experts = []
+            if cfg.n_experts:
+                moe.moe_layer.route = route_recorder(experts)
+            k3.reset_counts()
+            k4.reset_counts()
+            shardctx.reset_collectives()
+            _reset_peak(device)
+            run["allocated_before_draw"] = before
+            run["allocated_at_serve"] = _allocated(device)
+            t1 = time.perf_counter()
+            tok, cache = step(model, batch)
             _sync(device)
             t2 = time.perf_counter()
-            reduces.append(moe.moe_layer_sharded.all_reduces)
-            logits.append(lg.cpu().numpy())
+            record(tok, step.last["logits"])
+            tok = tok[:, None]
+            dec_s = 0.0
             for _ in range(serve["steps"]):
-                moe.moe_layer_sharded.all_reduces = 0
-                lg, cache = model.decode(cache, greedy_sample(lg)[:, None])
-                reduces.append(moe.moe_layer_sharded.all_reduces)
-                logits.append(lg.cpu().numpy())
-            _sync(device)
-            t3 = time.perf_counter()
-        out.update(zoo_counts(k3, k4), prefill_ms=(t2 - t1) * 1e3,
-                   decode_ms_per_step=(t3 - t2) * 1e3 / serve["steps"],
-                   all_reduces_per_forward=reduces, logits=logits)
-        del model, cache, lg
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        # 5l(c): every rank's gradient, the one-process arithmetic
+                _sync(device)
+                t3 = time.perf_counter()
+                tok, cache = dstep(model, cache, tok)
+                _sync(device)
+                dec_s += time.perf_counter() - t3
+                record(tok, dstep.last["logits"])
+            moe.moe_layer.route = None
+            run.update(zoo_counts(k3, k4), prefill_ms=(t2 - t1) * 1e3,
+                       decode_ms_per_step=dec_s * 1e3 / serve["steps"],
+                       peak_bytes=_peak_bytes(device), logits=logits,
+                       tokens=tokens, collectives=colls, experts=experts,
+                       cache_bytes=sum(t.numel() * t.element_size()
+                                       for layer in cache["layers"]
+                                       for t in layer.values()))
+            out["runs"][cfg.name] = run
+            del model, cache, step, dstep
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        mesh = meshes[(2, 2)]
         xs = mesh_ar_inputs(device, ar_numel)
         ar = {}
         for axes in MESH_AR_AXES:
@@ -2222,161 +2421,219 @@ def mesh_rank(init_method, rank, world, device, cfg, serve, ar_numel,
             ar["+".join(axes)] = dict(bitwise=same, ms=sorted(times)[1],
                                       ranks=len(group))
         out["allreduce"] = ar
+        del xs
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     queue.put(out)
 
 
-def mesh_one_process(cfg, serve, device):
-    """Each data shard's rows served by one process with the whole model
-    and `moe_layer` (no mesh): every step's logits (numpy), prefill ms
-    and decode ms a step."""
-    from repro_torch.models import Model, greedy_sample
+# the probability gap between the k-th and (k+1)-th expert that the
+# ranks' rounding can close: their MoE inputs differ from one process's
+# by about 1e-5 of 5 (the row-split `wo` and d_ff sums), which moves a
+# router probability near 1 / 40 by a few 1e-7
+ROUTE_TIE = 1e-6
+
+
+def route_recorder(store):
+    """A `moe_layer.route` that keeps each call's experts (int16 on the
+    host) and changes nothing."""
+    def route(idx, probs):
+        store.append(idx.to(torch.int16).cpu().numpy())
+        return idx
+    return route
+
+
+def route_replayer(calls, gaps):
+    """A `moe_layer.route` that hands back the recorded calls' experts in
+    order; for each token whose own top-k set differs it appends the gap
+    between its own k-th and (k+1)-th probabilities to `gaps`."""
+    it = iter(calls)
+
+    def route(idx, probs):
+        rec = torch.from_numpy(next(it)).to(idx.device, torch.long)
+        k = idx.shape[1]
+        diff = (rec.sort(-1).values != idx.sort(-1).values).any(-1)
+        if bool(diff.any()):
+            top = probs.topk(k + 1, -1).values
+            gaps.extend((top[:, k - 1] - top[:, k])[diff].tolist())
+        return rec
+    return route
+
+
+def one_process(cfg, serve, device, seed, shards=2, routes=None):
+    """Each of `shards` data shards' rows served by one process with the
+    whole model drawn from `seed` (no mesh; 5l and 5m): every step's
+    logits and tokens, prefill ms, decode ms a step and peak memory. With
+    `routes` (a shard's recorded experts of every MoE call, from its
+    ranks) the MoE layers replay them (`route_replayer`), and each
+    shard's `route_gaps` lists the tokens whose own choice differed."""
+    from repro_torch.models import Model, greedy_sample, moe
     model = Model(cfg, device=None if device == "cuda" else device,
-                  seed=MESH_SEED)
-    rows = serve["batch"] // 2
+                  seed=seed)
+    rows = serve["batch"] // shards
     tokens = zoo_batch(cfg, serve["batch"], serve["prompt"], 0)["tokens"]
     out = []
-    for j in range(2):
-        _sync(device)
+    for j in range(shards):
+        gaps = []
+        if routes is not None:
+            moe.moe_layer.route = route_replayer(routes[j], gaps)
+        _reset_peak(device)
         t1 = time.perf_counter()
         lg, cache = model.prefill({"tokens": tokens[j * rows:(j + 1) * rows]},
                                   pad_to=serve["pad_to"])
         _sync(device)
         t2 = time.perf_counter()
-        logits = [lg.cpu().numpy()]
+        logits, toks = [lg.cpu().numpy()], [greedy_sample(lg).cpu().numpy()]
+        dec_s = 0.0
         for _ in range(serve["steps"]):
+            t3 = time.perf_counter()
             lg, cache = model.decode(cache, greedy_sample(lg)[:, None])
+            _sync(device)
+            dec_s += time.perf_counter() - t3
             logits.append(lg.cpu().numpy())
-        _sync(device)
-        t3 = time.perf_counter()
-        out.append(dict(logits=logits, prefill_ms=(t2 - t1) * 1e3,
-                        decode_ms_per_step=(t3 - t2) * 1e3 / serve["steps"]))
-    del model, cache, lg
+            toks.append(greedy_sample(lg).cpu().numpy())
+        moe.moe_layer.route = None
+        out.append(dict(logits=logits, tokens=toks,
+                        prefill_ms=(t2 - t1) * 1e3,
+                        decode_ms_per_step=dec_s * 1e3 / serve["steps"],
+                        peak_bytes=_peak_bytes(device), route_gaps=gaps))
+        del cache, lg
+    del model
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def phase_mesh():
-    """Phase 5l: (a) the dry run; (b) granite-moe at full width (float32)
-    on 4 gloo ranks on the one card, mesh (data 2, model 2): each data
-    shard's tokens identical to one process running its rows with
-    `moe_layer`, logits within 1e-3, 2 all-reduces per MoE layer per
-    forward, K3 launches = attention layers x steps on every rank, no
-    plain call; (c) `shardmap_allreduce` on the same ranks, bitwise the
-    one-process arithmetic. NCCL (a card a rank) is written, not run:
-    one card here."""
-    import multiprocessing
-    import queue as stdqueue
-    import signal
-
-    from repro_torch.configs import get_config
+def phase_tp():
+    """Phases 5l and 5m: (5l(a), also 5m(c)) the dry run, then the
+    placement plans run on 4 gloo ranks on the one card, one spawn, each
+    rank serving its data shard's rows through `lower_cell`'s steps on
+    its pieces, in float32: (5l(b)) granite-moe, (5m(a)) granite-3-2b
+    and (5m(b)) mamba2-1.3b at full width and depth on (data 2, model
+    2); (5m(d)) qwen2.5-3b at full width, 4 layers, on (data 1, model
+    4), whose 2 KV heads the plan cuts. Each shard's tokens identical to
+    one process, logits (its "model" ranks' vocabulary shares put
+    together) within 1e-3 (granite-moe's one process replays the ranks'
+    expert choices, and every token whose own top-8 differed must sit
+    at a near-tie, its 8th and 9th probabilities within ROUTE_TIE; the
+    "model" ranks of a shard route alike), every "model" rank with the same tokens, the
+    collectives per forward `tp_want`'s, K3 launches = attention layers
+    x steps a rank (b: 32 x 8, a: 40 x 16, d: 4 x 8, K3 over the rank's
+    slots with its (max, exp-sum)), K4 = SSD layers a rank (b: 48), no
+    plain call; prefill ms, decode ms a step and peak memory a rank
+    beside one process. (5l(c)) `shardmap_allreduce` on the same ranks,
+    bitwise the one-process arithmetic. NCCL (a card a rank) is
+    written, not run: one card here."""
     t_phase = time.perf_counter()
     dry = phase_dryrun()
-    cfg = get_config(MESH_ARCH).replace(dtype=torch.float32)
-    serve = dict(MESH_SERVE)
-    n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
-    n_moe = sum(b.mlp == "moe" for b in cfg.layer_types)
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    store = Path(__file__).resolve().parent / "build" / "mesh_store"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(f"file://{store}", r, 4, DEV, cfg, serve,
-                               MESH_AR_NUMEL, queue)) for r in range(4)]
-    for p in procs:
-        p.start()
-    ranks = []
-    try:      # drain the queue first: a rank exits once its put is read
-        deadline = t0 + MESH_LIMIT_S
-        while len(ranks) < 4:
-            if not any(p.is_alive() for p in procs) and queue.empty():
-                break
-            try:
-                ranks.append(queue.get(timeout=max(
-                    min(deadline - time.perf_counter(), 5.0), 0.1)))
-            except stdqueue.Empty:
-                if time.perf_counter() > deadline:
-                    break
-        for p in procs:
-            p.join(max(deadline - time.perf_counter(), 1.0))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                os.kill(p.pid, signal.SIGKILL)
-                p.join(10)
-    ranks_s = time.perf_counter() - t0
-    codes = [p.exitcode for p in procs]
-    check(codes == [0] * 4 and len(ranks) == 4,
-          f"5l ranks exit codes {codes}, {len(ranks)} reported "
-          f"(limit {MESH_LIMIT_S} s)")
-    ranks.sort(key=lambda r: r["rank"])
-    one = mesh_one_process(cfg, serve, DEV)
-    worst, same, agree = 0.0, True, True
-    for r in ranks:
-        ref = one[r["rank"] // 2]["logits"]
-        for gl, cl in zip(r["logits"], ref):
-            worst = max(worst, float(np.abs(gl - cl).max()))
-            same &= bool(np.array_equal(gl.argmax(-1), cl.argmax(-1)))
-    for j in range(2):
-        agree &= all(np.array_equal(a, b) for a, b in zip(
-            ranks[2 * j]["logits"], ranks[2 * j + 1]["logits"]))
-    reduces = [r["all_reduces_per_forward"] for r in ranks]
-    dec = sum(r["decode_ms_per_step"] for r in ranks) / 4
-    dec_one = sum(o["decode_ms_per_step"] for o in one) / 2
-    per_step = 2 * n_moe
-    row = dict(
-        model=MESH_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
-        experts=cfg.n_experts, d_ff=cfg.d_ff, dtype="float32",
-        mesh={"data": 2, "model": 2}, backend="gloo", ranks=4, **serve,
-        rows_per_rank=serve["batch"] // 2,
-        params_kept_per_rank=[r["params_kept"] for r in ranks],
-        k3_launches_per_rank=[r["k3_launches"] for r in ranks],
-        k3_plain_calls=sum(r["k3_plain_calls"] for r in ranks),
-        k4_launches=sum(r["k4_launches"] for r in ranks),
-        all_reduces_per_forward=reduces[0],
-        sharded_prefill_ms=[r["prefill_ms"] for r in ranks],
-        sharded_decode_ms_per_step=[r["decode_ms_per_step"] for r in ranks],
-        one_process_prefill_ms=[o["prefill_ms"] for o in one],
-        one_process_decode_ms_per_step=[o["decode_ms_per_step"]
-                                        for o in one],
-        gloo_ms_added_per_all_reduce=(dec - dec_one) / per_step,
-        identical_tokens=same, logits_max_abs_err=worst, tolerance=1e-3,
-        model_ranks_agree=agree, init_s=[r["init_s"] for r in ranks],
-        rendezvous_s=[r["rendezvous_s"] for r in ranks], ranks_s=ranks_s)
-    emit("mesh_serving", **row)
+    serves = tuple((tp_cfg(name, layers), serve, shape)
+                   for _, name, serve, shape, layers in TP_SERVE)
+    ranks, ranks_s = spawn_mesh_ranks(
+        tp_rank, (DEV, serves, MESH_AR_NUMEL), TP_LIMIT_S, "tp")
+    rows = {}
+    for (label, *_), (cfg, serve, (d, m)) in zip(TP_SERVE, serves):
+        name = cfg.name
+        runs = [r["runs"][name] for r in ranks]
+        routes = [runs[j * m]["experts"] for j in range(d)] \
+            if cfg.n_experts else None
+        one = one_process(cfg, serve, DEV, TP_SEED, shards=d, routes=routes)
+        gaps = [g for o in one for g in o["route_gaps"]]
+        worst, same, agree = 0.0, True, True
+        for j in range(d):
+            group = runs[j * m:(j + 1) * m]
+            for t in range(serve["steps"] + 1):
+                full = np.concatenate([g["logits"][t] for g in group], -1)
+                want = one[j]["logits"][t]
+                worst = max(worst, float(np.abs(full - want).max()))
+                same &= bool(np.array_equal(group[0]["tokens"][t],
+                                            one[j]["tokens"][t]))
+                agree &= all(np.array_equal(g["tokens"][t],
+                                            group[0]["tokens"][t])
+                             for g in group)
+            agree &= all(len(g["experts"]) == len(group[0]["experts"])
+                         and all(np.array_equal(a, b) for a, b in zip(
+                             g["experts"], group[0]["experts"]))
+                         for g in group)
+        want_c = [tp_want(cfg, d, m, False)] + \
+            [tp_want(cfg, d, m, True)] * serve["steps"]
+        n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
+        n_ssd = sum(b.mixer == "ssd" for b in cfg.layer_types)
+        want_k3 = n_attn * serve["steps"]
+        row = dict(
+            part=label, model=name, layers=cfg.n_layers,
+            d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv_heads),
+            head_cut=tp_cut(cfg, m), experts=cfg.n_experts, d_ff=cfg.d_ff,
+            vocab=cfg.vocab, padded_vocab=cfg.padded_vocab, dtype="float32",
+            mesh={"data": d, "model": m}, backend="gloo", ranks=4, **serve,
+            rows_per_rank=serve["batch"] // d,
+            params_kept_per_rank=[r["params_kept"] for r in runs],
+            k3_launches_per_rank=[r["k3_launches"] for r in runs],
+            k4_launches_per_rank=[r["k4_launches"] for r in runs],
+            plain_calls=sum(r["k3_plain_calls"] + r["k4_plain_calls"]
+                            for r in runs),
+            collectives_per_forward=runs[0]["collectives"][:2],
+            collectives_as_predicted=all(r["collectives"] == want_c
+                                         for r in runs),
+            sharded_prefill_ms=[r["prefill_ms"] for r in runs],
+            sharded_decode_ms_per_step=[r["decode_ms_per_step"]
+                                        for r in runs],
+            sharded_peak_gb=[r["peak_bytes"] / 1e9 for r in runs],
+            sharded_allocated_gb_before_draw=[
+                r["allocated_before_draw"] / 1e9 for r in runs],
+            sharded_allocated_gb_at_serve=[r["allocated_at_serve"] / 1e9
+                                           for r in runs],
+            sharded_cache_gb=[r["cache_bytes"] / 1e9 for r in runs],
+            one_process_prefill_ms=[o["prefill_ms"] for o in one],
+            one_process_decode_ms_per_step=[o["decode_ms_per_step"]
+                                            for o in one],
+            one_process_peak_gb=[o["peak_bytes"] / 1e9 for o in one],
+            identical_tokens=same, logits_max_abs_err=worst, tolerance=1e-3,
+            moe_calls_replayed=sum(len(r) for r in routes or ()),
+            routing_flips=len(gaps), max_flip_gap=max(gaps, default=None),
+            flip_gap_limit=ROUTE_TIE,
+            model_ranks_agree=agree, init_s=[r["init_s"] for r in runs])
+        emit("tp_serving", **row)
+        check(all(g <= ROUTE_TIE for g in gaps),
+              f"{label} {name}: the ranks routed {len(gaps)} tokens "
+              f"otherwise than one process, gaps up to {max(gaps, default=0.0)} (above "
+              f"{ROUTE_TIE}: not a near-tie)")
+        check(same and worst <= 1e-3, f"{label} {name}: tokens identical="
+              f"{same}, logits error {worst} (one process)")
+        check(agree, f"{label} {name}: the model ranks of a shard disagree")
+        check(row["collectives_as_predicted"],
+              f"{label} {name}: collectives {runs[0]['collectives'][:2]}, "
+              f"want {want_c[:2]}")
+        check(row["k3_launches_per_rank"] == [want_k3] * 4
+              and row["k4_launches_per_rank"] == [n_ssd] * 4
+              and row["plain_calls"] == 0,
+              f"{label} {name}: K3 {row['k3_launches_per_rank']} (want "
+              f"{want_k3}), K4 {row['k4_launches_per_rank']} (want "
+              f"{n_ssd}), plain {row['plain_calls']}")
+        rows[name] = row
     ar = {k: dict(v, numel=MESH_AR_NUMEL, mb=MESH_AR_NUMEL * 4 / 2 ** 20,
                   ms_per_rank=[r["allreduce"][k]["ms"] for r in ranks],
                   bitwise_every_rank=all(r["allreduce"][k]["bitwise"]
                                          for r in ranks))
           for k, v in ranks[0]["allreduce"].items()}
     emit("mesh_allreduce", **ar)
-    nccl = ("not run: one card; NCCL takes one card per rank (written, not "
-            "verified on this machine)")
-    emit("mesh_nccl", status=nccl)
-    check(same and worst <= 1e-3, f"5l: tokens identical={same}, logits "
-          f"error {worst} (one process, moe_layer)")
-    check(agree, "5l: the two model ranks of a data shard disagree")
-    check(all(x == [per_step] * (serve["steps"] + 1) for x in reduces),
-          f"5l: all-reduces per forward {reduces}, want {per_step}")
-    check(row["k3_launches_per_rank"] == [n_attn * serve["steps"]] * 4
-          and row["k3_plain_calls"] == 0 and row["k4_launches"] == 0,
-          f"5l: K3 {row['k3_launches_per_rank']} (want {n_attn} x "
-          f"{serve['steps']}), plain {row['k3_plain_calls']}")
+    emit("mesh_nccl", status="not run: one card; NCCL takes one card per "
+         "rank (written, not verified on this machine)")
     check(all(v["bitwise_every_rank"] for v in ar.values()),
           f"5l(c): shardmap_allreduce not bitwise {ar}")
     seconds = time.perf_counter() - t_phase
-    emit("mesh_done", seconds=seconds, dryrun_s=dry["seconds"],
-         script_s=time.perf_counter() - T_START,
-         k3_launches=sum(row["k3_launches_per_rank"]))
-    return dict(dryrun=dry, serving=row, allreduce=ar,
-                k3_launches=sum(row["k3_launches_per_rank"]),
-                seconds=seconds)
+    emit("tp_done", seconds=seconds, dryrun_s=dry["seconds"],
+         ranks_s=ranks_s, rendezvous_s=[r["rendezvous_s"] for r in ranks],
+         dryrun_counted_cells=dry["counted"],
+         script_s=time.perf_counter() - T_START)
+    return dict(dryrun=dry, serving=rows, allreduce=ar, seconds=seconds,
+                k3_launches={n: sum(r["k3_launches_per_rank"])
+                             for n, r in rows.items()},
+                k4_launches={n: sum(r["k4_launches_per_rank"])
+                             for n, r in rows.items()
+                             if r["k4_launches_per_rank"][0]})
 
 
 # -- the four serving examples (phase 5j) -------------------------------------
@@ -2481,21 +2738,33 @@ K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
 # kernel's largest), phi-3-vision's d = 96, granite-moe's g = 3, whisper's
 # cross-attention over 1,500 frames (all valid, pos past them) and its
 # 448-slot self-attention ring, mixtral's windowed g = 4; phase 5i's
-# trained granite-3-2b, 4 x 512 then 16 steps in a 528-slot cache; and
-# phase 5l's granite-moe rank, 4 rows of 512 then 8 steps
+# trained granite-3-2b, 4 x 512 then 16 steps in a 528-slot cache;
+# phase 5l's granite-moe rank, 4 rows of 512 then 8 steps, 12 q / 4 kv
+# heads (the plan's "model" half); phase 5m's
+# granite-3-2b rank (4 rows, 16 q / 4 kv heads, 512 + 16 of 1,024 slots)
+# and its qwen2.5-3b ranks, whose KV heads the plan cuts: K3 over a
+# rank's 128 of 512 slots with every head, its (max, exp-sum) too
+# (`stats`), on a share all valid, 8 valid and none valid
 K3_ZOO = {
     "recurrentgemma-2b": dict(B=4, K=1, g=10, d=256, C=2048, valid=2112,
                               window=2048),
     "phi-3-vision-4.2b": dict(B=4, K=32, g=1, d=96, C=1024, valid=700),
     "granite-moe-3b-a800m": dict(B=8, K=8, g=3, d=64, C=1024, valid=600),
-    "granite-moe-3b-a800m/mesh": dict(B=4, K=8, g=3, d=64, C=1024,
+    "granite-moe-3b-a800m/mesh": dict(B=4, K=4, g=3, d=64, C=1024,
                                       valid=520),
     "whisper-tiny/cross": dict(B=8, K=6, g=1, d=64, C=1500, valid=1500,
                                pos=1500),
     "whisper-tiny/self": dict(B=8, K=6, g=1, d=64, C=448, valid=68),
     "mixtral-8x7b": dict(B=4, K=8, g=4, d=128, C=1024, valid=540,
                          window=4096),
-    "granite-3-2b": dict(B=4, K=8, g=4, d=64, C=528, valid=528)}
+    "granite-3-2b": dict(B=4, K=8, g=4, d=64, C=528, valid=528),
+    "granite-3-2b/tp": dict(B=4, K=4, g=4, d=64, C=1024, valid=528),
+    "qwen2.5-3b/cut": dict(B=4, K=2, g=8, d=128, C=128, valid=128, pos=263,
+                           stats=True),
+    "qwen2.5-3b/cut-tail": dict(B=4, K=2, g=8, d=128, C=128, valid=8,
+                                pos=263, stats=True),
+    "qwen2.5-3b/cut-empty": dict(B=4, K=2, g=8, d=128, C=128, valid=0,
+                                 pos=263, stats=True)}
 K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
 
 
@@ -2527,6 +2796,22 @@ def close(got, want, rtol, atol_rel):
     return bool((err <= rtol * want.abs() + atol).all()), float(err.max())
 
 
+def stats_close(got, want):
+    """K3's (max, exp-sum) pairs (B, H, 2): where no slot is valid both
+    exactly (-1e30, 0), elsewhere the max within rtol 1e-6 and the sum
+    within rtol 1e-5; returns (ok, max abs error)."""
+    empty = want[..., 0] <= -1e29
+    ok = bool(torch.equal(got[empty], want[empty]))
+    err = 0.0
+    for j, rtol in ((0, 1e-6), (1, 1e-5)):
+        g, w = got[..., j][~empty], want[..., j][~empty]
+        if w.numel():
+            e = (g - w).abs()
+            ok &= bool((e <= rtol * w.abs() + 1e-30).all())
+            err = max(err, float(e.max()))
+    return ok, err
+
+
 def phase_k3_check(k3):
     S = K3_SERVE
     cases = [dict(S, valid=1024), dict(S, valid=540),
@@ -2542,24 +2827,34 @@ def phase_k3_check(k3):
     cases = [(None, c) for c in cases] + list(K3_ZOO.items())
     max_abs = 0.0
     for seed, (model, case) in enumerate(cases):
+        stats = case.get("stats", False)
+        shape = {k: v for k, v in case.items() if k != "stats"}
         for dtype in (torch.bfloat16, torch.float32):
-            args, pos, window = k3_inputs(500 + seed, dtype=dtype, **case)
-            got = k3.decode_attention(*args, pos, window)
+            args, pos, window = k3_inputs(500 + seed, dtype=dtype, **shape)
+            got = k3.decode_attention(*args, pos, window, stats)
             torch.cuda.synchronize()
-            want = k3.decode_attention_plain(*args, pos, window)
+            want = k3.decode_attention_plain(*args, pos, window, stats)
             rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+            extra = {}
+            if stats:
+                (got, got_ml), (want, want_ml) = got, want
+                ok_ml, err_ml = stats_close(got_ml, want_ml)
+                extra = dict(stats_max_abs_err=err_ml,
+                             stats_tolerance="max: rtol 1e-6; exp-sum: "
+                             "rtol 1e-5; -1e30 and 0 exactly where no "
+                             "slot is valid")
+                check(ok_ml, f"K3 {case} {dtype}: stats error {err_ml}")
             ok, err = close(got, want, rtol, 1e-5)
             max_abs = max(max_abs, err)
-            extra = {}
             if model is not None:
                 layout = k3.pieces(case["B"], case["K"], case["C"],
                                    case["g"])
-                extra = dict(model=model, layout_from_shape=layout,
+                extra = dict(extra, model=model, layout_from_shape=layout,
                              smem_bytes=k3._library().rt_decode_attention_smem(
                                  case["g"], case["d"], layout[2],
                                  k3.DTYPES[dtype]),
                              smem_limit=k3.smem_limit(args[0].device))
-            emit("k3_check", **case, **extra,
+            emit("k3_check", **shape, **extra,
                  dtype=str(dtype).split(".")[-1], max_abs_err=err,
                  tolerance=f"rtol {rtol}, atol 1e-5 x scale")
             check(ok, f"K3 {case} {dtype}: error {err} outside tolerance")
@@ -2584,7 +2879,9 @@ def phase_k4_check(k4):
              # 16 chunks a chain (longer than a cluster could hold); one
              # chunk; phase 5i's trained mamba2-1.3b, a 2 x 1,024 prefill
              dict(K4_SERVE, B=2, S=2048, nh=16), dict(K4_SERVE, S=128),
-             dict(K4_SERVE, B=2)]
+             dict(K4_SERVE, B=2),
+             # phase 5m's mamba2-1.3b rank: 2 rows, 32 of 64 heads
+             dict(K4_SERVE, B=2, nh=32)]
     max_abs = 0.0
     for seed, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
@@ -3362,7 +3659,7 @@ def main():
     knn_counts["span"] = hier["k2_launches_span"]
     span_dist = phase_span_dist(mk, kt, scen, hier.pop("span_emulated"))
     knn_counts["span_dist"] = span_dist["k2_launches"]
-    mesh = phase_mesh()
+    tp = phase_tp()
     scen_k1 = dict(total=scen["k1_launches"],
                    by_cell={k: v["k1_launches"]
                             for k, v in scen["cells"].items()})
@@ -3383,8 +3680,11 @@ def main():
                      for k, v in zoo.items()},
                   "train_serve/granite-3-2b":
                       trained["granite-3-2b"][1]["k3_launches"],
-                  f"mesh_serving/{MESH_ARCH}": mesh["k3_launches"]}
+                  **{f"tp_serving/{k}": v
+                     for k, v in tp["k3_launches"].items() if v}}
     k4_by_path = {"ssm_serving/mamba2-1.3b": ssm["k4_launches"],
+                  **{f"tp_serving/{k}": v
+                     for k, v in tp["k4_launches"].items()},
                   "train_serve/mamba2-1.3b":
                       trained["mamba2-1.3b"][1]["k4_launches"]}
     main8, knn1 = times[8], knn_times[1]

@@ -51,8 +51,12 @@
 //     the other ranks' values through distributed shared memory
 //     (M = max m, L = sum l e^(m-M), A = sum acc e^(m-M), out =
 //     A / max(L, 1e-30)), then a second cluster.sync() keeps each CTA's
-//     shared memory alive until the others have read it.
-// The wrapper allocates `out` only: no scratch in device memory.
+//     shared memory alive until the others have read it. On request
+//     the merge also writes each head's (M, L), so a caller can merge
+//     the outputs of caches held apart (the tensor-parallel plan's
+//     share of the slots a rank).
+// The wrapper allocates `out` (and those stats) only: no scratch in
+// device memory.
 //
 // Arithmetic. Products and sums are IEEE-rounded one at a time
 // (--fmad=false and the _rn intrinsics); only the summation order differs
@@ -179,7 +183,8 @@ decode_attention_cluster(const T* __restrict__ q, const T* __restrict__ kc,
                          const T* __restrict__ vc,
                          const int* __restrict__ cpos, int H, int K, int C,
                          int d, int n_per, int U, int pos, int window,
-                         float scale, T* __restrict__ out) {
+                         float scale, T* __restrict__ out,
+                         float* __restrict__ stats) {
   constexpr int NBUF = nbuf<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -456,6 +461,11 @@ decode_attention_cluster(const T* __restrict__ q, const T* __restrict__ kc,
       }
     out[((size_t)b * H + (size_t)kh * g + h) * d + (i % d)] =
         from_f<T>(__fdiv_rn(Acc, fmaxf(L, 1e-30f)));
+    if (stats != nullptr && i % d == 0) {  // the head's (M, L), on request
+      float* sp = stats + ((size_t)b * H + (size_t)kh * g + h) * 2;
+      sp[0] = M;
+      sp[1] = L;
+    }
   }
   cluster.sync();                        // the others have read this CTA
 }
@@ -463,7 +473,8 @@ decode_attention_cluster(const T* __restrict__ q, const T* __restrict__ kc,
 template <typename T, int GH, int PPT>
 int launch(const void* q, const void* kc, const void* vc, const int* cpos,
            int B, int H, int K, int C, int d, int S, int n_per, int U,
-           int pos, int window, float scale, void* out, cudaStream_t st) {
+           int pos, int window, float scale, void* out, float* stats,
+           cudaStream_t st) {
   const int g = H / K;
   const Layout Ly = layout(g, d, U, (int)sizeof(T), nbuf<T>());
   auto kern = decode_attention_cluster<T, GH, PPT>;
@@ -501,7 +512,7 @@ int launch(const void* q, const void* kc, const void* vc, const int* cpos,
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), cpos, H, K, C, d, n_per, U, pos, window,
-      scale, static_cast<T*>(out));
+      scale, static_cast<T*>(out), stats);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -511,12 +522,13 @@ int launch(const void* q, const void* kc, const void* vc, const int* cpos,
 template <typename T>
 int dispatch(const void* q, const void* kc, const void* vc, const int* cpos,
              int B, int H, int K, int C, int d, int S, int n_per, int U,
-             int pos, int window, float scale, void* out, cudaStream_t st) {
+             int pos, int window, float scale, void* out, float* stats,
+             cudaStream_t st) {
   const int g = H / K, gh = (g + HG - 1) / HG;
   const bool one_pair = g * (d / 8) <= THREADS;
 #define RT_LAUNCH(GH, PPT)                                                 \
   return launch<T, GH, PPT>(q, kc, vc, cpos, B, H, K, C, d, S, n_per, U,  \
-                            pos, window, scale, out, st)
+                            pos, window, scale, out, stats, st)
   if (gh <= 1) { if (one_pair) RT_LAUNCH(1, 1); RT_LAUNCH(1, 4); }
   if (gh <= 2) { if (one_pair) RT_LAUNCH(2, 1); RT_LAUNCH(2, 4); }
   if (gh <= 4) { if (one_pair) RT_LAUNCH(4, 1); RT_LAUNCH(4, 4); }
@@ -538,12 +550,17 @@ int rt_decode_attention_smem(int g, int d, int U, int dtype) {
 // q (B, H, d), caches (B, C, K, d) and out (B, H, d) in one dtype
 // (0 float32, 1 bfloat16), 16-byte aligned; cpos (C,) int32. S pieces of
 // n_per 64-slot tiles (S = ceil(n_tiles / n_per) <= 8), segments of
-// U <= n_per tiles. H % K == 0, H/K <= 32, d % 8 == 0, d <= 256. One
-// launch on `stream`; returns the cudaError_t (0 = success).
+// U <= n_per tiles. H % K == 0, H/K <= 32, d % 8 == 0, d <= 256. stats,
+// null or float32 (B, H, 2), takes each head's running max of the scaled
+// scores and the sum of exp(s - max) over the valid slots (-1e30 and 0
+// where none is valid), for a caller that merges several caches' outputs.
+// One launch on `stream`; returns the cudaError_t (0 = success).
 int rt_decode_attention(const void* q, const void* kc, const void* vc,
                         const int* cpos, int B, int H, int K, int C, int d,
                         int S, int n_per, int U, int pos, int window,
-                        int dtype, float scale, void* out, void* stream) {
+                        int dtype, float scale, void* out, void* stats,
+                        void* stream) {
+  float* sp = static_cast<float*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (C + TILE - 1) / TILE;
   if (K < 1 || H % K || H / K > MAX_G || d > MAX_D || d % 8 || n_per < 1 ||
@@ -552,10 +569,10 @@ int rt_decode_attention(const void* q, const void* kc, const void* vc,
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, kc, vc, cpos, B, H, K, C, d, S, n_per, U, pos,
-                           window, scale, out, st);
+                           window, scale, out, sp, st);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, kc, vc, cpos, B, H, K, C, d, S, n_per,
-                                   U, pos, window, scale, out, st);
+                                   U, pos, window, scale, out, sp, st);
   return (int)cudaErrorInvalidValue;
 }
 

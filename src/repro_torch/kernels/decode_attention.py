@@ -32,6 +32,12 @@ kernel's exp(0) for a row masked to its end gives the mean of v there;
 the model never attends such a row, since decode writes slot pos first)
 and every other row is unchanged by it.
 
+With `stats=True` the call also returns each head's float32 (M, L): the
+merged running max of the scaled scores and the sum of exp(s - M) over
+the valid slots (-1e30 and 0 where none is). Outputs of caches held
+apart merge with them: M* = max M_r, o = sum_r o_r L_r e^(M_r - M*) /
+sum_r L_r e^(M_r - M*) (`models.attention.split_decode_attention`).
+
 `decode_attention.launches` counts calls that went to the kernel (one
 __global__ function each), `decode_attention.plain_calls` those that
 went to the plain version.
@@ -100,14 +106,15 @@ def _dots(qf, kf):
 
 
 def decode_attention_plain(q, k_cache, v_cache, positions, pos: int,
-                           window: int = 0):
+                           window: int = 0, stats: bool = False):
     """The kernel's function in plain torch, on any device, in its
     layout (`pieces`): per piece and segment a float32 softmax over the
     segment's slots (scores summed in the kernel's order, `_dots`;
     masked slots -1e30, p = 0, zeroed and so never read), p rounded to
     the cache dtype before the PV product; the
     segments of a piece folded in order into a running (m, l, acc); then
-    the pieces merged. Returns (B, H, d) in q's dtype."""
+    the pieces merged. Returns (B, H, d) in q's dtype, and with `stats`
+    also the merged (M, L), float32 (B, H, 2)."""
     B, H, d = q.shape
     C, K = k_cache.shape[1], k_cache.shape[2]
     g = H // K
@@ -147,8 +154,10 @@ def decode_attention_plain(q, k_cache, v_cache, positions, pos: int,
     w = torch.exp(Mr - M)                                 # (B, K, S, g)
     L = (Lr * w).sum(2)
     A = (Ar * w[..., None]).sum(2)
-    o = A / L.clamp_min(1e-30)[..., None]
-    return o.reshape(B, H, d).to(q.dtype)
+    o = (A / L.clamp_min(1e-30)[..., None]).reshape(B, H, d).to(q.dtype)
+    if stats:
+        return o, torch.stack([M[:, :, 0], L], -1).reshape(B, H, 2)
+    return o
 
 
 def _validate(q, k_cache, v_cache, positions, pos, window):
@@ -192,7 +201,7 @@ def _library():
         lib = load("decode_attention")
         lib.rt_decode_attention.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 2)
+            + [ctypes.c_void_p] * 3)
         lib.rt_decode_attention.restype = ctypes.c_int
         lib.rt_decode_attention_smem.argtypes = [ctypes.c_int] * 4
         lib.rt_decode_attention_smem.restype = ctypes.c_int
@@ -200,7 +209,7 @@ def _library():
     return _lib
 
 
-def _launch(q, k_cache, v_cache, positions, pos, window):
+def _launch(q, k_cache, v_cache, positions, pos, window, stats):
     lib = _library()
     B, H, d = q.shape
     _, C, K, _ = k_cache.shape
@@ -214,32 +223,36 @@ def _launch(q, k_cache, v_cache, positions, pos, window):
         raise ValueError(f"H/K={H // K}, d={d} need more shared memory "
                          f"than a block has ({limit} B)")
     out = torch.empty_like(q)
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=q.device) \
+        if stats else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         positions.data_ptr(), B, H, K, C, d, S, n_per, U, pos, window, dt,
-        d ** -0.5, out.data_ptr(), stream)
+        d ** -0.5, out.data_ptr(), ml.data_ptr() if stats else None, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
-    return out
+    return (out, ml) if stats else out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, positions: torch.Tensor,
-                     pos: int, window: int = 0) -> torch.Tensor:
+                     pos: int, window: int = 0, stats: bool = False):
     """q (B, H, d); caches (B, C, K, d) in q's dtype (float32 or
     bfloat16); positions (C,) int32, -1 for an empty slot; pos and
-    window Python ints. Returns (B, H, d) in q's dtype: the CUDA kernel
-    on CUDA tensors, the plain version on CPU tensors."""
+    window Python ints. Returns (B, H, d) in q's dtype, and with `stats`
+    also each head's float32 (M, L) as (B, H, 2) (module docstring): the
+    CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     _validate(q, k_cache, v_cache, positions, pos, window)
     if q.device.type == "cuda":
-        out = _launch(q, k_cache, v_cache, positions, pos, window)
+        out = _launch(q, k_cache, v_cache, positions, pos, window,
+                      bool(stats))
         decode_attention.launches += 1
         return out
     if q.device.type == "cpu":
         decode_attention.plain_calls += 1
         return decode_attention_plain(q, k_cache, v_cache, positions, pos,
-                                      window)
+                                      window, bool(stats))
     raise ValueError(f"no decode_attention kernel for device {q.device}")
 
 

@@ -1,5 +1,5 @@
 """Multi-pod dry run: every (arch x shape) cell planned on the production
-meshes, on the meta device.
+meshes, and each serving cell's step run for rank 0 on the meta device.
 
 Port of `repro.launch.dryrun`. For each cell it builds the production
 mesh (16 x 16 ``("data", "model")``, or 2 x 16 x 16 with ``"pod"``)
@@ -9,10 +9,23 @@ cell under ``build/dryrun/``: the status (``ok``, ``skipped`` with the
 reason, or ``error`` with the traceback), the reference's `meta`, the
 chip count, and the bytes one device holds of the parameters, the
 optimizer state (train), the batch and the decode cache, from the
-plans' DTensor placements. The reference compiles each cell and reads
-XLA's memory and cost analyses and the HLO's collectives; the port does
-not lower to HLO, so its output says so instead of giving those
-numbers.
+plans' DTensor placements.
+
+Where `lower_cell` returns a step (the prefill and decode cells of the
+dense, MoE, vision and SSM archs), `step_costs` runs it for rank 0 on
+meta tensors: the model cut to rank 0's pieces (`shard_params`), its
+batch and cache likewise, the collectives recorded by the fake group
+without communicating. Per device it records what the reference reads
+from the compiled HLO: `flops_per_device` (2 x output elements x K of
+every matmul, attention's and K4's products included, `models.cost`),
+`hbm_bytes_per_device` (each matmul, fused call and collective reads
+its operands once and writes its result once), `collectives` (count,
+payload and link bytes per kind, ring factors all-gather 1, all-reduce
+2, reduce-scatter 1) and `peak_bytes_per_device` (the high-water mark
+of live meta-tensor bytes, parameters, batch and cache included, by
+`torch.distributed._tools.mem_tracker.MemTracker`). The other cells
+(train, the RG-LRU hybrid, the encoder-decoder) keep the plan's record
+with `plan_only`, the reason and the slice that runs them.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
@@ -32,9 +45,6 @@ import traceback
 import torch.distributed as dist
 
 RUNS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
-NOT_COMPILED = ("no counterpart: the port plans placements and does not "
-                "compile the cell to HLO, so XLA's FLOP, byte, memory and "
-                "collective counts are not computed")
 
 
 @contextlib.contextmanager
@@ -59,7 +69,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     from repro_torch.configs import SHAPES, get_config, skip_reason
     from repro_torch.launch import sharding as shr
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import lower_cell
+    from repro_torch.launch.steps import lower_cell, plan_only
 
     t0 = time.time()
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod)}
@@ -67,7 +77,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     if reason:
         return dict(head, status="skipped", reason=reason)
     mesh = make_production_mesh(multi_pod=multi_pod)
-    plan, meta = lower_cell(get_config(arch), SHAPES[shape_name], mesh)
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    plan, meta, step = lower_cell(cfg, shape, mesh)
     trees = {"params": plan["params"], "batch": plan["batch"]}
     if "opt" in plan:
         o = plan["opt"]
@@ -76,11 +87,62 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
                         "step": o["step"]}
     if "cache" in plan:
         trees["cache"] = plan["cache"]
-    return dict(
+    rec = dict(
         head, status="ok", meta=meta, n_chips=mesh.size(),
         bytes_per_device={k: shr.bytes_per_device(t, mesh)
                           for k, t in trees.items()},
-        xla=NOT_COMPILED, t_plan_s=round(time.time() - t0, 3))
+        t_plan_s=round(time.time() - t0, 3))
+    if step is None:
+        rec["plan_only"] = plan_only(cfg, shape)
+    else:
+        t1 = time.time()
+        rec.update(step_costs(cfg, shape, plan, step, mesh),
+                   t_step_s=round(time.time() - t1, 3))
+    return rec
+
+
+def step_costs(cfg, shape, plan, step, mesh) -> dict:
+    """Run `step` (`lower_cell`'s) for rank 0 on meta tensors under the
+    fake group that `mesh` spans; the per-device counts (module
+    docstring)."""
+    import torch
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.configs import input_specs
+    from repro_torch.distributed import shardctx
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import Model
+    from repro_torch.models.api import flatten_tree
+    from repro_torch.models.cost import Counter
+
+    cfg = cfg.replace(vocab_pad_to=256)
+    model = shr.shard_params(Model(cfg, device="meta"), plan["params"],
+                             mesh, 0)
+    batch = shr.shard_batch(input_specs(cfg, shape), plan["batch"], mesh, 0)
+    args = [batch]
+    if shape.kind == "decode":
+        cache = shr.shard_cache(
+            model.cache_specs(shape.global_batch, shape.seq_len),
+            plan["cache"], mesh, 0)
+        args = [cache, batch["tokens"]]
+    held = [t for a in args for _, t in flatten_tree(a)
+            if isinstance(t, torch.Tensor)]
+    shardctx.reset_collectives()
+    mt = MemTracker()
+    mt.track_external(model, *held)
+    with mt, Counter() as count:
+        step(model, *args)
+    colls = {k: dict(v) for k, v in shardctx.COLLECTIVES.items()
+             if v["count"]}
+    peak = mt.get_tracker_snapshot("peak")
+    return dict(
+        flops_per_device=count.flops,
+        hbm_bytes_per_device=count.hbm_bytes + sum(
+            v.pop("hbm_bytes") for v in colls.values()),
+        collectives=colls,
+        collective_link_bytes_per_device=sum(v["link_bytes"]
+                                             for v in colls.values()),
+        peak_bytes_per_device=int(sum(d["Total"] for d in peak.values())))
 
 
 def cell_path(arch: str, shape: str, multi_pod: bool,

@@ -32,6 +32,15 @@ under FSDP), the plan places whole layers on the "data" ranks, and the
 per-device bytes count it so. Caches are planned per layer: the
 reference never shards a cache's stack dimension.
 
+`shard_params`, `shard_cache` and `shard_batch` carry out a plan on
+one rank: they cut the one-process trees (a `Model` built or bridged as
+for one device, a cache, a batch) into the pieces that rank holds, so
+the tensor-parallel model code (`models.layers`, `models.blocks`,
+`models.model`, `models.moe`) runs on them under
+`shardctx.sharding_rules`. "model" shares are read by that code as
+they are; a "data" (FSDP) share of a parameter is gathered over "data"
+where the parameter is read (`models.api.Params.__getitem__`).
+
 `cell_specs` is the layout of the hierarchy's cell-sharded decision
 scan.
 """
@@ -40,10 +49,12 @@ from __future__ import annotations
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.placement_types import Placement
 
-from ..distributed.shardctx import axis_sizes, batch_axes, placements
+from ..distributed.shardctx import axis_sizes, batch_axes, divides, \
+    kv_cache_dim, placements
 
 Spec = Tuple[Tuple[str, ...], ...]
 
@@ -64,8 +75,7 @@ def _axsize(mesh, names) -> int:
 
 
 def _div(dim: int, mesh, names) -> bool:
-    n = _axsize(mesh, names)
-    return dim % n == 0 and dim >= n
+    return divides(dim, _axsize(mesh, names))
 
 
 def _spec(ndim: int, dim: Optional[int] = None, axes=()) -> Spec:
@@ -235,13 +245,10 @@ def cache_pspecs(cache, mesh, batch: int) -> Dict[str, Placed]:
         if leaf in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
             # KV heads first, else the cache's sequence, head_dim last
             # (sharding head_dim gathers the whole cache every step)
-            C, K, hd = shp[-3], shp[-2], shp[-1]
-            if _div(K, mesh, "model"):
-                parts[-2] = ("model",)
-            elif _div(C, mesh, "model"):
-                parts[-3] = ("model",)
-            elif _div(hd, mesh, "model"):
-                parts[-1] = ("model",)
+            d = kv_cache_dim(shp[-3], shp[-2], shp[-1],
+                             _axsize(mesh, "model"))
+            if d is not None:
+                parts[d] = ("model",)
         elif leaf == "state":                       # (B, nh, P, N)
             if _div(shp[-3], mesh, "model"):
                 parts[-3] = ("model",)
@@ -276,6 +283,102 @@ def bytes_per_device(plan: Mapping[str, Placed], mesh) -> int:
             n *= s
         total += n
     return total
+
+
+def coordinates(mesh, rank: int) -> Dict[str, int]:
+    """{axis: rank `rank`'s coordinate} on `mesh` (row-major over the
+    axes, the `DeviceMesh` order of the default group's ranks)."""
+    out = {}
+    for a, n in reversed(list(axis_sizes(mesh).items())):
+        out[a], rank = rank % n, rank // n
+    return dict(reversed(list(out.items())))
+
+
+def local_piece(t: torch.Tensor, spec: Spec, mesh, rank: int):
+    """Rank `rank`'s piece of `t` under the plan entry `spec`: each
+    sharded dimension narrowed to the rank's share of its axes (several
+    axes on one dimension combine in the entry's order). A view of `t`:
+    `_own` copies it, so the whole tensor's storage can go."""
+    sizes, at = axis_sizes(mesh), coordinates(mesh, rank)
+    for d, axes in enumerate(spec):
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * sizes[a], i * sizes[a] + at[a]
+        if n > 1:
+            step = t.shape[d] // n
+            t = t.narrow(d, i * step, step)
+    return t
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of a piece (a narrowed view shares, and keeps
+    alive, the whole tensor's storage even where it is contiguous)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _layer_spec(cfg, name: str, plan: Mapping[str, Placed]) -> Spec:
+    """The plan entry of port leaf `name`: its stacked group's less the
+    stack dimension."""
+    path, stacked = reference_path(cfg, name)
+    spec = plan[path].spec
+    if not stacked:
+        return spec
+    if spec[0]:
+        raise NotImplementedError(
+            f"{path} places whole layers on {spec[0]} ranks; the executed "
+            "plans take a layer's parameters on every rank")
+    return spec[1:]
+
+
+def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
+    """Keep only rank `rank`'s pieces of `model`'s parameters under the
+    parameter plan (`param_pspecs`), in place; returns the model. The
+    pieces are new tensors, so the whole ones can go. A dimension
+    FSDP-sharded over "data" is registered with its module, whose
+    `__getitem__` gathers it over "data" where it is read; "model"
+    shares stay as they are (the experts' among them: their d_ff slices,
+    which `moe.moe_layer_sharded` reads with this rank's rows). The
+    RG-LRU hybrid and the
+    encoder-decoder are refused: their splits do not run yet."""
+    if model.cfg.family in ("hybrid", "encdec"):
+        raise NotImplementedError(
+            f"{model.cfg.family}: its tensor-parallel splits do not run "
+            "yet (ROADMAP queue 1 item 10)")
+    for mname, mod in list(model.named_modules()):
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            name = f"{mname}.{leaf}" if mname else leaf
+            spec = _layer_spec(model.cfg, name, plan)
+            piece = local_piece(p.data, spec, mesh, rank)
+            if piece.shape != p.shape:
+                setattr(mod, leaf, nn.Parameter(_own(piece),
+                                                requires_grad=False))
+            for d, axes in enumerate(spec):
+                if "data" in axes:
+                    mod.gathers = dict(mod.gathers, **{leaf: (d, "data")})
+    return model
+
+
+def shard_cache(cache, plan: Mapping[str, Placed], mesh, rank: int):
+    """Rank `rank`'s pieces of a decode cache (`init_cache`'s or
+    prefill's tree) under `cache_pspecs`, as a new tree of the same
+    form; the host-side counters are kept."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}{k}.") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, f"{prefix}{i}.") for i, v in enumerate(tree)]
+        name = prefix[:-1]
+        if not isinstance(tree, torch.Tensor) or name not in plan:
+            return tree
+        return _own(local_piece(tree, plan[name].spec, mesh, rank))
+    return walk(cache, "")
+
+
+def shard_batch(batch: Mapping[str, torch.Tensor],
+                plan: Mapping[str, Placed], mesh, rank: int):
+    """Rank `rank`'s rows of a batch under `batch_pspecs`."""
+    return {k: _own(local_piece(v, plan[k].spec, mesh, rank))
+            for k, v in batch.items()}
 
 
 def residual_spec(mesh, seq_shard: bool = False) -> Spec:

@@ -17,13 +17,17 @@ carries the error buffers as `ef` (`init_opt_state(model,
 compression=True)`).
 
 `lower_cell(cfg, shape, mesh)` is the reference's plan for one (arch x
-shape) cell on a mesh, without the lowering: the port does not compile
-a step to HLO, so it returns the placement plans of every tree the
-cell's step reads (`launch.sharding`) with the reference's `meta` (the
-FSDP rule, the residual rule, the mesh and the microbatch count). The
-reference's `donate` has no counterpart: the port's train step updates
-the parameters and its state in place, and decode writes its caches in
-place, always.
+shape) cell on a mesh: the placement plans of every tree the cell's
+step reads (`launch.sharding`), the reference's `meta` (the FSDP rule,
+the residual rule, the mesh and the microbatch count) and, for a
+serving cell of the dense, MoE, vision and SSM families, the step that
+runs one rank's shard under the plan (`sharded_step`: the counterpart
+of the reference's jitted step, eager, on the pieces
+`sharding.shard_params` cuts; the dry run runs it on meta tensors).
+Train cells and the RG-LRU hybrid's and encoder-decoder's cells keep
+the plan only (`plan_only` says why). The reference's `donate` has no
+counterpart: the port's train step updates the parameters and its
+state in place, and decode writes its caches in place, always.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ import torch
 
 from ..configs.registry import input_specs
 from ..distributed.compression import compress_decompress
-from ..distributed.shardctx import axis_sizes, batch_axes
-from ..models.api import Model, greedy_sample
+from ..distributed.shardctx import axis_sizes, batch_axes, sharding_rules
+from ..models.api import Model
+from ..models.model import greedy_tokens
 from ..models.config import ModelConfig, ShapeSpec
 from ..training import optimizer as opt
 from . import sharding as shr
@@ -93,26 +98,83 @@ def init_opt_state(model: Model, compression: bool = False):
 
 
 def make_prefill_step(model: Model, pad_to: int = 0):
+    """`prefill_step(batch) -> (tokens (B,), cache)`; the logits of its
+    last call stay in `prefill_step.last["logits"]` (this rank's
+    vocabulary share under a tensor-parallel plan). A holder, not an
+    attribute the function sets on itself: that would make a reference
+    cycle through the closure, and the model would outlive the step
+    until the garbage collector ran."""
+    last = {}
+
     def prefill_step(batch):
         logits, cache = model.prefill(batch, pad_to=pad_to)
-        return greedy_sample(logits), cache
+        last["logits"] = logits
+        return greedy_tokens(logits, model.cfg), cache
+    prefill_step.last = last
     return prefill_step
 
 
 def make_decode_step(model: Model):
+    """`decode_step(cache, tokens) -> (tokens (B, 1), cache)`; the logits
+    of its last call stay in `decode_step.last["logits"]`."""
+    last = {}
+
     def decode_step(cache, tokens):
         logits, cache = model.decode(cache, tokens)
-        return greedy_sample(logits)[:, None], cache
+        last["logits"] = logits
+        return greedy_tokens(logits, model.cfg)[:, None], cache
+    decode_step.last = last
     return decode_step
+
+
+PLAN_ONLY = {
+    "train": "plan only: the train step under the tensor-parallel plan "
+             "(f/g autograd for the collectives) is ROADMAP queue 1 item 10",
+    "hybrid": "plan only: the RG-LRU's splits (w_in, w_gate_branch, w_i, "
+              "w_r, w_out, conv, lam) run in ROADMAP queue 1 item 10",
+    "encdec": "plan only: whisper's splits run in ROADMAP queue 1 item 10"}
+
+
+def plan_only(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
+    """Why a cell's step does not run under its plan, or None."""
+    if shape.kind == "train":
+        return PLAN_ONLY["train"]
+    return PLAN_ONLY.get(cfg.family)
+
+
+def sharded_step(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
+    """The cell's serving step on this rank's shard, under `mesh` and the
+    plan's rules: prefill `step(model, batch) -> (tokens, cache)`, decode
+    `step(model, cache, tokens) -> (tokens, cache)`, where `model` holds
+    this rank's pieces (`sharding.shard_params`) and the batch and cache
+    its own (`shard_batch`, `shard_cache`); `step.last["logits"]` is the
+    last call's share of the logits."""
+    last = {}
+
+    def step(model, *args):
+        with sharding_rules(mesh, **rules):
+            if shape.kind == "prefill":
+                fn = make_prefill_step(model, pad_to=shape.seq_len)
+            else:
+                fn = make_decode_step(model)
+            out = fn(*args)
+        last.update(fn.last)
+        return out
+    step.last = last
+    return step
 
 
 def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                fsdp: Optional[bool] = None,
                seq_shard_resid: Optional[bool] = None):
-    """(plan, meta) of one cell on `mesh` (a `DeviceMesh` or {axis:
+    """(plan, meta, step) of one cell on `mesh` (a `DeviceMesh` or {axis:
     size}), built on the meta device. plan: {"params", "batch",
     "rules"} plus "opt" for a train cell and "cache" for a decode cell,
-    each {name: `sharding.Placed`}; meta: the reference's dict."""
+    each {name: `sharding.Placed`}; meta: the reference's dict; step:
+    the serving step that runs this rank's shard under the plan
+    (`sharded_step`, the counterpart of the reference's jitted step), or
+    None where the cell keeps the plan only (`plan_only`: train cells,
+    the RG-LRU hybrid and the encoder-decoder)."""
     cfg = cfg.replace(vocab_pad_to=256)
     model = Model(cfg, device="meta")
     big = cfg.param_counts()["total"] * 2 >= 8e9       # >= 8 GB of bf16
@@ -145,4 +207,6 @@ def lower_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
         plan["cache"] = shr.cache_pspecs(
             model.cache_specs(shape.global_batch, shape.seq_len), mesh,
             shape.global_batch)
-    return plan, meta
+    step = None if plan_only(cfg, shape) else \
+        sharded_step(cfg, shape, mesh, plan["rules"])
+    return plan, meta, step

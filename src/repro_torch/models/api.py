@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.shardctx import all_gather
 from . import encdec, model
 from .config import ModelConfig
 
@@ -55,7 +56,12 @@ def flatten_tree(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
 class Params(nn.Module):
     """A nested dict/list of tensors as modules: `p[name]` reads a leaf
     or a subtree, and the state-dict keys are the tree's dotted paths.
-    Parameters do not require gradients (serving)."""
+    Parameters do not require gradients (serving). `gathers` {leaf:
+    (dim, axis)} names the leaves that hold an FSDP share
+    (`launch.sharding.shard_params`): reading one gathers it over the
+    axis of the pinned mesh."""
+
+    gathers: Dict[str, Tuple[int, str]] = {}
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -69,6 +75,9 @@ class Params(nn.Module):
                     k, nn.Parameter(v, requires_grad=False))
 
     def __getitem__(self, name: str):
+        if name in self.gathers:
+            dim, axis = self.gathers[name]
+            return all_gather(getattr(self, name), axis, dim)
         return getattr(self, name)
 
 

@@ -14,7 +14,10 @@ S x S elements is kept between the two. Prefill and training call the
 same function. `decode_attention` keeps the reference's (B, 1, H, d)
 signature and goes to K3 (`repro_torch.kernels.decode_attention`): the
 CUDA kernel on CUDA tensors, its plain version on CPU tensors. Neither
-calls a library attention.
+calls a library attention. On meta tensors (the dry run) both return
+an empty result and report their FLOPs and bytes from the shapes
+(`cost.fused`): the live blocks' two products, q, k, v read and o
+written once.
 
 Blocks that the causal or window mask empties whole are skipped, in
 both directions: the reference's `skip_masked_blocks` (lines 206-220,
@@ -34,7 +37,9 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..distributed.shardctx import all_gather
 from ..kernels import decode_attention as k3
+from . import cost
 
 NEG_INF = -1e30
 
@@ -49,25 +54,28 @@ def _block_mask(q_pos, k_pos, kv_len: int, causal: bool, window: int):
     return m
 
 
-def _blocks(nq, nkv, bq, bkv, kv_len, causal, window, device):
-    """{(i, j): mask} over the (Q block, KV block) pairs that hold an
-    allowed position; mask None where every position is allowed."""
-    out = {}
+def _live_pairs(nq, nkv, bq, bkv, kv_len, causal, window):
+    """(i, j, whole) over the (Q block, KV block) pairs that hold an
+    allowed position; whole where every position is allowed."""
     for i in range(nq):
         q0, q1 = i * bq, (i + 1) * bq - 1
         for j in range(nkv):
             k0, k1 = j * bkv, (j + 1) * bkv - 1
             if (causal and k0 > q1) or (window > 0 and k1 <= q0 - window):
                 continue
-            if k1 < kv_len and (not causal or k1 <= q0) \
-                    and (window <= 0 or k0 > q1 - window):
-                out[i, j] = None
-            else:
-                out[i, j] = _block_mask(
-                    torch.arange(q0, q1 + 1, device=device),
-                    torch.arange(k0, k1 + 1, device=device),
-                    kv_len, causal, window)
-    return out
+            yield i, j, (k1 < kv_len and (not causal or k1 <= q0)
+                         and (window <= 0 or k0 > q1 - window))
+
+
+def _blocks(nq, nkv, bq, bkv, kv_len, causal, window, device):
+    """{(i, j): mask} over the live pairs (`_live_pairs`); mask None
+    where every position is allowed."""
+    return {(i, j): None if whole else _block_mask(
+        torch.arange(i * bq, (i + 1) * bq, device=device),
+        torch.arange(j * bkv, (j + 1) * bkv, device=device),
+        kv_len, causal, window)
+        for i, j, whole in _live_pairs(nq, nkv, bq, bkv, kv_len, causal,
+                                       window)}
 
 
 def _masked(s, mask):
@@ -174,6 +182,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bq = block_q if Sq % block_q == 0 else Sq
     bkv = block_kv if Sk % block_kv == 0 else Sk
     kv_len = Sk if kv_len is None else int(kv_len)
+    if q.is_meta:
+        B, _, H, d = q.shape
+        pairs = sum(1 for _ in _live_pairs(Sq // bq, Sk // bkv, bq, bkv,
+                                           kv_len, causal, window))
+        o = torch.empty_like(q)
+        cost.fused(4 * B * H * bq * bkv * d * pairs, (q, k, v), (o,))
+        return o
     return _Flash.apply(q, k, v, bool(causal), int(window), kv_len, bq, bkv)
 
 
@@ -187,10 +202,58 @@ def repeat_kv(x, n_rep: int):
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, pos: int, *,
-                     window: int = 0):
+                     window: int = 0, stats: bool = False):
     """Single-token GQA decode attention, no head repetition. q
     (B, 1, H, d); caches (B, C, K, d); cache_positions (C,) int32; pos
-    the current position. Returns (B, 1, H, d) in q's dtype."""
-    o = k3.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                            cache_positions, int(pos), int(window))
-    return o[:, None]
+    the current position. Returns (B, 1, H, d) in q's dtype, and with
+    `stats` also each head's float32 (max, exp-sum) as (B, H, 2) (K3's
+    `stats`)."""
+    if q.is_meta:
+        B, _, H, d = q.shape
+        o = torch.empty_like(q)
+        ml = q.new_empty((B, H, 2), dtype=torch.float32)
+        cost.fused(4 * B * H * k_cache.shape[1] * d,
+                   (q, k_cache, v_cache, cache_positions),
+                   (o, ml) if stats else (o,))
+        return (o, ml) if stats else o
+    out = k3.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                              cache_positions, int(pos), int(window),
+                              bool(stats))
+    if stats:
+        return out[0][:, None], out[1]
+    return out[:, None]
+
+
+def split_decode_attention(q, k_cache, v_cache, positions, pos: int,
+                           heads, window: int = 0, split: bool = True):
+    """Single-token GQA decode attention for the query heads [h0, h1) =
+    `heads` of q (B, 1, H, d) when the plan cuts the KV heads over
+    "model". With `split` the caches (B, C_local, K, d) and `positions`
+    (C_local,) are this rank's share of the slots: K3 attends every head
+    over them and returns its (max, exp-sum) too; the ranks' outputs
+    and stats are all-gathered over "model" and merged in rank order
+    (o = sum_r o_r l_r e^(m_r - M) / sum_r l_r e^(m_r - M)). Without
+    `split` every rank holds the whole cache and K3 attends the KV heads
+    that [h0, h1) read, with their whole query groups, no collective.
+    Returns (B, 1, h1 - h0, d) in q's dtype."""
+    B, _, H, d = q.shape
+    K = k_cache.shape[2]
+    g = H // K
+    h0, h1 = heads
+    if not split:
+        k0, k1 = h0 // g, -(-h1 // g)
+        if (k0, k1) != (0, K):
+            k_cache = k_cache[:, :, k0:k1].contiguous()
+            v_cache = v_cache[:, :, k0:k1].contiguous()
+        o = decode_attention(q[:, :, k0 * g:k1 * g], k_cache, v_cache,
+                             positions, pos, window=window)
+        return o[:, :, h0 - k0 * g:h1 - k0 * g]
+    o, ml = decode_attention(q, k_cache, v_cache, positions, pos,
+                             window=window, stats=True)
+    part = all_gather(torch.cat([o[:, 0].float(), ml], -1)[None], "model",
+                      0)[:, :, h0:h1]
+    m, l = part[..., d], part[..., d + 1]
+    w = l * torch.exp(m - m.amax(0))
+    o = (part[..., :d] * w[..., None]).sum(0) \
+        / w.sum(0).clamp_min(1e-30)[..., None]
+    return o[:, None].to(q.dtype)

@@ -29,6 +29,15 @@ prefill and train scan is the reference's log-depth `associative_scan`
 spelled in torch ops (`_lru_scan`), so products and sums associate as
 the reference's do.
 
+Under a mesh pinned with `distributed.shardctx.sharding_rules` the
+blocks run the Megatron plan of `launch.sharding` on the pieces a rank
+holds (`sharding.shard_params`): the attention's and the SSD's
+projections split by columns and `wo` / `out_proj` by rows, each mixer
+on its local heads, its output summed over "model"; the shares are read
+from the weights' shapes, so without a mesh (every share whole) the
+code computes exactly what it did before. The dense MLP is
+`layers.mlp`'s.
+
 `block_forward` returns (x, new_cache, aux): aux is the MoE layer's
 load-balance loss, a float32 scalar, and 0.0 for a dense MLP or none.
 The MoE MLP drops pairs past the capacity in train and prefill and none
@@ -39,8 +48,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.shardctx import all_gather, all_reduce, axis_size, \
+    kv_cache_dim, local_range, share
 from ..kernels import ssd_scan as k4
-from .attention import decode_attention, flash_attention, repeat_kv
+from . import cost
+from .attention import decode_attention, flash_attention, repeat_kv, \
+    split_decode_attention
 from .config import BlockCfg, ModelConfig
 from .layers import apply_act, apply_norm, apply_rope, dense_init, mlp, \
     mlp_params, norm_params, remat
@@ -91,21 +104,91 @@ def _qk_norm(x, scale, eps):
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
 
 
+def _prefill_cache(k, v, C: int):
+    """The ring cache of a prompt's k, v (B, S, K, hd) in C slots."""
+    S, dev = k.shape[1], k.device
+    if S <= C:
+        padw = (0, 0, 0, 0, 0, C - S)
+        return {"k": F.pad(k, padw), "v": F.pad(v, padw),
+                "positions": torch.cat([
+                    torch.arange(S, dtype=torch.int32, device=dev),
+                    torch.full((C - S,), -1, dtype=torch.int32,
+                               device=dev)])}
+    # windowed: slot j holds the latest position p with p % C == j
+    j = torch.arange(C, device=dev)
+    p_j = (S - 1) - ((S - 1 - j) % C)
+    return {"k": k[:, p_j].contiguous(), "v": v[:, p_j].contiguous(),
+            "positions": p_j.to(torch.int32)}
+
+
+def whole_columns(parts, axis: str = "model"):
+    """Whole tensors from this rank's column shares. `parts` holds (local
+    tensor, full width) pairs; the shares that are split go through one
+    all-gather over `axis` (of their concatenation), the others are
+    whole already."""
+    out = [t for t, _ in parts]
+    cut = [i for i, (t, full) in enumerate(parts) if t.shape[-1] != full]
+    if not cut:
+        return out
+    got = all_gather(torch.cat([out[i] for i in cut], -1)[None], axis, 0)
+    for i, piece in zip(cut, got.split([out[i].shape[-1] for i in cut], -1)):
+        out[i] = piece.movedim(0, -2).flatten(-2)     # rank order
+    return out
+
+
 def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                  pos: int, pad_to: int = 0):
+    """Under a pinned mesh `p` holds this rank's shares: `wq` / `wk` /
+    `wv` columns and `wo` rows (`launch.sharding`). Where they are whole
+    heads, this rank attends its heads (K3 at decode, its KV heads'
+    cache); otherwise (the plan cuts a head, e.g. 8 KV heads over 16
+    ranks) the projections are gathered to whole heads over "model"
+    (`whole_columns`, one all-gather) and `_attn_cut` runs. The output
+    is summed over "model" where `wo` is split (one all-reduce)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).view(B, S, H, hd)
-    k = (x @ p["wk"]).view(B, S, K, hd)
-    v = (x @ p["wv"]).view(B, S, K, hd)
+    wq, wo = p["wq"], p["wo"]
+    q, k, v = x @ wq, x @ p["wk"], x @ p["wv"]
+    Hc, Kc = q.shape[-1], k.shape[-1]
+    if Hc % hd == 0 and Kc % hd == 0 and Hc * K == Kc * H:
+        o, new_cache = _attn_heads(q.view(B, S, Hc // hd, hd),
+                                   k.view(B, S, Kc // hd, hd),
+                                   v.view(B, S, Kc // hd, hd), p, cfg, blk,
+                                   mode, cache, pos, pad_to)
+        out = o.reshape(B, S, Hc) @ wo
+    else:
+        q, k, v = whole_columns([(q, H * hd), (k, K * hd), (v, K * hd)])
+        lo, hi = local_range(H * hd, wo.shape[0])
+        o, new_cache = _attn_cut(
+            q.view(B, S, H, hd), k.view(B, S, K, hd), v.view(B, S, K, hd),
+            lo // hd, -(-hi // hd), p, cfg, blk, mode, cache, pos, pad_to)
+        h0 = lo // hd * hd
+        out = o.reshape(B, S, -1)[..., lo - h0:hi - h0] @ wo
+    if wo.shape[0] != H * hd:
+        all_reduce(out, "model")
+    return out, new_cache
+
+
+def _rope(q, k, blk: BlockCfg, mode: str, pos: int, S: int):
+    at = (torch.full((1, 1), pos, device=q.device) if mode == "decode"
+          else torch.arange(S, device=q.device)[None, :])
+    return apply_rope(q, at, blk.rope_theta), apply_rope(k, at, blk.rope_theta)
+
+
+def _qk(q, k, p, cfg: ModelConfig):
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
         k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k
 
+
+def _attn_heads(q, k, v, p, cfg: ModelConfig, blk: BlockCfg, mode: str,
+                cache, pos: int, pad_to: int):
+    """Whole heads: q (B, S, Hl, hd) against this rank's KV heads k, v
+    (B, S, Kl, hd). Returns (o (B, S, Hl, hd), new cache)."""
+    S = q.shape[1]
+    q, k = _rope(*_qk(q, k, p, cfg), blk, mode, pos, S)
     if mode == "decode":
-        at = torch.full((1, 1), pos, device=x.device)
-        q = apply_rope(q, at, blk.rope_theta)
-        k = apply_rope(k, at, blk.rope_theta)
         C = cache["k"].shape[1]
         slot = pos % C
         cache["k"][:, slot] = k[:, 0]
@@ -113,35 +196,61 @@ def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
         cache["positions"][slot] = pos
         o = decode_attention(q, cache["k"], cache["v"], cache["positions"],
                              pos, window=blk.window)
-        new_cache = cache
-    else:
-        positions = torch.arange(S, device=x.device)[None, :]
-        q = apply_rope(q, positions, blk.rope_theta)
-        k = apply_rope(k, positions, blk.rope_theta)
-        o = flash_attention(q, repeat_kv(k, H // K), repeat_kv(v, H // K),
-                            causal=True, window=blk.window,
-                            block_q=min(cfg.attn_chunk, S),
-                            block_kv=min(cfg.attn_chunk, S))
-        C = blk.cache_len(max(pad_to, S))
-        if mode == "train":
-            new_cache = None
-        elif S <= C:
-            padw = (0, 0, 0, 0, 0, C - S)
-            new_cache = {
-                "k": F.pad(k, padw), "v": F.pad(v, padw),
-                "positions": torch.cat([
-                    torch.arange(S, dtype=torch.int32, device=x.device),
-                    torch.full((C - S,), -1, dtype=torch.int32,
-                               device=x.device)])}
-        else:
-            # windowed: slot j holds the latest position p with p % C == j
-            j = torch.arange(C, device=x.device)
-            p_j = (S - 1) - ((S - 1 - j) % C)
-            new_cache = {"k": k[:, p_j].contiguous(),
-                         "v": v[:, p_j].contiguous(),
-                         "positions": p_j.to(torch.int32)}
-    out = o.reshape(B, S, H * hd) @ p["wo"]
-    return out, new_cache
+        return o, cache
+    g = q.shape[2] // k.shape[2]
+    o = flash_attention(q, repeat_kv(k, g), repeat_kv(v, g), causal=True,
+                        window=blk.window, block_q=min(cfg.attn_chunk, S),
+                        block_kv=min(cfg.attn_chunk, S))
+    if mode == "train":
+        return o, None
+    return o, _prefill_cache(k, v, blk.cache_len(max(pad_to, S)))
+
+
+def _attn_cut(q, k, v, h0: int, h1: int, p, cfg: ModelConfig,
+              blk: BlockCfg, mode: str, cache, pos: int, pad_to: int):
+    """Heads cut by the plan: q (B, S, H, hd), k, v (B, S, K, hd) whole
+    on every rank; the rank attends heads [h0, h1), those its `wo` rows
+    read. Its cache holds what `cache_pspecs` places on it: a share of
+    the slots (the KV heads do not divide; `shardctx.kv_cache_dim`), or
+    all of them. At decode K3 attends every head over the rank's slots
+    and the ranks' outputs merge over "model" by their (max, exp-sum)
+    (`attention.split_decode_attention`, one all-gather), or, over a
+    whole cache, K3 attends the rank's heads. Returns (o
+    (B, S, h1 - h0, hd), new cache)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    q, k = _rope(*_qk(q, k, p, cfg), blk, mode, pos, S)
+    kv_dim = kv_cache_dim(blk.cache_len(max(pad_to, S)) if mode != "decode"
+                          else cache["positions"].shape[0], K, hd,
+                          axis_size("model"))
+    if kv_dim == -1:
+        raise NotImplementedError("a KV cache split over head_dim")
+    if mode == "decode":
+        C = cache["positions"].shape[0]
+        lo, hi = local_range(C, cache["k"].shape[1])
+        slot = pos % C
+        if lo <= slot < hi:
+            cache["k"][:, slot - lo] = k[:, 0]
+            cache["v"][:, slot - lo] = v[:, 0]
+        cache["positions"][slot] = pos
+        o = split_decode_attention(q, cache["k"], cache["v"],
+                                   cache["positions"][lo:hi], pos, (h0, h1),
+                                   blk.window, split=hi - lo < C)
+        return o, cache
+    heads = torch.arange(h0, h1, device=q.device) // (H // K)
+    o = flash_attention(q[:, :, h0:h1], k.index_select(2, heads),
+                        v.index_select(2, heads), causal=True,
+                        window=blk.window, block_q=min(cfg.attn_chunk, S),
+                        block_kv=min(cfg.attn_chunk, S))
+    if mode == "train":
+        return o, None
+    new_cache = _prefill_cache(k, v, blk.cache_len(max(pad_to, S)))
+    if kv_dim == -3:
+        C = new_cache["positions"].shape[0]
+        lo, hi = share(C)
+        new_cache["k"] = new_cache["k"][:, lo:hi].contiguous()
+        new_cache["v"] = new_cache["v"][:, lo:hi].contiguous()
+    return o, new_cache
 
 
 def attn_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
@@ -296,8 +405,25 @@ def ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
     Returns (y (B, S, nh, P) in xh's dtype, final state (B, nh, P, N))."""
     S = xh.shape[1]
     xh, Bm, Cm, dt = _pad_to_chunk(xh, Bm, Cm, dt, chunk)
+    if xh.is_meta:
+        return _ssd_meta(xh, Bm, Cm, dt, A, chunk, S)
     y, state = k4.ssd_scan(xh.contiguous(), Bm.contiguous(),
                            Cm.contiguous(), dt.contiguous(), A, chunk=chunk)
+    return y[:, :S], state
+
+
+def _ssd_meta(xh, Bm, Cm, dt, A, chunk: int, S: int):
+    """K4's results on meta tensors, its products counted from the shapes
+    (`cost.fused`): per row, chunk and head C B^T (Q x Q x N), the masked
+    product with x (Q x Q x P), the state read (Q x P x N) and written
+    (P x N x Q); its inputs read and outputs written once."""
+    Bsz, Sp, nh, P = xh.shape
+    N, Q = Bm.shape[3], chunk
+    y = torch.empty_like(xh)
+    state = torch.empty((Bsz, nh, P, N), dtype=torch.float32,
+                        device=xh.device)
+    cost.fused(2 * Bsz * (Sp // Q) * nh * (Q * Q * (N + P) + 2 * Q * P * N),
+               (xh, Bm, Cm, dt, A), (y, state))
     return y[:, :S], state
 
 
@@ -365,58 +491,98 @@ def ssd_chunked_train(xh, Bm, Cm, dt, A, chunk: int):
     return y.reshape(Bsz, nc * chunk, nh, P)[:, :S], state
 
 
+def _share_of(t, lo: int, hi: int, full: int, dim: int = 0):
+    """A per-head (or per-channel) parameter as this rank reads it: its
+    [lo, hi) where the plan keeps the parameter whole, as it is where the
+    plan gives the rank that share."""
+    return t.narrow(dim, lo, hi - lo) if t.shape[dim] == full else t
+
+
+def _norm_sum(t):
+    """The gated norm's sum of squares over "model" (its width split)."""
+    return all_reduce(t, "model")
+
+
 def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                 pos: int, pad_to: int = 0):
+    """Under a pinned mesh `p` holds this rank's shares (`in_z` / `in_x`
+    / `in_dt` / `conv_x` columns, `out_norm`, `out_proj` rows): the rank
+    scans its heads [lo, hi) with K4 and reads its share of the per-head
+    parameters the plan keeps whole. The gated RMSNorm takes its mean
+    over the whole d_inner, so its sum of squares is summed over "model"
+    before the rsqrt (one all-reduce), and so is the output (one more).
+    `in_B` / `in_C` are whole; where the plan splits their conv caches
+    over "model", a decode step convolves the rank's channels and
+    gathers the others (one all-gather for both)."""
     B, S, _ = x.shape
     di, N, G, nh, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                        cfg.ssm_heads, cfg.ssm_head_dim)
-    w = cfg.conv_width
+    w, GN = cfg.conv_width, G * N
     z = x @ p["in_z"]
     xr = x @ p["in_x"]
     Br = x @ p["in_B"]
     Cr = x @ p["in_C"]
     dt_raw = x @ p["in_dt"]
-    A = -torch.exp(p["A_log"])                               # (nh,)
+    lo, hi = local_range(nh, dt_raw.shape[-1])
+    nhl, rep = hi - lo, nh // G
+    g0, g1 = lo // rep, -(-hi // rep)
+    if xr.shape[-1] != nhl * P or (G > 1 and (lo % rep or hi % rep)):
+        raise NotImplementedError("a plan that cuts an SSD head or group")
+    A = -torch.exp(_share_of(p["A_log"], lo, hi, nh))     # (nhl,)
+    dt_bias = _share_of(p["dt_bias"], lo, hi, nh)
+    D_skip = _share_of(p["D_skip"], lo, hi, nh)
+    conv_x = {"w": _share_of(p["conv_x"]["w"], lo * P, hi * P, di, 1)}
+    clo, chi = share(GN)              # the conv_B / conv_C caches' share
 
     if mode == "decode":
-        xt, cs_x = conv_step(xr[:, 0], cache["conv_x"], p["conv_x"], w)
-        Bt, cs_B = conv_step(Br[:, 0], cache["conv_B"], p["conv_B"], w)
-        Ct, cs_C = conv_step(Cr[:, 0], cache["conv_C"], p["conv_C"], w)
-        xh = apply_act(xt, "silu").view(B, nh, P)
-        Bm = apply_act(Bt, "silu").view(B, G, N).float().repeat_interleave(
-            nh // G, dim=1)
-        Cm = apply_act(Ct, "silu").view(B, G, N).float().repeat_interleave(
-            nh // G, dim=1)
-        dt = _softplus(dt_raw[:, 0].float() + p["dt_bias"])
-        dA = torch.exp(dt * A)                               # (B, nh)
+        xt, cs_x = conv_step(xr[:, 0], cache["conv_x"], conv_x, w)
+        Bt, cs_B = conv_step(Br[:, 0, clo:chi], cache["conv_B"],
+                             {"w": p["conv_B"]["w"][:, clo:chi]}, w)
+        Ct, cs_C = conv_step(Cr[:, 0, clo:chi], cache["conv_C"],
+                             {"w": p["conv_C"]["w"][:, clo:chi]}, w)
+        Bt, Ct = whole_columns([(Bt, GN), (Ct, GN)])
+        xh = apply_act(xt, "silu").view(B, nhl, P)
+        Bm = apply_act(Bt, "silu").view(B, G, N)[:, g0:g1].float() \
+            .repeat_interleave(nhl // (g1 - g0), dim=1)
+        Cm = apply_act(Ct, "silu").view(B, G, N)[:, g0:g1].float() \
+            .repeat_interleave(nhl // (g1 - g0), dim=1)
+        dt = _softplus(dt_raw[:, 0].float() + dt_bias)
+        dA = torch.exp(dt * A)                               # (B, nhl)
         state = cache["state"] * dA[..., None, None] + torch.einsum(
             "bhp,bhn,bh->bhpn", xh.float(), Bm, dt)
         y = torch.einsum("bhpn,bhn->bhp", state, Cm)
-        y = y + p["D_skip"][None, :, None] * xh.float()
-        y = y.reshape(B, 1, di).to(x.dtype)
+        y = y + D_skip[None, :, None] * xh.float()
+        y = y.reshape(B, 1, nhl * P).to(x.dtype)
         new_cache = {"state": state, "conv_x": cs_x, "conv_B": cs_B,
                      "conv_C": cs_C}
     else:
-        xh = apply_act(causal_conv(xr, p["conv_x"], w), "silu")
+        xh = apply_act(causal_conv(xr, conv_x, w), "silu")
         Bm = apply_act(causal_conv(Br, p["conv_B"], w), "silu")
         Cm = apply_act(causal_conv(Cr, p["conv_C"], w), "silu")
-        xh = xh.reshape(B, S, nh, P)
-        Bm = Bm.reshape(B, S, G, N).float()
-        Cm = Cm.reshape(B, S, G, N).float()
-        dt = _softplus(dt_raw.float() + p["dt_bias"])
+        xh = xh.reshape(B, S, nhl, P)
+        Bm = Bm.reshape(B, S, G, N)[:, :, g0:g1].float()
+        Cm = Cm.reshape(B, S, G, N)[:, :, g0:g1].float()
+        dt = _softplus(dt_raw.float() + dt_bias)
         scan = ssd_chunked_train if mode == "train" else ssd_chunked
         y, final_state = scan(xh, Bm, Cm, dt, A, min(cfg.ssm_chunk, S))
-        y = y + p["D_skip"][None, None, :, None] * xh.float()
-        y = y.reshape(B, S, di).to(x.dtype)
+        y = y + D_skip[None, None, :, None] * xh.float()
+        y = y.reshape(B, S, nhl * P).to(x.dtype)
         new_cache = None if mode == "train" else {"state": final_state,
                      "conv_x": xr[:, -(w - 1):].contiguous(),
-                     "conv_B": Br[:, -(w - 1):].contiguous(),
-                     "conv_C": Cr[:, -(w - 1):].contiguous()}
+                     "conv_B": Br[:, -(w - 1):, clo:chi].contiguous(),
+                     "conv_C": Cr[:, -(w - 1):, clo:chi].contiguous()}
     # gated RMSNorm, then the out projection (mamba2)
     yf = y.float() * F.silu(z.float())
-    var = yf.square().mean(-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + cfg.norm_eps) * (1.0 + p["out_norm"].float())
-    return yf.to(x.dtype) @ p["out_proj"], new_cache
+    if nhl == nh:
+        var = yf.square().mean(-1, keepdim=True)
+    else:
+        var = _norm_sum(yf.square().sum(-1, keepdim=True)) / di
+    yf = yf * torch.rsqrt(var + cfg.norm_eps) * (
+        1.0 + _share_of(p["out_norm"], lo * P, hi * P, di).float())
+    out = yf.to(x.dtype) @ p["out_proj"]
+    if nhl != nh:
+        all_reduce(out, "model")
+    return out, new_cache
 
 
 def ssd_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
@@ -474,7 +640,7 @@ def block_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                 capacity_factor=cfg.capacity_factor, act=cfg.act,
                 glu=cfg.glu, no_drop=(mode == "decode"))
         else:
-            out = mlp(h2, p["mlp"], cfg.act, cfg.glu)
+            out = mlp(h2, p["mlp"], cfg.act, cfg.glu, d_ff=cfg.d_ff)
         x = x + out
     return x, new_cache, aux
 

@@ -14,7 +14,9 @@ gradient over the tokens in float32 and rounds once, as the one-hot
 matmul's float32 accumulation does, instead of the bfloat16
 accumulation of indexing's own backward. `remat` is the reference's
 `jax.checkpoint`: `torch.utils.checkpoint` (non-reentrant), which keeps
-a function's inputs and runs it again in the backward.
+a function's inputs and runs it again in the backward. Under a
+tensor-parallel plan `mlp` and `embed_lookup` take this rank's shares
+and sum over "model" (their docstrings).
 """
 from __future__ import annotations
 
@@ -22,11 +24,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.shardctx import all_reduce, local_range
+
 
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
                dtype=torch.bfloat16):
     """Normal(0, scale^2) in float32 from `gen`, cast to `dtype`, on
     the generator's device; scale defaults to fan_in^-0.5."""
+    if gen.device.type == "meta":                 # shapes only, no draw
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = (1.0 / fan_in) ** 0.5 if scale is None else scale
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
@@ -111,10 +117,18 @@ def apply_act(x, act: str):
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp(x, p, act: str = "silu", glu: bool = True):
+def mlp(x, p, act: str = "silu", glu: bool = True, d_ff: int = 0):
+    """The (gated) MLP. Given the full width `d_ff`, `p` may hold this
+    rank's share of it (column-parallel `up` / `gate`, row-parallel
+    `down`, `launch.sharding`): the output is then summed over "model"
+    (one all-reduce)."""
+    down = p["down"]
     up = x @ p["up"]
     h = apply_act(x @ p["gate"], act) * up if glu else apply_act(up, act)
-    return h @ p["down"]
+    out = h @ down
+    if d_ff and down.shape[0] != d_ff:
+        all_reduce(out, "model")
+    return out
 
 
 # -- embedding and the chunked cross-entropy loss -----------------------------
@@ -136,10 +150,20 @@ class _Embed(torch.autograd.Function):
         return acc.to(dtype), None
 
 
-def embed_lookup(tokens, table):
+def embed_lookup(tokens, table, rows: int = 0):
     """table[tokens]: (B, S) integer -> (B, S, D); the table's gradient
-    sums in float32 and rounds once to the table's dtype."""
-    return _Embed.apply(table, tokens)
+    sums in float32 and rounds once to the table's dtype. Given the full
+    row count `rows`, `table` may be this rank's vocabulary share (the
+    plan's split over "model"): each rank looks up the tokens it holds,
+    zeros for the others, and the rows are summed over "model" (one
+    all-reduce; reference lines 113-116), exactly the row, as every other
+    rank adds zeros."""
+    if not rows or table.shape[0] == rows:
+        return _Embed.apply(table, tokens)
+    lo, hi = local_range(rows, table.shape[0])
+    mine = (tokens >= lo) & (tokens < hi)
+    x = table[(tokens - lo).clamp(0, hi - lo - 1)] * mine[..., None]
+    return all_reduce(x, "model")
 
 
 def remat(on: bool, fn, *args):

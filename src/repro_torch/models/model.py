@@ -19,23 +19,34 @@ reference (line 111), the residual stream passes `constrain(h,
 "residual")` at the start of each train or prefill cycle: a no-op
 without a mesh and a rule pinned (`distributed.shardctx`), so a
 single-device run computes exactly what it did without it.
+
+Under a tensor-parallel plan the embedding table and the unembedding
+are this rank's vocabulary share: `embed_lookup` sums the rows over
+"model", `masked_logits` returns the share's columns (the padded ones
+masked on the rank that holds them) and `greedy_tokens` picks the token
+across the shares without gathering the logits. The vision
+`frontend_proj` split by columns is gathered over "model".
 """
 from __future__ import annotations
 
 import torch
 
-from ..distributed.shardctx import constrain
-from .blocks import block_cache_spec, block_forward, block_params
+from ..distributed.shardctx import all_gather, constrain, local_range
+from .blocks import block_cache_spec, block_forward, block_params, \
+    whole_columns
 from .config import ModelConfig
 from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
     norm_params, remat
 
 
-def _embed(tokens, table, scale: float):
-    """Table rows of the tokens times `scale` rounded to the table's
-    dtype (the reference's one-hot matmul returns the same rows)."""
-    x = embed_lookup(tokens, table)
-    s = float(torch.tensor(scale, dtype=table.dtype))
+def _embed(tokens, table, cfg: ModelConfig):
+    """Table rows of the tokens times the embedding scale rounded to the
+    table's dtype (the reference's one-hot matmul returns the same rows);
+    the table may be this rank's vocabulary share (`embed_lookup`)."""
+    if table.shape[1] != cfg.d_model:
+        raise NotImplementedError("an embedding split over d_model")
+    x = embed_lookup(tokens, table, rows=cfg.padded_vocab)
+    s = float(torch.tensor(cfg.embed_scale, dtype=table.dtype))
     return x * s
 
 
@@ -45,11 +56,30 @@ def _unembed_table(params, cfg: ModelConfig):
 
 def masked_logits(h_last, table, cfg: ModelConfig):
     """(B, D) against a (V, D) table -> (B, V) float32 with padded-vocab
-    columns at -1e30."""
+    columns at -1e30. The table may be this rank's vocabulary share: the
+    logits are then its columns (B, V / model), the padded ones masked on
+    the rank that holds them."""
     logits = h_last.float() @ table.float().T
-    if cfg.padded_vocab > cfg.vocab:
-        logits[:, cfg.vocab:] = -1e30
+    lo, hi = local_range(cfg.padded_vocab, table.shape[0])
+    if hi > cfg.vocab:
+        logits[:, max(cfg.vocab - lo, 0):] = -1e30
     return logits
+
+
+def greedy_tokens(logits, cfg: ModelConfig):
+    """Temperature-0 tokens (B,) int32 of whole logits, or of this rank's
+    vocabulary share of them: each rank's (max, lowest index at the max)
+    is all-gathered over "model" (one all-gather of 2 x B values, never
+    the (B, V) logits) and the first rank holding the overall max wins,
+    so ties go to the lowest index, as `argmax` breaks them."""
+    if logits.shape[-1] == cfg.padded_vocab:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    lo, _ = local_range(cfg.padded_vocab, logits.shape[-1])
+    val, idx = logits.max(-1)
+    pair = torch.stack([val.double(), (idx + lo).double()], -1)
+    pairs = all_gather(pair[None], "model", 0)            # (model, B, 2)
+    best = pairs[..., 0].argmax(0)
+    return pairs[..., 1].gather(0, best[None])[0].to(torch.int32)
 
 
 def _logits(h_last, params, cfg: ModelConfig):
@@ -106,10 +136,11 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
     outside decode. Returns (hidden (B, F + S, D), new cache (None in
     train), the MoE aux loss summed over layers (train; else 0.0))."""
     pos = cache["pos"] if mode == "decode" else 0
-    x = _embed(tokens, params["embed"], cfg.embed_scale)
+    x = _embed(tokens, params["embed"], cfg)
     if cfg.frontend != "none" and mode != "decode" \
             and frontend_embeds is not None:
         fe = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
+        fe, = whole_columns([(fe, cfg.d_model)])
         x = torch.cat([fe, x], dim=1)
     aux, new_cache = 0.0, None
     if mode == "train":

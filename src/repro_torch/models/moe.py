@@ -26,7 +26,13 @@ own slots and zeros at dropped ones, so it is deterministic.
 
 `moe_layer.tap`, None by default, is called with each call's capacity
 and kept mask (a bool tensor over the flattened (token, choice) pairs)
-when set, for a caller that counts drops.
+when set, for a caller that counts drops. `moe_layer.route`, None by
+default, is called with each call's chosen experts (T, k) and the
+router's probabilities (T, E) and returns the experts to use, whose
+probabilities then weigh them: a checker records one run's routing and
+replays it in another whose sums are rounded otherwise (a split over
+ranks), so a near-tie broken the other way does not hide what it
+compares. Returning its argument changes nothing.
 
 `moe_layer_sharded` (reference lines 86-135), which every MoE block
 calls, is `moe_layer` under the mesh pinned with
@@ -38,12 +44,12 @@ slice of `up`, `gate` and `down`, the capacity taken from its own token
 count, then SUMs `out` over "model" (the down-projection's contraction
 over d_ff, in `out`'s dtype, as `psum` sums) and averages `aux` over
 the batch axes, each an all-reduce on the mesh's sub-group
-(`moe_layer_sharded.all_reduces` counts them). x is either
+(`shardctx.all_reduce`, counted in `shardctx.COLLECTIVES`). x is either
 
-  * a plain tensor: this rank's rows, the model running data-parallel
-    over the batch axes (the reference's residual rule); the expert
-    weights are then this rank's d_ff slices (`expert_shard` cuts them
-    from the full ones), or DTensors; or
+  * a plain tensor: this rank's rows (the batch split over the batch
+    axes, as the plans place it); the expert weights are then this
+    rank's d_ff slices (`launch.sharding.shard_params` cuts them under
+    the plan), or DTensors; or
   * a `DTensor`: the whole batch laid out over the mesh, with plain
     weights the full experts on every rank. A batch the batch axes do
     not divide runs `moe_layer` whole, as the reference falls back; the
@@ -52,12 +58,10 @@ the batch axes, each an all-reduce on the mesh's sub-group
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
-from torch import nn
 
-from ..distributed.shardctx import axis_sizes, batch_axes, current, \
-    placements
+from ..distributed.shardctx import all_reduce, axis_size, axis_sizes, \
+    batch_axes, current, local_range, placements
 from .layers import apply_act, dense_init
 
 
@@ -86,6 +90,9 @@ def moe_layer(x, p, *, top_k: int, capacity_factor: float,
     probs = torch.softmax(x2.float() @ p["router"], dim=-1)      # (T, E)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[:, :k], idx[:, :k]
+    if moe_layer.route is not None:
+        idx = moe_layer.route(idx, probs)
+        w = probs.gather(1, idx)
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e
@@ -123,47 +130,17 @@ def moe_layer(x, p, *, top_k: int, capacity_factor: float,
 
 
 moe_layer.tap = None
+moe_layer.route = None
 
 
 # the d_ff dimension of each expert weight, split over "model"
 _FF_DIM = {"up": 2, "gate": 2, "down": 1}
 
 
-def _cut(k, w, mesh):
-    """This rank's "model" slice over d_ff of the expert weight `k` (a
-    new tensor); the router, or any weight on a mesh without "model"
-    ranks, as it is."""
-    d, m = _FF_DIM.get(k), axis_sizes(mesh).get("model", 1)
-    if d is None or m == 1:
-        return w
-    f = w.shape[d]
-    if f % m:
-        raise ValueError(f"d_ff {f} does not split over {m} 'model' ranks")
-    r = mesh.get_local_rank("model")
-    return w.narrow(d, r * (f // m), f // m).contiguous()
-
-
-def expert_shard(p, mesh):
-    """This rank's "model" slice of full expert weights over d_ff (new
-    tensors, so the full ones can go); the router stays whole."""
-    return {k: _cut(k, w, mesh) for k, w in p.items()}
-
-
-def shard_experts_(model, mesh):
-    """Keep only this rank's `expert_shard` of every MoE layer of `model`
-    (the layout `moe_layer_sharded` reads with plain rows), in place."""
-    for mod in model.modules():
-        p = dict(mod.named_parameters(recurse=False))
-        if "router" in p:
-            for k, w in expert_shard(p, mesh).items():
-                if w is not p[k]:
-                    setattr(mod, k, nn.Parameter(w, requires_grad=False))
-    return model
-
-
 def _to_local(p, mesh, full: bool):
     """This rank's expert weights: DTensors redistributed to the d_ff
-    split and read locally; plain ones cut (`full`) or as they are."""
+    split and read locally; plain ones cut to this rank's d_ff share
+    (`full`) or as they are."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     out = {}
     for k, w in p.items():
@@ -172,15 +149,12 @@ def _to_local(p, mesh, full: bool):
             if k in _FF_DIM and "model" in mesh.mesh_dim_names:
                 pl[mesh.mesh_dim_names.index("model")] = Shard(_FF_DIM[k])
             w = w.redistribute(mesh, pl).to_local()
-        elif full:
-            w = _cut(k, w, mesh)
+        elif full and k in _FF_DIM:
+            f = w.shape[_FF_DIM[k]]
+            lo, hi = local_range(f, f // axis_size("model", mesh))
+            w = w.narrow(_FF_DIM[k], lo, hi - lo)
         out[k] = w
     return out
-
-
-def _all_reduce(t, group):
-    dist.all_reduce(t, group=group)
-    moe_layer_sharded.all_reduces += 1
 
 
 def moe_layer_sharded(x, p, *, top_k: int, capacity_factor: float,
@@ -212,15 +186,12 @@ def moe_layer_sharded(x, p, *, top_k: int, capacity_factor: float,
     xl = x.redistribute(mesh, rows_pl).to_local() if whole else x
     out, aux = moe_layer(xl, _to_local(p, mesh, full=whole), **kw)
     if sizes.get("model", 1) > 1:
-        _all_reduce(out, mesh.get_group("model"))
+        all_reduce(out, "model")
     aux = aux.reshape(1)
     for a in ba:
         if sizes[a] > 1:
-            _all_reduce(aux, mesh.get_group(a))
+            all_reduce(aux, a)
     aux = aux[0] / nb
     if whole:
         out = DTensor.from_local(out, mesh, rows_pl)
     return out, aux
-
-
-moe_layer_sharded.all_reduces = 0

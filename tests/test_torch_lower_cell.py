@@ -38,9 +38,11 @@ def all_metas(tmp_path_factory):
 
 def _port_meta(cell):
     arch, shape, multi_pod = cell
-    plan, meta = lower_cell(get_config(arch), SHAPES[shape],
-                            MESHES[multi_pod])
+    plan, meta, step = lower_cell(get_config(arch), SHAPES[shape],
+                                  MESHES[multi_pod])
     assert set(plan) >= {"params", "batch", "rules"}
+    assert (step is None) == (SHAPES[shape].kind == "train" or arch in (
+        "recurrentgemma-2b", "whisper-tiny"))
     assert ("opt" in plan) == (SHAPES[shape].kind == "train")
     assert ("cache" in plan) == (SHAPES[shape].kind == "decode")
     return meta

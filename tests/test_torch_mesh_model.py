@@ -1,12 +1,15 @@
 """The granite-moe smoke model under a (data 2, model 2) mesh, on the
 CPU: 4 spawned gloo ranks (`torch_mesh_ranks.model_ranks`), each serving
-its data shard's rows with its d_ff slice of every expert and the
-residual rule pinned, against the reference on 4 forced host devices
-under `sharding_rules(mesh, residual=residual_spec(mesh))`
+its data shard's rows through `lower_cell`'s prefill and decode steps on
+its pieces of the plan (`sharding.shard_params`: the attention's heads
+and the vocabulary split over "model", the experts' d_ff too), against
+the reference on 4 forced host devices under
+`sharding_rules(mesh, residual=residual_spec(mesh))`
 (`torch_mesh_reference`), on the reference's weights through the
 bridge, in float32: prefill and 4 greedy decode steps, tokens identical
-and logits within 1e-4; 2 all-reduces per MoE layer per forward; the
-two "model" ranks of a shard agree bitwise.
+and logits (a shard's two vocabulary shares put together) within 1e-4;
+2 all-reduces per MoE layer per forward; the two "model" ranks of a
+shard pick the same tokens.
 """
 import pickle
 
@@ -32,8 +35,9 @@ def runs(tmp_path_factory):
                                        pad_to=PAD_TO, steps=STEPS)},
                         4, tmp)["model"]
     with open(tmp / "case.pkl", "wb") as fh:
-        pickle.dump(dict(cfg=cfg, params=ref["params"], tokens=tokens,
-                         pad_to=PAD_TO, steps=STEPS), fh)
+        pickle.dump(dict(cfg=cfg, params=ref["params"],
+                         batch={"tokens": tokens}, pad_to=PAD_TO,
+                         steps=STEPS), fh)
     run_ranks(model_ranks, 4, tmp, str(tmp / "case.pkl"), str(tmp))
     ranks = []
     for r in range(4):
@@ -46,12 +50,16 @@ def test_ranks_serve_the_reference_tokens(runs):
     cfg, ref, ranks = runs
     half = B // 2
     worst = 0.0
-    for rank, res in enumerate(ranks):
-        rows = slice((rank // 2) * half, (rank // 2 + 1) * half)
-        assert len(res["logits"]) == STEPS + 1
-        for got, want in zip(res["logits"], ref["logits"]):
+    for j in range(2):
+        rows = slice(j * half, (j + 1) * half)
+        pair = ranks[2 * j:2 * j + 2]
+        assert len(pair[0]["logits"]) == STEPS + 1
+        for t, want in enumerate(ref["logits"]):
             want = want[rows]
-            assert np.array_equal(got.argmax(-1), want.argmax(-1))
+            got = np.concatenate([r["logits"][t] for r in pair], -1)
+            assert got.shape == want.shape
+            for r in pair:
+                assert np.array_equal(r["tokens"][t], want.argmax(-1))
             worst = max(worst, float(np.abs(got - want).max()))
     assert worst <= 1e-4, worst
 
@@ -59,10 +67,11 @@ def test_ranks_serve_the_reference_tokens(runs):
 def test_model_ranks_agree_and_hold_half_the_experts(runs):
     cfg, _, ranks = runs
     for j in range(2):
-        for a, b in zip(ranks[2 * j]["logits"], ranks[2 * j + 1]["logits"]):
+        for a, b in zip(ranks[2 * j]["tokens"], ranks[2 * j + 1]["tokens"]):
             assert np.array_equal(a, b)
     for res in ranks:
-        assert res["up_shape"] == (cfg.n_experts, cfg.d_model, cfg.d_ff // 2)
+        assert res["local_shapes"]["layers.0.mlp.up"] == (
+            cfg.n_experts, cfg.d_model, cfg.d_ff // 2)
 
 
 def test_two_all_reduces_per_moe_layer_per_forward(runs):

@@ -175,17 +175,18 @@ def test_without_a_mesh_is_moe_layer(dtype):
     import jax.numpy as jnp
     from repro.models.moe import moe_layer_sharded as ref_sharded
 
+    from repro_torch.distributed import shardctx
     from repro_torch.models import moe
     case = _moe_cases()[dtype]
     dt = getattr(torch, dtype)
     x = torch.from_numpy(case["x"]).to(dt)
     p = {k: torch.from_numpy(v).to(torch.float32 if k == "router" else dt)
          for k, v in case["p"].items()}
-    moe.moe_layer_sharded.all_reduces = 0
+    shardctx.reset_collectives()
     out, aux = moe.moe_layer_sharded(x, p, **MOE_KW)
     want, want_aux = moe.moe_layer(x, p, **MOE_KW)
     assert torch.equal(out, want) and torch.equal(aux, want_aux)
-    assert moe.moe_layer_sharded.all_reduces == 0
+    assert shardctx.COLLECTIVES["all_reduce"]["count"] == 0
     jdt = jnp.dtype(dtype)
     r_out, r_aux = ref_sharded(
         jnp.asarray(case["x"]).astype(jdt),

@@ -23,7 +23,16 @@ The modes:
                 and greedy decode steps under `sharding_rules(mesh,
                 residual=residual_spec(mesh))` on (data 2, model 2);
   * lower     - `lower_cell`'s `meta` for each (arch, shape, multi_pod)
-                on the production meshes' shapes (512 devices).
+                on the production meshes' shapes (512 devices);
+  * walk      - smoke cells' steps lowered by the reference's
+                `lower_cell` on a small mesh, compiled and walked as its
+                dry run walks them (FLOPs, collectives by kind);
+  * tp        - smoke models unsharded, prefill and greedy decode over
+                given row ranges (the tensor-parallel tests' reference:
+                the reference's placement plans change where its values
+                live, not the values, so its one-device step is the
+                spec; a data shard's rows run on their own, as its MoE
+                capacity is taken per shard).
 """
 import os
 import pickle
@@ -124,6 +133,34 @@ def run_model(case):
     return dict(params=jax.tree.map(np.asarray, params), logits=logits)
 
 
+def run_tp(cases):
+    """Each case's smoke model (float32, drawn from `jax.random.key(0)`)
+    unsharded: prefill and greedy decode steps over each row range of
+    `rows` on its own, so a MoE layer takes its capacity from that range's
+    tokens, as it does per data shard under a mesh."""
+    from repro.configs import ARCHS, smoke_variant
+    from repro.models import Model
+    from repro.models.api import greedy_sample
+    out = {}
+    for name, case in cases.items():
+        cfg = smoke_variant(ARCHS[case["arch"]]).replace(dtype=jnp.float32)
+        model = Model(cfg)
+        params = model.init(jax.random.key(0))
+        res = {"params": jax.tree.map(np.asarray, params)}
+        for lo, hi in case["rows"]:
+            batch = {k: jnp.asarray(v[lo:hi])
+                     for k, v in case["batch"].items()}
+            lg, cache = model.prefill(params, batch, pad_to=case["pad_to"])
+            logits = [np.asarray(lg)]
+            for _ in range(case["steps"]):
+                lg, cache = model.decode(params, cache,
+                                         greedy_sample(lg)[:, None])
+                logits.append(np.asarray(lg))
+            res[(lo, hi)] = logits
+        out[name] = res
+    return out
+
+
 def run_lower(cells):
     from repro.configs import get_config
     from repro.launch.steps import lower_cell
@@ -136,6 +173,29 @@ def run_lower(cells):
         with mesh:
             _, meta = lower_cell(get_config(arch), SHAPES[shape], mesh)
         out[(arch, shape, multi_pod)] = meta
+    return out
+
+
+def run_walk(cells):
+    """Each (arch, shape (name, seq_len, batch, kind), mesh shape)
+    cell: the smoke config's step lowered by the reference's
+    `lower_cell` on a ("data", "model") mesh of the host devices,
+    compiled, and its HLO walked as the reference's dry run walks it
+    (`benchmarks.hlo_cost.analyze`): FLOPs and collectives by kind."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks.hlo_cost import analyze
+    from repro.configs import get_config, smoke_variant
+    from repro.launch.steps import lower_cell
+    from repro.models.config import ShapeSpec
+    out = {}
+    for arch, shape, mesh_shape in cells:
+        mesh = auto_mesh(mesh_shape, ("data", "model"))
+        with mesh:
+            lowered, _ = lower_cell(smoke_variant(get_config(arch)),
+                                    ShapeSpec(*shape), mesh)
+            walk = analyze(lowered.compile().as_text())
+        out[(arch, shape, mesh_shape)] = dict(flops=walk["flops"],
+                                              by_kind=walk["by_kind"])
     return out
 
 
@@ -162,7 +222,7 @@ def run_reference(args, devices, tmp_path, timeout=600):
 
 
 MODES = {"moe": run_moe, "allreduce": run_allreduce, "model": run_model,
-         "lower": run_lower}
+         "lower": run_lower, "tp": run_tp, "walk": run_walk}
 
 
 def main():

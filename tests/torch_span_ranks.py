@@ -3,8 +3,10 @@ process of its own, spawned by `run_ranks` with one gloo rank per
 process on the CPU and a `FileStore` under the test's temporary
 directory. Nothing here imports jax or the reference, so a rank starts
 in a few seconds; the test module holds the results against them."""
+import contextlib
 import datetime
 import multiprocessing
+import os
 import pickle
 import time
 
@@ -16,14 +18,36 @@ RANK_TIMEOUT_S = 90          # rendezvous and every collective
 R, I, PAD_COLS, PAD_ROWS = 16, 32, 5, 4
 
 
+def _rank_main(target, err_path, rank, world, init, *args):
+    """A spawned rank: its standard error (file descriptor 2, so what the
+    C++ runtime prints at exit too) goes to `err_path`, then `target`
+    runs."""
+    fd = os.open(err_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 2)
+    os.close(fd)
+    target(rank, world, init, *args)
+
+
+def _err_tail(path, n=2000):
+    try:
+        with open(path, errors="replace") as fh:
+            return fh.read()[-n:].strip()
+    except OSError:
+        return ""
+
+
 def run_ranks(target, world, tmp_path, *args, timeout=120.0):
     """Run `target(rank, world, init_method, *args)` in `world` spawned
     processes and wait at most `timeout` seconds for them all; on expiry
     kill every one and raise TimeoutError, and raise RuntimeError if one
-    exits nonzero. A hang fails the calling test, never the suite."""
+    exits nonzero, naming each failing rank's exit code and the tail of
+    its standard error (kept in ``rank{r}.err`` under `tmp_path`). A hang
+    fails the calling test, never the suite."""
     ctx = multiprocessing.get_context("spawn")
     init = f"file://{tmp_path / 'store'}"
-    procs = [ctx.Process(target=target, args=(r, world, init) + args)
+    errs = [str(tmp_path / f"rank{r}.err") for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, errs[r], r, world, init) + args)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -42,7 +66,31 @@ def run_ranks(target, world, tmp_path, *args, timeout=120.0):
                 p.join(10)
     codes = [p.exitcode for p in procs]
     if any(codes):
-        raise RuntimeError(f"rank exit codes {codes}")
+        lines = [f"rank exit codes {codes}"]
+        for r, code in enumerate(codes):
+            if code:
+                tail = _err_tail(errs[r])
+                lines.append(f"rank {r} exited {code}"
+                             + (f"; its stderr ends:\n{tail}" if tail else
+                                "; no stderr"))
+        raise RuntimeError("\n".join(lines))
+
+
+@contextlib.contextmanager
+def rank_group(rank, world, init_method):
+    """`join_group`, then on the way out a barrier and
+    `destroy_process_group()`, so no rank exits with the gloo group
+    alive while another still talks to it."""
+    import torch.distributed as dist
+    join_group(rank, world, init_method)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            try:
+                dist.barrier()
+            finally:
+                dist.destroy_process_group()
 
 
 def join_group(rank, world, init_method):
