@@ -60,7 +60,10 @@ Phases, each printing one JSON line; any failed check exits nonzero
      d = 64, 528 slots) and of phase 5l's and 5m's ranks (granite-moe
      B = 4, 12 / 4 heads; granite-3-2b B = 4, 16 / 4 heads; qwen2.5-3b
      under its cut KV heads, 128 of 512 slots all, 8 and none valid,
-     its (max, exp-sum) held too), with their shared memory against the opt-in
+     its (max, exp-sum) held too; of phase 5n's ranks: recurrentgemma
+     B = 2, g = 10, d = 256 over 1,024 of 2,048 ring slots with the
+     stats, whisper's 3 heads of 64 over 448 self slots and 1,500 cross
+     frames), with their shared memory against the opt-in
      limit, in bf16 and float32: float32 within 1e-5 of the output's
      scale, bf16 within one unit in the last place (2^-7 relative) plus
      that;
@@ -163,12 +166,12 @@ Phases, each printing one JSON line; any failed check exits nonzero
      runs there, recovery being off);
   5h. zoo families — at full width, random seeded bf16 weights drawn on
      the card, through `Model.prefill` / `Model.decode`:
-     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 32 steps),
-     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 32 steps),
+     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 16 steps),
+     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 16 steps),
      `phi-3-vision-4.2b` (32, 4 x 576 image embeddings + 64 tokens, pad_to
-     1,024, 32 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
-     decoder tokens, 32 steps) and `mixtral-8x7b` (8 of 32 layers, cut
-     to fit the card; 4 x 512, pad_to 1,024, 32 steps): finite logits, K3
+     1,024, 16 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
+     decoder tokens, 16 steps) and `mixtral-8x7b` (8 of 32 layers, cut
+     to fit the card; 4 x 512, pad_to 1,024, 16 steps): finite logits, K3
      launches = attention calls x steps, no K4 launch, no plain call,
      MoE pairs dropped at prefill capacity and none at decode, prefill
      and decode ms with the profiler's device time, busy share and K3's
@@ -221,12 +224,12 @@ Phases, each printing one JSON line; any failed check exits nonzero
      starts them (its JSON names the backend and counts the
      collectives; every request terminal once);
   5l. model distribution — (a) `python -m repro_torch.launch.dryrun
-     --all` and `--all --multi-pod` as two subprocesses at once (CPU
-     work): 0 errors, exactly the reference's skips (long_500k for the 7
+     --all` and `--all --multi-pod`, one subprocess a shape, all at once
+     (CPU work): 0 errors, exactly the reference's skips (long_500k for the 7
      full-attention archs on both meshes), the per-device GB of
      mixtral-8x7b and gemma3-27b `train_4k`, and (5m(c)) FLOPs, HBM
-     bytes, collectives and peak bytes per device on exactly the 36
-     serving cells of the eight executed archs; (b)
+     bytes, collectives and peak bytes per device on all 66 ok cells
+     (train cells included since 5n); (b)
      `granite-moe-3b-a800m` at full width (D = 1,536, 24 / 8 heads, 40
      experts, d_ff 512, top-8, 32 layers) in float32, served as 5m
      serves (below): 8 x 512 prompts (pad_to 1,024), 4 rows a data
@@ -243,13 +246,14 @@ Phases, each printing one JSON line; any failed check exits nonzero
      spawn with 5l(b, c)), mesh (data 2, model 2), weights drawn on the
      card from one seed and cut to each rank's pieces by the plan
      (`lower_cell`, `shard_params`): (a) 8 x 512 prompts (pad_to
-     1,024), 4 rows a data shard, prefill and 16 greedy steps through
+     1,024), 4 rows a data shard, prefill and 8 greedy steps (cut from
+     16: the script's time) through
      `lower_cell`'s steps, each rank's K3 on its 16 query / 4 KV heads;
      (b) 4 x 1,024, prefill and 8 steps, K4 on 32 heads a rank; each
      shard's tokens identical to one process on its rows, logits (the
      "model" ranks' vocabulary shares put together) within 1e-3, every
      "model" rank with the same tokens, the collectives per forward as
-     predicted (`tp_want`), K3 = 40 x 16 and K4 = 48 launches a rank, no
+     predicted (`tp_want`), K3 = 40 x 8 and K4 = 48 launches a rank, no
      plain call; prefill ms, decode ms a step and peak memory a rank
      beside one process; (c) is 5l(a); (d) `qwen2.5-3b` at full width,
      4 of its 36 layers, on (data 1, model 4): its 2 KV heads of 128
@@ -258,6 +262,30 @@ Phases, each printing one JSON line; any failed check exits nonzero
      ranks' outputs merged over "model"; 4 x 256 (pad_to 512), 8 steps,
      tokens identical to one process, logits within 1e-3, the
      collectives as predicted, K3 = 4 x 8 a rank;
+  5n. the hybrid, the encoder-decoder and the train step under the
+     plans — in 5l/5m's spawn of 4 gloo ranks, mesh (data 2, model 2),
+     float32, weights drawn on the card from one seed and cut by
+     `lower_cell` / `shard_params`: (a) `recurrentgemma-2b` at full width
+     and depth (26 layers, 8 of them local attention; W = 2,560;
+     vocabulary 256,000), 2 rows a data shard x 2,048 tokens, prefill
+     and 8 greedy steps (the 2,048-slot ring wraps): the RG-LRU on 1,280
+     channels a rank, u gathered for the gates, the one KV head cut and
+     K3 over the rank's 1,024 slots with the stats, K3 = 8 x 8 a rank;
+     (b) `whisper-tiny` at full width (4 + 4 layers, 3 of 6 heads of 64
+     a rank), 4 rows a shard x 1,500 frames, 4 prompt tokens, 16 steps,
+     K3 = 2 x 4 x 16 a rank; each as 5m holds its archs (tokens
+     identical to one process, logits within 1e-3, every "model" rank
+     the same tokens, the collectives `tp_want`'s, no plain call); (c)
+     `granite-3-2b` at full width, 20 of its 40 layers (4 ranks' float32
+     weights, gradients and ZeRO moments share the card), remat, a
+     4 x 1,024 global batch: the train step under the plan
+     (`make_train_step(..., plan=, mesh=)`), its first step held against
+     one process on the same batch, weights and moments (m = 0, v =
+     1e-4): loss, ce and grad_norm within 1e-5 relative, 512 sampled
+     elements of every moment's and parameter's piece within 1e-4 of
+     the piece's scale; then 2 more steps (the loss finite and falling)
+     and one of 2 microbatches; step ms, peak GB a rank beside one
+     process's, the collectives a step by kind;
   5j. examples — `examples/torch_{quickstart, budget_serving,
      serve_cluster, zoo_serving}.py` at the reference's sizes as a user
      runs them (their printed lines kept): every request terminal once,
@@ -268,7 +296,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
   6. the kernels line (launches of every driven path: K1 the main path,
      5f and 5g's hierarchy and 5j's examples, K2 5b, 5c, 5f's hyperfleet,
      5g's span, 5k's span over ranks and 5j's serve_cluster, K3
-     5d, 5h by model, 5i's trained granite, 5l's and 5m's ranks by
+     5d, 5h by model, 5i's trained granite, 5l's, 5m's and 5n's ranks by
      model, K4 5e,
      5i's trained mamba2 and 5m's ranks),
      then the card's `nvidia-smi` line, then the last line
@@ -2082,28 +2110,24 @@ MESH_AR_AXES = (("data",), ("data", "model"))
 MESH_TIMEOUT_S = 120                 # rendezvous and every collective
 
 
-TP_EXECUTED = ("granite-3-2b", "qwen3-0.6b", "phi3-mini-3.8b",
-               "gemma3-27b", "granite-moe-3b-a800m", "mixtral-8x7b",
-               "phi-3-vision-4.2b", "mamba2-1.3b")
-
-
 def phase_dryrun():
     """5l(a) and 5m(c): `python -m repro_torch.launch.dryrun --all` and
-    `--all --multi-pod` as two subprocesses at once (CPU work): 0
+    `--all --multi-pod`, one subprocess a shape, all at once (CPU work): 0
     errors, the reference's skips (long_500k for the 7 full-attention
     archs, on both meshes), the per-device GB of mixtral-8x7b and
     gemma3-27b `train_4k`, and FLOPs, HBM bytes, collectives and peak
-    bytes per device on exactly the 36 serving cells of the eight
-    executed archs (the other ok cells plan-only, with a reason)."""
+    bytes per device on all 66 ok cells, train cells included (none
+    left as a plan)."""
     from repro_torch.configs import LONG_CONTEXT_OK, SHAPES, list_archs
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
+    # one process a (mesh, shape): 8 at once on the host's cores
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--force"] + flag, cwd=root, stdout=subprocess.PIPE,
+         "--force", "--shape", sh] + flag, cwd=root, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         env={**os.environ, "PYTHONPATH": str(root / "src")})
-        for flag in ([], ["--multi-pod"])]
+        for flag in ([], ["--multi-pod"]) for sh in SHAPES]
     outs = []
     try:
         for p in procs:
@@ -2132,14 +2156,16 @@ def phase_dryrun():
           for a in ("mixtral-8x7b", "gemma3-27b")
           for m in ("16x16", "2x16x16")}
     counted = {k for k, v in recs.items() if "flops_per_device" in v}
-    want_counted = {k for k, v in recs.items() if v["status"] == "ok"
-                    and k[0] in TP_EXECUTED and k[1] != "train_4k"}
+    want_counted = {k for k, v in recs.items() if v["status"] == "ok"}
     keys = ("flops_per_device", "hbm_bytes_per_device",
             "collective_link_bytes_per_device", "peak_bytes_per_device",
             "collectives")
     sample = {f"{a}/{sh}": {k: recs[(a, sh, "16x16")][k] for k in keys}
               for a, sh in (("granite-3-2b", "decode_32k"),
                             ("granite-3-2b", "prefill_32k"),
+                            ("granite-3-2b", "train_4k"),
+                            ("recurrentgemma-2b", "decode_32k"),
+                            ("whisper-tiny", "decode_32k"),
                             ("mamba2-1.3b", "prefill_32k"),
                             ("mixtral-8x7b", "decode_32k"))}
     row = dict(cells=len(recs), ok=sum(v == "ok" for v in status.values()),
@@ -2153,10 +2179,10 @@ def phase_dryrun():
     check(row["errors"] == 0 and skipped == want and row["ok"] == 66,
           f"dry run: {row['ok']} ok, {row['errors']} errors, skipped "
           f"{sorted(skipped ^ want)} differ from the reference's")
-    check(counted == want_counted and len(counted) == 36
-          and row["plan_only"] == 30,
+    check(counted == want_counted and len(counted) == 66
+          and row["plan_only"] == 0,
           f"dry run: counts on {sorted(counted ^ want_counted)} differ "
-          f"from the 36 serving cells")
+          f"from the 66 ok cells")
     return row
 
 
@@ -2198,15 +2224,33 @@ def allreduce_one_process(xs, group):
 # granite-moe, 5m(a) granite-3-2b and 5m(b) mamba2-1.3b at full width
 # and depth; 5m(d) qwen2.5-3b at full width, 4 layers, whose 2 KV heads
 # the 4 "model" ranks cut (the head-cut path)
+# (label, arch, serve, (data, model), layers: 0 for all); 5m(a) runs 8
+# steps (cut from 16: the script's time); `extra` is whisper's frames
 TP_SERVE = (("5l(b)", MESH_ARCH, MESH_SERVE, (2, 2), 0),
             ("5m(a)", "granite-3-2b", dict(batch=8, prompt=512, pad_to=1024,
-                                           steps=16), (2, 2), 0),
+                                           steps=8), (2, 2), 0),
             ("5m(b)", "mamba2-1.3b", dict(batch=4, prompt=1024, pad_to=1024,
                                           steps=8), (2, 2), 0),
             ("5m(d)", "qwen2.5-3b", dict(batch=4, prompt=256, pad_to=512,
-                                         steps=8), (1, 4), 4))
+                                         steps=8), (1, 4), 4),
+            ("5n(a)", "recurrentgemma-2b", dict(batch=4, prompt=2048,
+                                                pad_to=2048, steps=8),
+             (2, 2), 0),
+            ("5n(b)", "whisper-tiny", dict(batch=8, prompt=4, pad_to=1500,
+                                           steps=16, extra=1500), (2, 2), 0))
+# 5n(c): granite-3-2b at full width, 20 of its 40 layers (four ranks'
+# float32 weights, gradients and ZeRO moments share the one card), remat,
+# a 4 x 1,024 global batch on (data 2, model 2): one step held against
+# one process on the same batch, 2 more, then one of 2 microbatches. The
+# moments start at m = 0, v = TRAIN_TP_V0 on both sides, so that AdamW's
+# first step is m / (sqrt(v) + eps) of a gradient known to about 1e-6,
+# not the sign of a gradient element near eps
+TRAIN_TP = dict(arch="granite-3-2b", layers=20, batch=4, seq=1024,
+                mesh=(2, 2), steps=3)
+TRAIN_TP_V0 = 1e-4
+TRAIN_TP_SAMPLES = 512               # elements a leaf's piece is held by
 TP_SEED = 6
-TP_LIMIT_S = 300                     # the ranks are killed past this
+TP_LIMIT_S = 600                     # the ranks are killed past this
 
 
 def tp_cfg(name, layers=0):
@@ -2234,14 +2278,21 @@ def tp_want(cfg, d, m, decode):
     plan cuts the KV heads one for each attention layer's projections
     and, at decode, one more for K3's outputs and (max, exp-sum) over
     the slots."""
+    if cfg.is_encdec:             # whole heads (whisper-tiny on 2 ranks)
+        per_dec = 3                   # self and cross `wo`, the MLP
+        return {"all_reduce": 1 + cfg.n_layers * per_dec
+                + (0 if decode else 2 * cfg.n_enc_layers),
+                "all_gather": 1 + (0 if decode else 1),
+                "reduce_scatter": 0}
     n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
     n_ssd = sum(b.mixer == "ssd" for b in cfg.layer_types)
+    n_lru = sum(b.mixer == "rglru" for b in cfg.layer_types)
     n_dense = sum(b.mlp == "dense" for b in cfg.layer_types)
     n_moe = sum(b.mlp == "moe" for b in cfg.layer_types)
     cut = n_attn * (2 if decode else 1) if tp_cut(cfg, m) else 0
-    return {"all_reduce": 1 + n_attn + n_dense + 2 * n_ssd
+    return {"all_reduce": 1 + n_attn + n_dense + 2 * n_ssd + n_lru
             + n_moe * (1 + (d > 1)),
-            "all_gather": 1 + (n_ssd if decode else 0) + cut,
+            "all_gather": 1 + (n_ssd if decode else 0) + cut + n_lru,
             "reduce_scatter": 0}
 
 
@@ -2304,7 +2355,188 @@ def _allocated(device):
     return torch.cuda.memory_allocated() if device == "cuda" else 0
 
 
-def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
+TRAIN_TP_SEED = 12                   # the batch's
+
+
+def train_tp_cfg():
+    from repro_torch.models.config import ShapeSpec
+    t = TRAIN_TP
+    cfg = tp_cfg(t["arch"], t["layers"]).replace(remat=True)
+    return cfg, ShapeSpec("tp_train", t["seq"], t["batch"], "train")
+
+
+def train_tp_batch(cfg, shape):
+    from repro_torch.training.data import batch_for
+    return {k: torch.from_numpy(v).to(DEV) for k, v in batch_for(
+        cfg, shape.seq_len, shape.global_batch, seed=TRAIN_TP_SEED).items()}
+
+
+def train_tp_state(state):
+    """AdamW's moments at m = 0, v = TRAIN_TP_V0 (see TRAIN_TP)."""
+    for v in state["v"].values():
+        v.fill_(TRAIN_TP_V0)
+    return state
+
+
+def leaf_sample(t):
+    """(TRAIN_TP_SAMPLES elements of `t` at an even stride, its largest
+    magnitude), on the host."""
+    f = t.detach().reshape(-1)
+    stride = max(1, f.numel() // TRAIN_TP_SAMPLES)
+    return (f[::stride][:TRAIN_TP_SAMPLES].float().cpu().numpy().copy(),
+            float(f.abs().max()))
+
+
+def tp_train_rank(rank, mesh, device, cfg, shape):
+    """5n(c) on one rank: granite-3-2b (TRAIN_TP) drawn on the card from
+    TP_SEED and cut to this rank's pieces under `lower_cell`'s train
+    plan; its rows of the batch; its ZeRO moments' pieces; then
+    TRAIN_TP["steps"] steps of `make_train_step(..., plan=, mesh=)` and
+    one of 2 microbatches: per step ms, peak memory, the metrics and the
+    collectives by kind; after the first, samples of every moment's and
+    parameter's piece (`leaf_sample`)."""
+    from repro_torch.distributed import shardctx
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.steps import init_opt_state, lower_cell, \
+        make_train_step
+    from repro_torch.models import Model
+    from repro_torch.training.optimizer import AdamWConfig
+    _reset_peak(device)
+    model = Model(cfg, device=None if device == "cuda" else device,
+                  seed=TP_SEED)
+    plan, meta, _ = lower_cell(cfg, shape, mesh)
+    shr.shard_params(model, plan["params"], mesh, rank)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    whole = train_tp_batch(cfg, shape)
+    batch = shr.shard_batch(whole, shr.batch_pspecs(whole, mesh), mesh,
+                            rank)
+    del whole
+    state = train_tp_state(init_opt_state(model, plan=plan, mesh=mesh))
+    ocfg = AdamWConfig(**TRAIN_CHECK_OPT)
+    out = dict(steps=[], meta=meta)
+    for k, n in ((1, TRAIN_TP["steps"]), (2, 1)):
+        step = make_train_step(model, ocfg, k, plan=plan, mesh=mesh)
+        for i in range(n):
+            shardctx.reset_collectives()
+            _reset_peak(device)
+            t0 = time.perf_counter()
+            state, mets = step(state, batch)
+            _sync(device)
+            out["steps"].append(dict(
+                microbatches=k, ms=(time.perf_counter() - t0) * 1e3,
+                peak_bytes=_peak_bytes(device),
+                **{m: float(v) for m, v in mets.items()},
+                collectives={c: v["count"] for c, v in
+                             shardctx.COLLECTIVES.items()},
+                collective_bytes={c: v["bytes"] for c, v in
+                                  shardctx.COLLECTIVES.items()}))
+            if not out["steps"][1:]:
+                out["m"] = {p: leaf_sample(t) for p, t in state["m"].items()}
+                out["params"] = {n_: leaf_sample(p) for n_, p in
+                                 model.named_parameters()}
+    del model, state, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_one_process(device, cfg, shape):
+    """5n(c)'s first step by one process on the whole batch, the same
+    weights and moments: (metrics, ms, peak bytes, the model, the
+    state)."""
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.training.optimizer import AdamWConfig
+    _reset_peak(device)
+    model = Model(cfg, device=None if device == "cuda" else device,
+                  seed=TP_SEED)
+    batch = train_tp_batch(cfg, shape)
+    state = train_tp_state(init_opt_state(model))
+    step = make_train_step(model, AdamWConfig(**TRAIN_CHECK_OPT))
+    t0 = time.perf_counter()
+    state, mets = step(state, batch)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return ({k: float(v) for k, v in mets.items()}, ms,
+            _peak_bytes(device), model, state)
+
+
+def tp_train_compare(ranks, cfg, shape):
+    """5n(c): each rank's first step against one process's: loss, ce and
+    grad_norm within TRAIN_TOL["loss"] relative, every moment's and
+    parameter's sampled piece within TRAIN_TOL["grad"] / ["param"] of
+    the piece's scale; the losses finite and falling; every rank with
+    the same collectives."""
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.steps import lower_cell
+    d, m = TRAIN_TP["mesh"]
+    sizes = {"data": d, "model": m}
+    plan, _, _ = lower_cell(cfg, shape, sizes)
+    mets, ms, peak, model, state = train_tp_one_process(DEV, cfg, shape)
+    params = dict(model.named_parameters())
+    groups = shr.stacked_groups(cfg, params)
+    m_err = p_err = 0.0
+    with torch.no_grad():
+        for r, rank in enumerate(ranks):
+            got = rank["train"]
+            for path, (names, st) in groups.items():
+                piece = shr.local_piece(
+                    shr.stack_group(state["m"], names, st),
+                    plan["opt"]["m"][path].spec, sizes, r)
+                want, scale = leaf_sample(piece)
+                m_err = max(m_err, float(np.abs(
+                    got["m"][path][0] - want).max()) / max(scale, 1e-30))
+            for name, p in params.items():
+                piece = shr.local_piece(p, shr._layer_spec(
+                    cfg, name, plan["params"]), sizes, r)
+                want, scale = leaf_sample(piece)
+                p_err = max(p_err, float(np.abs(
+                    got["params"][name][0] - want).max()) / max(scale, 1e-30))
+    del model, state, params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    first = [rk["train"]["steps"][0] for rk in ranks]
+    rel = {k: max(abs(f[k] - mets[k]) / max(abs(mets[k]), 1e-30)
+                  for f in first) for k in ("loss", "ce", "grad_norm")}
+    losses = [s["loss"] for s in ranks[0]["train"]["steps"]]
+    n = TRAIN_TP["steps"]
+    row = dict(
+        part="5n(c)", model=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, dtype="float32", remat=True,
+        mesh=sizes, backend="gloo", ranks=4,
+        global_batch=shape.global_batch, seq=shape.seq_len,
+        microbatches_planned=ranks[0]["train"]["meta"]["microbatches"],
+        optimizer=dict(TRAIN_CHECK_OPT, v0=TRAIN_TP_V0),
+        one_process=dict(mets, ms=ms, peak_gb=peak / 1e9),
+        sharded_first=dict(first[0], ms_per_rank=[f["ms"] for f in first],
+                           peak_gb_per_rank=[f["peak_bytes"] / 1e9
+                                             for f in first]),
+        rel_err=rel, m_sample_max_rel_err=m_err,
+        param_sample_max_rel_err=p_err, samples_per_leaf=TRAIN_TP_SAMPLES,
+        tolerance=TRAIN_TOL, losses=losses,
+        steps=[{k: s[k] for k in ("microbatches", "ms", "loss", "grad_norm",
+                                  "collectives", "collective_bytes")}
+               | {"peak_gb": s["peak_bytes"] / 1e9}
+               for s in ranks[0]["train"]["steps"]],
+        ms_per_step_per_rank=[[s["ms"] for s in rk["train"]["steps"]]
+                              for rk in ranks])
+    emit("tp_train", **row)
+    check(max(rel.values()) <= TRAIN_TOL["loss"]
+          and m_err <= TRAIN_TOL["grad"] and p_err <= TRAIN_TOL["param"],
+          f"5n(c): the sharded step against one process: {rel}, moments "
+          f"{m_err}, parameters {p_err}")
+    check(all(np.isfinite(losses)) and losses[n - 1] < losses[0],
+          f"5n(c): losses {losses} not finite and falling")
+    check(all(rk["train"]["steps"][i]["collectives"]
+              == ranks[0]["train"]["steps"][i]["collectives"]
+              for rk in ranks for i in range(n + 1)),
+          "5n(c): the ranks' collectives differ")
+    return row
+
+
+def tp_rank(init_method, rank, world, device, serves, ar_numel, train,
+            queue):
     """One rank of phases 5l(b, c) and 5m: join the gloo group and for
     each (config, serve, mesh shape): build the (data, model) mesh, draw
     the float32 model on the card from TP_SEED, cut it to this rank's
@@ -2314,8 +2546,9 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
     experts of every call recorded, `route_recorder`); then 5l(c):
     `shardmap_allreduce` of this rank's `ar_numel` float32 gradient over
     each MESH_AR_AXES on the (data 2, model 2) mesh, held bitwise
-    against the one-process arithmetic. Puts this rank's logits shares,
-    tokens, times, peak memory and the all-reduces on `queue`."""
+    against the one-process arithmetic; then 5n(c), the train step
+    (`tp_train_rank`). Puts this rank's logits shares, tokens, times,
+    peak memory, the all-reduces and the train steps on `queue`."""
     import datetime
 
     import torch.distributed as dist
@@ -2358,8 +2591,8 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
                        params_kept=sum(p.numel()
                                        for p in model.parameters()))
             batch = shr.shard_batch(
-                zoo_batch(cfg, B, serve["prompt"], 0), plan["batch"], mesh,
-                rank)
+                zoo_batch(cfg, B, serve["prompt"], serve.get("extra", 0)),
+                plan["batch"], mesh, rank)
             logits, tokens, colls = [], [], []
 
             def record(tok, lg):
@@ -2398,7 +2631,8 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
                        tokens=tokens, collectives=colls, experts=experts,
                        cache_bytes=sum(t.numel() * t.element_size()
                                        for layer in cache["layers"]
-                                       for t in layer.values()))
+                                       for t in layer.values()
+                                       if isinstance(t, torch.Tensor)))
             out["runs"][cfg.name] = run
             del model, cache, step, dstep
             if device == "cuda":
@@ -2422,6 +2656,10 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, queue):
                                       ranks=len(group))
         out["allreduce"] = ar
         del xs
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["train"] = tp_train_rank(rank, meshes[TRAIN_TP["mesh"]], device,
+                                     *train)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2472,7 +2710,8 @@ def one_process(cfg, serve, device, seed, shards=2, routes=None):
     model = Model(cfg, device=None if device == "cuda" else device,
                   seed=seed)
     rows = serve["batch"] // shards
-    tokens = zoo_batch(cfg, serve["batch"], serve["prompt"], 0)["tokens"]
+    whole = zoo_batch(cfg, serve["batch"], serve["prompt"],
+                      serve.get("extra", 0))
     out = []
     for j in range(shards):
         gaps = []
@@ -2480,7 +2719,8 @@ def one_process(cfg, serve, device, seed, shards=2, routes=None):
             moe.moe_layer.route = route_replayer(routes[j], gaps)
         _reset_peak(device)
         t1 = time.perf_counter()
-        lg, cache = model.prefill({"tokens": tokens[j * rows:(j + 1) * rows]},
+        lg, cache = model.prefill({k: v[j * rows:(j + 1) * rows]
+                                   for k, v in whole.items()},
                                   pad_to=serve["pad_to"])
         _sync(device)
         t2 = time.perf_counter()
@@ -2506,33 +2746,38 @@ def one_process(cfg, serve, device, seed, shards=2, routes=None):
 
 
 def phase_tp():
-    """Phases 5l and 5m: (5l(a), also 5m(c)) the dry run, then the
+    """Phases 5l, 5m and 5n: (5l(a), also 5m(c)) the dry run, then the
     placement plans run on 4 gloo ranks on the one card, one spawn, each
     rank serving its data shard's rows through `lower_cell`'s steps on
     its pieces, in float32: (5l(b)) granite-moe, (5m(a)) granite-3-2b
     and (5m(b)) mamba2-1.3b at full width and depth on (data 2, model
     2); (5m(d)) qwen2.5-3b at full width, 4 layers, on (data 1, model
-    4), whose 2 KV heads the plan cuts. Each shard's tokens identical to
+    4), whose 2 KV heads the plan cuts; (5n(a)) recurrentgemma-2b and
+    (5n(b)) whisper-tiny at full width on (data 2, model 2). Each shard's tokens identical to
     one process, logits (its "model" ranks' vocabulary shares put
     together) within 1e-3 (granite-moe's one process replays the ranks'
     expert choices, and every token whose own top-8 differed must sit
     at a near-tie, its 8th and 9th probabilities within ROUTE_TIE; the
     "model" ranks of a shard route alike), every "model" rank with the same tokens, the
     collectives per forward `tp_want`'s, K3 launches = attention layers
-    x steps a rank (b: 32 x 8, a: 40 x 16, d: 4 x 8, K3 over the rank's
-    slots with its (max, exp-sum)), K4 = SSD layers a rank (b: 48), no
-    plain call; prefill ms, decode ms a step and peak memory a rank
-    beside one process. (5l(c)) `shardmap_allreduce` on the same ranks,
-    bitwise the one-process arithmetic. NCCL (a card a rank) is
-    written, not run: one card here."""
+    x steps a rank (b: 32 x 8, a: 40 x 8, d: 4 x 8, K3 over the rank's
+    slots with its (max, exp-sum); 5n(a): 8 x 8 over 1,024 of 2,048
+    slots; 5n(b): 2 x 4 x 16, self and cross), K4 = SSD layers a rank
+    (b: 48), no plain call; prefill ms, decode ms a step and peak memory
+    a rank beside one process. (5l(c)) `shardmap_allreduce` on the same
+    ranks, bitwise the one-process arithmetic. (5n(c)) the train step
+    under the plan on the same ranks (`tp_train_rank`,
+    `tp_train_compare`). NCCL (a card a rank) is written, not run: one
+    card here."""
     t_phase = time.perf_counter()
     dry = phase_dryrun()
     if DEV == "cuda":
         torch.cuda.empty_cache()
     serves = tuple((tp_cfg(name, layers), serve, shape)
                    for _, name, serve, shape, layers in TP_SERVE)
+    train = train_tp_cfg()
     ranks, ranks_s = spawn_mesh_ranks(
-        tp_rank, (DEV, serves, MESH_AR_NUMEL), TP_LIMIT_S, "tp")
+        tp_rank, (DEV, serves, MESH_AR_NUMEL, train), TP_LIMIT_S, "tp")
     rows = {}
     for (label, *_), (cfg, serve, (d, m)) in zip(TP_SERVE, serves):
         name = cfg.name
@@ -2561,7 +2806,8 @@ def phase_tp():
             [tp_want(cfg, d, m, True)] * serve["steps"]
         n_attn = sum(b.mixer == "attn" for b in cfg.layer_types)
         n_ssd = sum(b.mixer == "ssd" for b in cfg.layer_types)
-        want_k3 = n_attn * serve["steps"]
+        # whisper: self- and cross-attention, two K3 calls a layer a step
+        want_k3 = (2 if cfg.is_encdec else 1) * n_attn * serve["steps"]
         row = dict(
             part=label, model=name, layers=cfg.n_layers,
             d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv_heads),
@@ -2623,12 +2869,14 @@ def phase_tp():
          "rank (written, not verified on this machine)")
     check(all(v["bitwise_every_rank"] for v in ar.values()),
           f"5l(c): shardmap_allreduce not bitwise {ar}")
+    train = tp_train_compare(ranks, *train)
     seconds = time.perf_counter() - t_phase
     emit("tp_done", seconds=seconds, dryrun_s=dry["seconds"],
          ranks_s=ranks_s, rendezvous_s=[r["rendezvous_s"] for r in ranks],
          dryrun_counted_cells=dry["counted"],
          script_s=time.perf_counter() - T_START)
-    return dict(dryrun=dry, serving=rows, allreduce=ar, seconds=seconds,
+    return dict(dryrun=dry, serving=rows, allreduce=ar, train=train,
+                seconds=seconds,
                 k3_launches={n: sum(r["k3_launches_per_rank"])
                              for n, r in rows.items()},
                 k4_launches={n: sum(r["k4_launches_per_rank"])
@@ -2744,7 +2992,11 @@ K3_SERVE = dict(B=8, K=2, g=8, d=128, C=1024)
 # granite-3-2b rank (4 rows, 16 q / 4 kv heads, 512 + 16 of 1,024 slots)
 # and its qwen2.5-3b ranks, whose KV heads the plan cuts: K3 over a
 # rank's 128 of 512 slots with every head, its (max, exp-sum) too
-# (`stats`), on a share all valid, 8 valid and none valid
+# (`stats`), on a share all valid, 8 valid and none valid; phase 5n's
+# ranks: recurrentgemma's 2 rows over 1,024 of its 2,048 ring slots
+# (its one KV head cut in half, g = 10, d = 256, the window masking the
+# share's oldest 8 positions) with the stats, and whisper's 3 heads of
+# 64 a rank over its 448 self slots and 1,500 cross frames
 K3_ZOO = {
     "recurrentgemma-2b": dict(B=4, K=1, g=10, d=256, C=2048, valid=2112,
                               window=2048),
@@ -2764,7 +3016,13 @@ K3_ZOO = {
     "qwen2.5-3b/cut-tail": dict(B=4, K=2, g=8, d=128, C=128, valid=8,
                                 pos=263, stats=True),
     "qwen2.5-3b/cut-empty": dict(B=4, K=2, g=8, d=128, C=128, valid=0,
-                                 pos=263, stats=True)}
+                                 pos=263, stats=True),
+    "recurrentgemma-2b/tp": dict(B=2, K=1, g=10, d=256, C=1024,
+                                 valid=1024, pos=2055, window=2048,
+                                 stats=True),
+    "whisper-tiny/tp-self": dict(B=4, K=3, g=1, d=64, C=448, valid=20),
+    "whisper-tiny/tp-cross": dict(B=4, K=3, g=1, d=64, C=1500, valid=1500,
+                                  pos=1500)}
 K4_SERVE = dict(B=4, S=1024, nh=64, P=64, N=128, G=1, chunk=128)
 
 
@@ -3271,12 +3529,13 @@ def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
 # against CPU check's (layers, extra inputs): a whole layer pattern, at
 # least 2 layers as in 5d). mixtral's 32 layers (about 93 GB of bf16) do
 # not fit one 80 GB card, so its depth is cut to 8.
+# 16 decode steps each (cut from 32: the script's time)
 ZOO_FAMILIES = (
-    ("recurrentgemma-2b", 4, 2048, 2048, 32, 8 * 32, 0, None, (3, 0)),
-    ("granite-moe-3b-a800m", 8, 512, 1024, 32, 32 * 32, 0, None, (2, 0)),
-    ("phi-3-vision-4.2b", 4, 64, 1024, 32, 32 * 32, 576, None, (2, 32)),
-    ("whisper-tiny", 8, 4, 0, 32, 2 * 4 * 32, 1500, None, (2, 1500)),
-    ("mixtral-8x7b", 4, 512, 1024, 32, 8 * 32, 0, 8, (2, 0)),
+    ("recurrentgemma-2b", 4, 2048, 2048, 16, 8 * 16, 0, None, (3, 0)),
+    ("granite-moe-3b-a800m", 8, 512, 1024, 16, 32 * 16, 0, None, (2, 0)),
+    ("phi-3-vision-4.2b", 4, 64, 1024, 16, 32 * 16, 576, None, (2, 32)),
+    ("whisper-tiny", 8, 4, 0, 16, 2 * 4 * 16, 1500, None, (2, 1500)),
+    ("mixtral-8x7b", 4, 512, 1024, 16, 8 * 16, 0, 8, (2, 0)),
 )
 
 

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .shardctx import all_reduce, piece_sum
+
 
 def _quantize(x, scale):
     """int8 levels: round half to even, clamp to +-127."""
@@ -42,30 +44,42 @@ def _quantize(x, scale):
 @torch.no_grad()
 def compress_decompress(grads: Mapping[str, torch.Tensor],
                         error_state: Optional[Mapping] = None,
-                        groups: Optional[Iterable[Sequence[str]]] = None
+                        groups: Optional[Iterable[Sequence[str]]] = None,
+                        split: Optional[Mapping[str, Tuple[str, ...]]] = None
                         ) -> Tuple[Dict, Dict, Dict[str, torch.Tensor]]:
     """Per-tensor int8 quantise (with error feedback), then dequantise.
     `groups` lists the leaf names that share one scale, as the
     reference's stacked leaves do (`Model.stacked_leaves`); by default
-    each leaf has its own. Returns (grads_hat in the gradients' dtypes,
-    the new float32 error state, {"compression_err_sq": the sum of its
-    squares})."""
-    ghat, new_e, err = {}, {}, None
-    for names in groups or [(k,) for k in grads]:
-        gf = {k: grads[k].float() + (
-            torch.zeros(grads[k].shape, dtype=torch.float32,
-                        device=grads[k].device)
-            if error_state is None else error_state[k]) for k in names}
-        amax = torch.stack([x.abs().max() for x in gf.values()]).max()
-        scale = torch.clamp(amax / 127.0, min=1e-12)
+    each leaf has its own. With `split` {name: the mesh axes the leaf is
+    cut over} each leaf is this rank's piece of a stacked leaf under the
+    ZeRO plan: its scale is the max over all its pieces (every leaf's
+    max rides in one MAX all-reduce per mesh axis, a max being the same
+    over a leaf's replicas), and the error's sum of squares is summed
+    over the pieces (`shardctx.piece_sum`). Returns (grads_hat in the
+    gradients' dtypes, the new float32 error state,
+    {"compression_err_sq": the sum of its squares})."""
+    groups = list(groups or [(k,) for k in grads])
+    gfs = [{k: grads[k].float() + (
+        torch.zeros(grads[k].shape, dtype=torch.float32,
+                    device=grads[k].device)
+        if error_state is None else error_state[k]) for k in names}
+        for names in groups]
+    amax = torch.stack([torch.stack([x.abs().max() for x in gf.values()])
+                        .max() for gf in gfs])
+    if split is not None:
+        for a in sorted({a for axes in split.values() for a in axes}):
+            amax = all_reduce(amax, a, op="max")
+    ghat, new_e, sqs = {}, {}, []
+    for gf, m in zip(gfs, amax.unbind(0)):
+        scale = torch.clamp(m / 127.0, min=1e-12)
         for k, x in gf.items():
             q = _quantize(x, scale)
             deq = q.float() * scale
             ghat[k], new_e[k] = deq.to(grads[k].dtype), x - deq
-            sq = new_e[k].square().sum()
-            err = sq if err is None else err + sq
+            sqs.append((new_e[k].square().sum(),
+                        () if split is None else split[k]))
     return ({k: ghat[k] for k in grads}, {k: new_e[k] for k in grads},
-            {"compression_err_sq": err})
+            {"compression_err_sq": piece_sum(sqs)})
 
 
 @torch.no_grad()

@@ -30,6 +30,21 @@ reduce-scatter 1) and HBM bytes (operand read once, result written
 once). An axis of size 1 is no collective and is not counted. On a fake
 process group or meta tensors (the dry run) the call is counted and
 communicates nothing; ``reset_collectives()`` zeroes the counts.
+
+Under autograd each collective is a `torch.autograd.Function`, out of
+place, with Megatron's rules for its backward (counted under the same
+kinds, and moving nothing on a fake group either): a sum all-reduce
+passes its gradient ("g": every rank consumes the sum alike), the
+identity ``copy_to(x, axis)`` all-reduces it ("f": in front of work
+each rank holds a part of, a column-split product or a share of heads),
+an all-gather reduce-scatters it (each rank reads the whole tensor
+differently) or, with ``grad="slice"``, takes this rank's slice (every
+rank computes the same from it), a reduce-scatter all-gathers it; a max
+or min takes none. Without autograd an all-reduce stays in place.
+``data_axes()`` names the axes a train step's batch is split on (the
+pinned "batch" rule), over which the loss is summed;
+``piece_sum(parts)`` sums per-piece scalars over the mesh, each over the
+axes its piece is split on (the optimizer's global norm).
 """
 from __future__ import annotations
 
@@ -75,6 +90,16 @@ def batch_axes(mesh=None) -> Tuple[str, ...]:
         return ()
     names = axis_sizes(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def data_axes() -> Tuple[str, ...]:
+    """The axes of size > 1 that the pinned "batch" rule splits a batch's
+    rows over (a train step's data-parallel axes; the plan's entry for
+    its tokens), else ()."""
+    spec = _STATE["rules"].get("batch")
+    if _STATE["mesh"] is None or not spec:
+        return ()
+    return tuple(a for a in spec[0] if axis_size(a) > 1)
 
 
 def placements(spec: Sequence[Tuple[str, ...]], mesh) -> list:
@@ -186,12 +211,8 @@ def _record(kind: str, operand, result):
     c["hbm_bytes"] += _nbytes(operand) + _nbytes(result)
 
 
-def _group(axis: str, t):
+def _group(axis: str):
     """(the axis' process group, whether it only records)."""
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(
-            "the collectives have no backward: the train step under the "
-            "tensor-parallel plan is not ported (ROADMAP queue 1 item 10)")
     group = _STATE["mesh"].get_group(axis)
     return group, dist.get_backend(group) == "fake"
 
@@ -199,23 +220,18 @@ def _group(axis: str, t):
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 
 
-def all_reduce(t, axis: str, op: str = "sum"):
-    """`t` reduced over `axis` in place (and returned)."""
-    if axis_size(axis) == 1:
-        return t
-    group, fake = _group(axis, t)
+def _reduce(t, axis: str, op: str = "sum"):
+    """`t` reduced over `axis` in place, counted."""
+    group, fake = _group(axis)
     if not (fake or t.is_meta):
         dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=group)
     _record("all_reduce", t, t)
     return t
 
 
-def all_gather(t, axis: str, dim: int = 0):
-    """Every `axis` rank's `t` concatenated along `dim` in rank order."""
+def _gather(t, axis: str, dim: int):
     m = axis_size(axis)
-    if m == 1:
-        return t
-    group, fake = _group(axis, t)
+    group, fake = _group(axis)
     if fake or t.is_meta:
         shape = list(t.shape)
         shape[dim] *= m
@@ -228,13 +244,9 @@ def all_gather(t, axis: str, dim: int = 0):
     return out
 
 
-def reduce_scatter(t, axis: str, dim: int = 0):
-    """The sum of every `axis` rank's `t`, cut evenly along `dim`: this
-    rank's piece."""
+def _scatter(t, axis: str, dim: int):
     m = axis_size(axis)
-    if m == 1:
-        return t
-    group, fake = _group(axis, t)
+    group, fake = _group(axis)
     if t.shape[dim] % m:
         raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
                          f"split over {m} {axis!r} ranks")
@@ -249,3 +261,130 @@ def reduce_scatter(t, axis: str, dim: int = 0):
         out = out.movedim(0, dim)
     _record("reduce_scatter", t, out)
     return out
+
+
+def _records(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over an axis whose result every rank consumes alike: the
+    gradient passes as it is (Megatron's "g")."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return _reduce(t.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity in front of work whose gradient each rank holds a
+    part of: the gradient is summed over the axis (Megatron's "f")."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.clone(), ctx.axis), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, grad):
+        ctx.axis, ctx.dim, ctx.grad = axis, dim, grad
+        ctx.n = t.shape[dim]
+        return _gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "scatter":
+            return _scatter(g, ctx.axis, ctx.dim), None, None, None
+        r = axis_rank(ctx.axis)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _scatter(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.axis, ctx.dim), None, None
+
+
+def all_reduce(t, axis: str, op: str = "sum"):
+    """`t` reduced over `axis`. In place (and returned) unless autograd
+    records `t`: then a new tensor, a sum's gradient passing unchanged
+    (every rank consumes the sum alike); a max or min takes no
+    gradient."""
+    if axis_size(axis) == 1:
+        return t
+    if not _records(t):
+        return _reduce(t, axis, op)
+    if op != "sum":
+        return _reduce(t.detach().clone(), axis, op)
+    return _AllReduce.apply(t, axis)
+
+
+def copy_to(t, axis: str = "model"):
+    """`t` as it is; its gradient is summed over `axis` (each rank's
+    consumers hold a part of it: a column-split product, a share of the
+    heads, of the experts' d_ff or of the vocabulary)."""
+    if axis_size(axis) == 1 or not _records(t):
+        return t
+    return _CopyTo.apply(t, axis)
+
+
+def all_gather(t, axis: str, dim: int = 0, grad: str = "scatter"):
+    """Every `axis` rank's `t` concatenated along `dim` in rank order.
+    The gradient of this rank's piece is, with `grad="scatter"`, the sum
+    over the ranks of their gradients at it (a reduce-scatter: each rank
+    reads the whole tensor differently), with `grad="slice"` this rank's
+    own slice of its gradient (every rank computes the same from it)."""
+    if axis_size(axis) == 1:
+        return t
+    if not _records(t):
+        return _gather(t, axis, dim)
+    return _AllGather.apply(t, axis, dim, grad)
+
+
+def reduce_scatter(t, axis: str, dim: int = 0):
+    """The sum of every `axis` rank's `t`, cut evenly along `dim`: this
+    rank's piece. Its gradient is all-gathered."""
+    if axis_size(axis) == 1:
+        return t
+    if not _records(t):
+        return _scatter(t, axis, dim)
+    return _ReduceScatter.apply(t, axis, dim)
+
+
+def piece_sum(parts) -> torch.Tensor:
+    """The sum over the mesh of per-piece scalars: `parts` holds (a
+    float32 scalar of this rank's piece, the axes that piece is split
+    on); a piece replicated over an axis is counted once. The scalars
+    that share their axes are added first, in order (without a split,
+    the plain sum in `parts`' order), then each axis of size > 1 is
+    summed over once, for the sums split on it (at most one all-reduce
+    per axis, of a vector)."""
+    by: Dict[Tuple[str, ...], Any] = {}
+    for v, axes in parts:
+        key = tuple(sorted(a for a in axes if axis_size(a) > 1))
+        by[key] = by[key] + v if key in by else v
+    total = by.pop((), None)
+    if by:
+        keys = sorted(by)
+        vec = torch.stack([by[k] for k in keys])
+        for a in sorted({a for k in keys for a in k}):
+            idx = [i for i, k in enumerate(keys) if a in k]
+            vec[idx] = all_reduce(vec[idx].clone(), a)
+        rest = vec.sum()
+        total = rest if total is None else total + rest
+    return total

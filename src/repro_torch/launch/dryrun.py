@@ -1,5 +1,5 @@
 """Multi-pod dry run: every (arch x shape) cell planned on the production
-meshes, and each serving cell's step run for rank 0 on the meta device.
+meshes, and each cell's step run for rank 0 on the meta device.
 
 Port of `repro.launch.dryrun`. For each cell it builds the production
 mesh (16 x 16 ``("data", "model")``, or 2 x 16 x 16 with ``"pod"``)
@@ -11,11 +11,13 @@ chip count, and the bytes one device holds of the parameters, the
 optimizer state (train), the batch and the decode cache, from the
 plans' DTensor placements.
 
-Where `lower_cell` returns a step (the prefill and decode cells of the
-dense, MoE, vision and SSM archs), `step_costs` runs it for rank 0 on
-meta tensors: the model cut to rank 0's pieces (`shard_params`), its
-batch and cache likewise, the collectives recorded by the fake group
-without communicating. Per device it records what the reference reads
+`step_costs` runs each cell's step (`lower_cell`'s) for rank 0 on meta
+tensors: the model cut to rank 0's pieces (`shard_params`), its batch,
+cache and ZeRO optimizer pieces likewise, the collectives recorded by
+the fake group without communicating. A train step counts its forward,
+the recomputation under remat, the backward and the optimizer's
+collectives; its k microbatches are k passes alike, so one runs and is
+counted k times, and the peak adds the k gradients' float32 sums. Per device it records what the reference reads
 from the compiled HLO: `flops_per_device` (2 x output elements x K of
 every matmul, attention's and K4's products included, `models.cost`),
 `hbm_bytes_per_device` (each matmul, fused call and collective reads
@@ -23,14 +25,13 @@ its operands once and writes its result once), `collectives` (count,
 payload and link bytes per kind, ring factors all-gather 1, all-reduce
 2, reduce-scatter 1) and `peak_bytes_per_device` (the high-water mark
 of live meta-tensor bytes, parameters, batch and cache included, by
-`torch.distributed._tools.mem_tracker.MemTracker`). The other cells
-(train, the RG-LRU hybrid, the encoder-decoder) keep the plan's record
-with `plan_only`, the reason and the slice that runs them.
+`torch.distributed._tools.mem_tracker.MemTracker`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod]
   python -m repro_torch.launch.dryrun --all --both-meshes
+  python -m repro_torch.launch.dryrun --all --shape train_4k   # one shape
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     from repro_torch.configs import SHAPES, get_config, skip_reason
     from repro_torch.launch import sharding as shr
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import lower_cell, plan_only
+    from repro_torch.launch.steps import lower_cell
 
     t0 = time.time()
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod)}
@@ -92,12 +93,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         bytes_per_device={k: shr.bytes_per_device(t, mesh)
                           for k, t in trees.items()},
         t_plan_s=round(time.time() - t0, 3))
-    if step is None:
-        rec["plan_only"] = plan_only(cfg, shape)
-    else:
-        t1 = time.time()
-        rec.update(step_costs(cfg, shape, plan, step, mesh),
-                   t_step_s=round(time.time() - t1, 3))
+    t1 = time.time()
+    rec.update(step_costs(cfg, shape, plan, step, mesh),
+               t_step_s=round(time.time() - t1, 3))
     return rec
 
 
@@ -113,13 +111,22 @@ def step_costs(cfg, shape, plan, step, mesh) -> dict:
     from repro_torch.launch import sharding as shr
     from repro_torch.models import Model
     from repro_torch.models.api import flatten_tree
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models.cost import Counter
+    from repro_torch.training.optimizer import AdamWConfig
 
     cfg = cfg.replace(vocab_pad_to=256)
     model = shr.shard_params(Model(cfg, device="meta"), plan["params"],
                              mesh, 0)
     batch = shr.shard_batch(input_specs(cfg, shape), plan["batch"], mesh, 0)
     args = [batch]
+    k = 1
+    if shape.kind == "train":
+        # k microbatches are k passes alike: one runs, counted k times
+        k = step.microbatches
+        n = next(iter(batch.values())).shape[0] // k
+        args = [shr.init_opt_pieces(plan["opt"], mesh, "meta"),
+                {key: v[:n] for key, v in batch.items()}]
     if shape.kind == "decode":
         cache = shr.shard_cache(
             model.cache_specs(shape.global_batch, shape.seq_len),
@@ -130,19 +137,37 @@ def step_costs(cfg, shape, plan, step, mesh) -> dict:
     shardctx.reset_collectives()
     mt = MemTracker()
     mt.track_external(model, *held)
+    more = {"flops": 0, "hbm_bytes": 0, "peak": 0}
     with mt, Counter() as count:
-        step(model, *args)
-    colls = {k: dict(v) for k, v in shardctx.COLLECTIVES.items()
+        if shape.kind != "train":
+            step(model, *args)
+        else:
+            zs = make_train_step(model, AdamWConfig(), 1, plan=plan,
+                                 mesh=mesh)
+            value, grads = zs.grads(args[1])
+            more = {"flops": (k - 1) * count.flops,
+                    "hbm_bytes": (k - 1) * count.hbm_bytes,
+                    # the k gradients' float32 sums
+                    "peak": (k > 1) * 4 * sum(p.numel()
+                                              for p in model.parameters())}
+            once = {kind: dict(v) for kind, v in
+                    shardctx.COLLECTIVES.items()}
+            zs.apply(args[0], value, grads)
+            for kind, v in once.items():
+                for f, x in v.items():
+                    shardctx.COLLECTIVES[kind][f] += (k - 1) * x
+    colls = {kind: dict(v) for kind, v in shardctx.COLLECTIVES.items()
              if v["count"]}
     peak = mt.get_tracker_snapshot("peak")
     return dict(
-        flops_per_device=count.flops,
-        hbm_bytes_per_device=count.hbm_bytes + sum(
+        flops_per_device=count.flops + more["flops"],
+        hbm_bytes_per_device=count.hbm_bytes + more["hbm_bytes"] + sum(
             v.pop("hbm_bytes") for v in colls.values()),
         collectives=colls,
         collective_link_bytes_per_device=sum(v["link_bytes"]
                                              for v in colls.values()),
-        peak_bytes_per_device=int(sum(d["Total"] for d in peak.values())))
+        peak_bytes_per_device=int(sum(d["Total"] for d in peak.values()))
+        + more["peak"])
 
 
 def cell_path(arch: str, shape: str, multi_pod: bool,
@@ -163,8 +188,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from repro_torch.configs import SHAPES, list_archs
     meshes = (False, True) if args.both_meshes else (args.multi_pod,)
-    if args.all:
-        cells = [(a, s) for a in list_archs() for s in SHAPES]
+    if args.all:          # every cell, or every cell of --arch / --shape
+        cells = [(a, s) for a in list_archs() for s in SHAPES
+                 if args.arch in (None, a) and args.shape in (None, s)]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:

@@ -32,8 +32,8 @@ under FSDP), the plan places whole layers on the "data" ranks, and the
 per-device bytes count it so. Caches are planned per layer: the
 reference never shards a cache's stack dimension.
 
-`shard_params`, `shard_cache` and `shard_batch` carry out a plan on
-one rank: they cut the one-process trees (a `Model` built or bridged as
+`shard_params`, `shard_cache`, `shard_batch` and `shard_opt_state`
+carry out a plan on one rank: they cut the one-process trees (a `Model` built or bridged as
 for one device, a cache, a batch) into the pieces that rank holds, so
 the tensor-parallel model code (`models.layers`, `models.blocks`,
 `models.model`, `models.moe`) runs on them under
@@ -337,13 +337,7 @@ def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
     FSDP-sharded over "data" is registered with its module, whose
     `__getitem__` gathers it over "data" where it is read; "model"
     shares stay as they are (the experts' among them: their d_ff slices,
-    which `moe.moe_layer_sharded` reads with this rank's rows). The
-    RG-LRU hybrid and the
-    encoder-decoder are refused: their splits do not run yet."""
-    if model.cfg.family in ("hybrid", "encdec"):
-        raise NotImplementedError(
-            f"{model.cfg.family}: its tensor-parallel splits do not run "
-            "yet (ROADMAP queue 1 item 10)")
+    which `moe.moe_layer_sharded` reads with this rank's rows)."""
     for mname, mod in list(model.named_modules()):
         for leaf, p in list(mod.named_parameters(recurse=False)):
             name = f"{mname}.{leaf}" if mname else leaf
@@ -360,8 +354,10 @@ def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
 
 def shard_cache(cache, plan: Mapping[str, Placed], mesh, rank: int):
     """Rank `rank`'s pieces of a decode cache (`init_cache`'s or
-    prefill's tree) under `cache_pspecs`, as a new tree of the same
-    form; the host-side counters are kept."""
+    prefill's tree: the decoder-only model's, the RG-LRU's `h` / `conv`
+    leaves included, or the encoder-decoder's list of layers) under
+    `cache_pspecs`, as a new tree of the same form; the host-side
+    counters are kept."""
     def walk(tree, prefix):
         if isinstance(tree, dict):
             return {k: walk(v, f"{prefix}{k}.") for k, v in tree.items()}
@@ -372,6 +368,66 @@ def shard_cache(cache, plan: Mapping[str, Placed], mesh, rank: int):
             return tree
         return _own(local_piece(tree, plan[name].spec, mesh, rank))
     return walk(cache, "")
+
+
+def stacked_groups(cfg, names) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """{reference path: (the port leaf names it holds, in layer order,
+    whether it is stacked over layers)}: the groups the parameter and
+    optimizer plans are made over."""
+    out: Dict[str, list] = {}
+    for n in names:
+        path, stacked = reference_path(cfg, n)
+        out.setdefault(path, [[], stacked])[0].append(n)
+    return {p: (tuple(ns), st) for p, (ns, st) in out.items()}
+
+
+def stack_group(leaves: Mapping[str, torch.Tensor], names, stacked: bool):
+    """One group's tensors as the reference's leaf: stacked over layers,
+    or the one tensor."""
+    if stacked:
+        return torch.stack([leaves[n] for n in names])
+    return leaves[names[0]]
+
+
+def local_shape(placed: Placed, mesh) -> Tuple[int, ...]:
+    """The shape one rank holds of a planned tensor."""
+    sizes, shape = axis_sizes(mesh), list(placed.shape)
+    for d, axes in enumerate(placed.spec):
+        for a in axes:
+            shape[d] //= sizes[a]
+    return tuple(shape)
+
+
+def init_opt_pieces(opt_plan, mesh, device, compression: bool = False):
+    """A rank's zero AdamW state under the optimizer plan (`opt_pspecs`):
+    {"m", "v": {reference path: float32 piece}, "step"}, plus the int8
+    codec's error pieces as "ef" with `compression`."""
+    def zeros():
+        return {k: torch.zeros(local_shape(p, mesh), dtype=torch.float32,
+                               device=device)
+                for k, p in opt_plan["m"].items()}
+    state = {"m": zeros(), "v": zeros(),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if compression:
+        state["ef"] = zeros()
+    return state
+
+
+def shard_opt_state(state, plan, mesh, rank: int, cfg):
+    """Rank `rank`'s pieces of a one-process optimizer state (keyed by
+    the port's leaf names, `steps.init_opt_state` or
+    `bridge.opt_state_from_jax`) under the optimizer plan (`opt_pspecs`):
+    each stacked group's moments (and error buffers) stacked as the
+    reference's leaf and cut to the rank's piece, keyed by the reference
+    path; the step is kept."""
+    groups = stacked_groups(cfg, state["m"])
+    out = {"step": state["step"].clone()}
+    for key in ("m", "v", "ef"):
+        if key in state:
+            out[key] = {p: _own(local_piece(
+                stack_group(state[key], names, st), plan["m"][p].spec, mesh,
+                rank)) for p, (names, st) in groups.items()}
+    return out
 
 
 def shard_batch(batch: Mapping[str, torch.Tensor],

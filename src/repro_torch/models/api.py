@@ -171,7 +171,12 @@ class Model(Params):
     def value_and_grad(self, batch: Dict):
         """`jax.value_and_grad(model.loss, has_aux=True)`: ((loss, {"ce",
         "aux"}), {leaf name: gradient}), each gradient in its parameter's
-        dtype, zeros for a leaf the loss does not reach."""
+        dtype, zeros for a leaf the loss does not reach. Under a pinned
+        plan the leaves are this rank's pieces and the batch its rows:
+        each gradient is this rank's part of the data-parallel sum, but
+        for an FSDP piece, whose gather's backward has summed it over
+        "data" already (`launch.steps.make_train_step(..., plan=)` sums
+        the rest)."""
         names, leaves = zip(*self.named_parameters())
         for p in leaves:
             p.requires_grad_(True)

@@ -169,6 +169,30 @@ class _Flash(torch.autograd.Function):
                 dv.transpose(1, 2).to(v.dtype), None, None, None, None, None)
 
 
+class _FlashMeta(torch.autograd.Function):
+    """`_Flash` on meta tensors (the dry run): the results' shapes, and
+    the counts of the live blocks' products (`cost.fused`): two in the
+    forward; five in the backward (the scores again, dV, dP, dQ, dK),
+    which reads q, k, v, o, lse and dO and writes dQ, dK, dV."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_flops):
+        o = torch.empty_like(q)
+        cost.fused(2 * block_flops, (q, k, v), (o,))
+        ctx.save_for_backward(q, k, v, o)
+        ctx.block_flops = block_flops
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o = ctx.saved_tensors
+        B, S, H, _ = q.shape
+        lse = q.new_empty((B, S, H), dtype=torch.float32)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        cost.fused(5 * ctx.block_flops, (q, k, v, o, lse, g), (dq, dk, dv))
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None, block_q: int = 512,
                     block_kv: int = 512):
@@ -186,9 +210,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         B, _, H, d = q.shape
         pairs = sum(1 for _ in _live_pairs(Sq // bq, Sk // bkv, bq, bkv,
                                            kv_len, causal, window))
-        o = torch.empty_like(q)
-        cost.fused(4 * B * H * bq * bkv * d * pairs, (q, k, v), (o,))
-        return o
+        return _FlashMeta.apply(q, k, v, 2 * B * H * bq * bkv * d * pairs)
     return _Flash.apply(q, k, v, bool(causal), int(window), kv_len, bq, bkv)
 
 

@@ -33,10 +33,14 @@ Under a mesh pinned with `distributed.shardctx.sharding_rules` the
 blocks run the Megatron plan of `launch.sharding` on the pieces a rank
 holds (`sharding.shard_params`): the attention's and the SSD's
 projections split by columns and `wo` / `out_proj` by rows, each mixer
-on its local heads, its output summed over "model"; the shares are read
-from the weights' shapes, so without a mesh (every share whole) the
-code computes exactly what it did before. The dense MLP is
-`layers.mlp`'s.
+on its local heads, its output summed over "model"; the RG-LRU on its
+share of the channels (`rglru_forward`); the shares are read from the
+weights' shapes, so without a mesh (every share whole) the code
+computes exactly what it did before. The dense MLP is `layers.mlp`'s.
+In train mode the same code runs under autograd: the collectives carry
+their backward (`distributed.shardctx`: Megatron's "f" in front of
+every column-split product, `copy_to`, and "g" after every row-split
+one, `all_reduce`).
 
 `block_forward` returns (x, new_cache, aux): aux is the MoE layer's
 load-balance loss, a float32 scalar, and 0.0 for a dense MLP or none.
@@ -49,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.shardctx import all_gather, all_reduce, axis_size, \
-    kv_cache_dim, local_range, share
+    copy_to, kv_cache_dim, local_range, share
 from ..kernels import ssd_scan as k4
 from . import cost
 from .attention import decode_attention, flash_attention, repeat_kv, \
@@ -121,16 +125,20 @@ def _prefill_cache(k, v, C: int):
             "positions": p_j.to(torch.int32)}
 
 
-def whole_columns(parts, axis: str = "model"):
+def whole_columns(parts, axis: str = "model", grad: str = "scatter"):
     """Whole tensors from this rank's column shares. `parts` holds (local
     tensor, full width) pairs; the shares that are split go through one
     all-gather over `axis` (of their concatenation), the others are
-    whole already."""
+    whole already. `grad` is the all-gather's backward
+    (`shardctx.all_gather`): "scatter" where each rank reads the whole
+    tensors differently (its heads, its channels' gates), "slice" where
+    every rank computes the same from them."""
     out = [t for t, _ in parts]
     cut = [i for i, (t, full) in enumerate(parts) if t.shape[-1] != full]
     if not cut:
         return out
-    got = all_gather(torch.cat([out[i] for i in cut], -1)[None], axis, 0)
+    got = all_gather(torch.cat([out[i] for i in cut], -1)[None], axis, 0,
+                     grad=grad)
     for i, piece in zip(cut, got.split([out[i].shape[-1] for i in cut], -1)):
         out[i] = piece.movedim(0, -2).flatten(-2)     # rank order
     return out
@@ -144,10 +152,14 @@ def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     cache); otherwise (the plan cuts a head, e.g. 8 KV heads over 16
     ranks) the projections are gathered to whole heads over "model"
     (`whole_columns`, one all-gather) and `_attn_cut` runs. The output
-    is summed over "model" where `wo` is split (one all-reduce)."""
+    is summed over "model" where `wo` is split (one all-reduce). Under
+    autograd the input's gradient is summed over "model" where the
+    projections are split (`shardctx.copy_to`)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     wq, wo = p["wq"], p["wo"]
+    if wq.shape[1] != H * hd or p["wk"].shape[1] != K * hd:
+        x = copy_to(x, "model")
     q, k, v = x @ wq, x @ p["wk"], x @ p["wv"]
     Hc, Kc = q.shape[-1], k.shape[-1]
     if Hc % hd == 0 and Kc % hd == 0 and Hc * K == Kc * H:
@@ -157,15 +169,17 @@ def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                                    mode, cache, pos, pad_to)
         out = o.reshape(B, S, Hc) @ wo
     else:
-        q, k, v = whole_columns([(q, H * hd), (k, K * hd), (v, K * hd)])
         lo, hi = local_range(H * hd, wo.shape[0])
+        q, k, v = whole_columns(
+            [(q, H * hd), (k, K * hd), (v, K * hd)],
+            grad="scatter" if hi - lo < H * hd else "slice")
         o, new_cache = _attn_cut(
             q.view(B, S, H, hd), k.view(B, S, K, hd), v.view(B, S, K, hd),
             lo // hd, -(-hi // hd), p, cfg, blk, mode, cache, pos, pad_to)
         h0 = lo // hd * hd
         out = o.reshape(B, S, -1)[..., lo - h0:hi - h0] @ wo
     if wo.shape[0] != H * hd:
-        all_reduce(out, "model")
+        out = all_reduce(out, "model")
     return out, new_cache
 
 
@@ -175,10 +189,16 @@ def _rope(q, k, blk: BlockCfg, mode: str, pos: int, S: int):
     return apply_rope(q, at, blk.rope_theta), apply_rope(k, at, blk.rope_theta)
 
 
-def _qk(q, k, p, cfg: ModelConfig):
+def _qk(q, k, p, cfg: ModelConfig, split: bool = False):
+    """The q/k norms; `split` where this rank attends a share of the
+    heads, whose gradient of the (whole) norm scales is summed over
+    "model"."""
     if cfg.qk_norm:
-        q = _qk_norm(q, p["q_norm"], cfg.norm_eps)
-        k = _qk_norm(k, p["k_norm"], cfg.norm_eps)
+        qs, ks = p["q_norm"], p["k_norm"]
+        if split:
+            qs, ks = copy_to(torch.stack([qs, ks]), "model").unbind(0)
+        q = _qk_norm(q, qs, cfg.norm_eps)
+        k = _qk_norm(k, ks, cfg.norm_eps)
     return q, k
 
 
@@ -187,7 +207,8 @@ def _attn_heads(q, k, v, p, cfg: ModelConfig, blk: BlockCfg, mode: str,
     """Whole heads: q (B, S, Hl, hd) against this rank's KV heads k, v
     (B, S, Kl, hd). Returns (o (B, S, Hl, hd), new cache)."""
     S = q.shape[1]
-    q, k = _rope(*_qk(q, k, p, cfg), blk, mode, pos, S)
+    q, k = _rope(*_qk(q, k, p, cfg, q.shape[2] != cfg.n_heads), blk, mode,
+                 pos, S)
     if mode == "decode":
         C = cache["k"].shape[1]
         slot = pos % C
@@ -219,7 +240,7 @@ def _attn_cut(q, k, v, h0: int, h1: int, p, cfg: ModelConfig,
     (B, S, h1 - h0, hd), new cache)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
-    q, k = _rope(*_qk(q, k, p, cfg), blk, mode, pos, S)
+    q, k = _rope(*_qk(q, k, p, cfg, h1 - h0 < H), blk, mode, pos, S)
     kv_dim = kv_cache_dim(blk.cache_len(max(pad_to, S)) if mode != "decode"
                           else cache["positions"].shape[0], K, hd,
                           axis_size("model"))
@@ -287,12 +308,18 @@ def rglru_params(gen, cfg: ModelConfig, dtype=None):
             "conv": conv_params(gen, cfg.conv_width, W, dtype)}
 
 
-def _lru_gates(u, p):
+def _lru_gates(u, p, W: int):
     """(a, b) of h_t = a_t h_(t-1) + b_t, float32. The square root is
-    taken in float64 and rounded once (XLA's is correctly rounded)."""
+    taken in float64 and rounded once (XLA's is correctly rounded). `u`
+    may be this rank's share of the W channels: the gates' products read
+    every channel, so u is gathered over "model" for them (one
+    all-gather, its gradient reduce-scattered back), and the rest is
+    per channel."""
     uf = u.float()
-    i_t = torch.sigmoid(uf @ p["w_i"].float())
-    r_t = torch.sigmoid(uf @ p["w_r"].float())
+    uw, = whole_columns([(u, W)])
+    uw = uw.float()
+    i_t = torch.sigmoid(uw @ p["w_i"].float())
+    r_t = torch.sigmoid(uw @ p["w_r"].float())
     lam = p["lam"]
     log_sig = -_softplus(-torch.log(lam / (1 - lam)))     # jax log_sigmoid
     log_a = _LRU_C * log_sig * r_t                         # (..., W) < 0
@@ -335,23 +362,40 @@ def _lru_scan(a, b):
 
 def rglru_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                   pos: int, pad_to: int = 0):
-    w = cfg.conv_width
+    """Under a pinned mesh `p` holds this rank's W / model channels
+    (`w_in`, `w_gate_branch`, `lam` and the columns of `w_i` / `w_r`;
+    `w_out`'s rows; the conv's, except where the plan keeps a stacked
+    leaf's conv whole (its rule reads two dimensions), which the rank
+    then reads its share of; `launch.sharding`): the conv, the gates'
+    elementwise terms, the scan and the `h` / `conv` caches run on those
+    channels, the gates' products read all of u (`_lru_gates`: one
+    all-gather) and the output is summed over "model" (one
+    all-reduce)."""
+    w, W = cfg.conv_width, cfg.lru_width or cfg.d_model
+    split = p["w_in"].shape[1] != W
+    conv = {"w": p["conv"]["w"]}
+    if split:
+        x = copy_to(x, "model")
+        if conv["w"].shape[1] == W:     # kept whole: a stacked leaf's plan
+            lo, hi = local_range(W, p["w_in"].shape[1])
+            conv["w"] = copy_to(conv["w"], "model")[:, lo:hi]
     u_in = x @ p["w_in"]
     gate = apply_act(x @ p["w_gate_branch"], "gelu")
     if mode == "decode":
-        u, conv_state = conv_step(u_in[:, 0], cache["conv"], p["conv"], w)
-        a, b = _lru_gates(u, p)
+        u, conv_state = conv_step(u_in[:, 0], cache["conv"], conv, w)
+        a, b = _lru_gates(u, p, W)
         h = a * cache["h"] + b
         y = h[:, None].to(x.dtype)
         new_cache = {"h": h, "conv": conv_state}
     else:
-        a, b = _lru_gates(causal_conv(u_in, p["conv"], w), p)
+        a, b = _lru_gates(causal_conv(u_in, conv, w), p, W)
         _, h = _lru_scan(a, b)
         y = h.to(x.dtype)
         new_cache = None if mode == "train" else {
             "h": h[:, -1].contiguous(),
             "conv": u_in[:, -(w - 1):].contiguous()}
-    return (y * gate) @ p["w_out"], new_cache
+    out = (y * gate) @ p["w_out"]
+    return (all_reduce(out, "model") if split else out), new_cache
 
 
 def rglru_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
@@ -499,8 +543,10 @@ def _share_of(t, lo: int, hi: int, full: int, dim: int = 0):
 
 
 def _norm_sum(t):
-    """The gated norm's sum of squares over "model" (its width split)."""
-    return all_reduce(t, "model")
+    """The gated norm's sum of squares over "model" (its width split).
+    Each rank scales its own channels by the result, so its gradient is
+    summed over "model" too."""
+    return copy_to(all_reduce(t, "model"), "model")
 
 
 def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
@@ -513,24 +559,35 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     before the rsqrt (one all-reduce), and so is the output (one more).
     `in_B` / `in_C` are whole; where the plan splits their conv caches
     over "model", a decode step convolves the rank's channels and
-    gathers the others (one all-gather for both)."""
+    gathers the others (one all-gather for both).
+
+    Under autograd, where the heads are split, the gradients that each
+    rank holds a part of are summed over "model": the input's of the
+    split projections, that of the (whole) B / C after their conv, and
+    that of the per-head parameters the plan keeps whole (one all-reduce
+    each, `shardctx.copy_to`)."""
     B, S, _ = x.shape
     di, N, G, nh, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                        cfg.ssm_heads, cfg.ssm_head_dim)
     w, GN = cfg.conv_width, G * N
-    z = x @ p["in_z"]
-    xr = x @ p["in_x"]
+    split = p["in_dt"].shape[-1] != nh
+    xc = copy_to(x, "model") if split else x
+    z = xc @ p["in_z"]
+    xr = xc @ p["in_x"]
     Br = x @ p["in_B"]
     Cr = x @ p["in_C"]
-    dt_raw = x @ p["in_dt"]
+    dt_raw = xc @ p["in_dt"]
     lo, hi = local_range(nh, dt_raw.shape[-1])
     nhl, rep = hi - lo, nh // G
     g0, g1 = lo // rep, -(-hi // rep)
     if xr.shape[-1] != nhl * P or (G > 1 and (lo % rep or hi % rep)):
         raise NotImplementedError("a plan that cuts an SSD head or group")
-    A = -torch.exp(_share_of(p["A_log"], lo, hi, nh))     # (nhl,)
-    dt_bias = _share_of(p["dt_bias"], lo, hi, nh)
-    D_skip = _share_of(p["D_skip"], lo, hi, nh)
+    heads = torch.stack([p["A_log"], p["dt_bias"], p["D_skip"]])
+    if split:
+        heads = copy_to(heads, "model")
+    A_log, dt_bias, D_skip = (_share_of(t, lo, hi, nh)
+                              for t in heads.unbind(0))
+    A = -torch.exp(A_log)                                  # (nhl,)
     conv_x = {"w": _share_of(p["conv_x"]["w"], lo * P, hi * P, di, 1)}
     clo, chi = share(GN)              # the conv_B / conv_C caches' share
 
@@ -559,6 +616,8 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
         xh = apply_act(causal_conv(xr, conv_x, w), "silu")
         Bm = apply_act(causal_conv(Br, p["conv_B"], w), "silu")
         Cm = apply_act(causal_conv(Cr, p["conv_C"], w), "silu")
+        if split:
+            Bm, Cm = copy_to(Bm, "model"), copy_to(Cm, "model")
         xh = xh.reshape(B, S, nhl, P)
         Bm = Bm.reshape(B, S, G, N)[:, :, g0:g1].float()
         Cm = Cm.reshape(B, S, G, N)[:, :, g0:g1].float()
@@ -581,7 +640,7 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
         1.0 + _share_of(p["out_norm"], lo * P, hi * P, di).float())
     out = yf.to(x.dtype) @ p["out_proj"]
     if nhl != nh:
-        all_reduce(out, "model")
+        out = all_reduce(out, "model")
     return out, new_cache
 
 

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.shardctx import all_reduce, local_range
+from ..distributed.shardctx import all_reduce, copy_to, data_axes, \
+    local_range
 
 
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
@@ -123,12 +124,13 @@ def mlp(x, p, act: str = "silu", glu: bool = True, d_ff: int = 0):
     `down`, `launch.sharding`): the output is then summed over "model"
     (one all-reduce)."""
     down = p["down"]
+    split = bool(d_ff) and down.shape[0] != d_ff
+    if split:
+        x = copy_to(x, "model")
     up = x @ p["up"]
     h = apply_act(x @ p["gate"], act) * up if glu else apply_act(up, act)
     out = h @ down
-    if d_ff and down.shape[0] != d_ff:
-        all_reduce(out, "model")
-    return out
+    return all_reduce(out, "model") if split else out
 
 
 # -- embedding and the chunked cross-entropy loss -----------------------------
@@ -157,12 +159,13 @@ def embed_lookup(tokens, table, rows: int = 0):
     plan's split over "model"): each rank looks up the tokens it holds,
     zeros for the others, and the rows are summed over "model" (one
     all-reduce; reference lines 113-116), exactly the row, as every other
-    rank adds zeros."""
+    rank adds zeros; the gradient reaches this rank's own rows."""
     if not rows or table.shape[0] == rows:
         return _Embed.apply(table, tokens)
     lo, hi = local_range(rows, table.shape[0])
     mine = (tokens >= lo) & (tokens < hi)
-    x = table[(tokens - lo).clamp(0, hi - lo - 1)] * mine[..., None]
+    x = _Embed.apply(table, (tokens - lo).clamp(0, hi - lo - 1)) \
+        * mine[..., None]
     return all_reduce(x, "model")
 
 
@@ -175,36 +178,62 @@ def remat(on: bool, fn, *args):
     return fn(*args)
 
 
-def _chunk_ce(h, table, labels, mask, valid_vocab: int):
+def _chunk_ce(h, table, labels, mask, valid_vocab: int, lo: int,
+              split: bool):
     """CE over one token chunk; float32 logits from the table-dtype
-    product, padded vocabulary rows at -1e30. Returns (sum of the masked
-    losses, sum of the mask)."""
-    logits = (h @ table.T).float()                       # (T, Vp)
-    if valid_vocab and valid_vocab < table.shape[0]:
-        pad = torch.arange(table.shape[0], device=h.device) < valid_vocab
-        logits = torch.where(pad[None, :], logits, -1e30)
-    lse = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, labels[:, None])[:, 0]
+    product, padded vocabulary rows at -1e30. The table may be this
+    rank's vocabulary share, rows [lo, lo + its rows): the log-sum-exp
+    then takes the max over "model" (no gradient), sums the exponentials
+    over "model", and the rank holding a label gives its logit (two
+    all-reduces and a max). Returns (sum of the masked losses, sum of
+    the mask)."""
+    logits = (h @ table.T).float()                       # (T, Vl)
+    Vl = table.shape[0]
+    if valid_vocab and lo + Vl > valid_vocab:
+        cols = torch.arange(lo, lo + Vl, device=h.device) < valid_vocab
+        logits = torch.where(cols[None, :], logits, -1e30)
+    if not split:
+        lse = torch.logsumexp(logits, -1)
+        gold = logits.gather(-1, labels[:, None])[:, 0]
+    else:
+        m = all_reduce(logits.detach().amax(-1), "model", op="max")
+        lse = m + torch.log(all_reduce(
+            torch.exp(logits - m[:, None]).sum(-1), "model"))
+        own = (labels >= lo) & (labels < lo + Vl)
+        gold = all_reduce(torch.where(own, logits.gather(
+            -1, (labels - lo).clamp(0, Vl - 1)[:, None])[:, 0], 0.0),
+            "model")
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
 def chunked_ce_loss(h, table, labels, mask=None, chunk: int = 1024,
-                    valid_vocab: int = 0):
+                    valid_vocab: int = 0, rows: int = 0):
     """Mean cross-entropy of h (B, S, D) against the (V, D) unembedding
     at labels (B, S), over the positions `mask` (B, S) keeps (all by
     default). Chunks are taken along the sequence, cs = max(chunk // B,
     1) positions of every row at a time (one chunk when S % cs or S <=
     cs); each chunk's logits are recomputed in the backward, so the
-    (B, S, V) logits are never resident (reference lines 135-183)."""
+    (B, S, V) logits are never resident (reference lines 135-183).
+
+    Under a tensor-parallel plan, given the full row count `rows`, the
+    table may be this rank's vocabulary share (`_chunk_ce`; h's gradient
+    is then summed over "model"), and the rows of h this rank's data
+    shard: the masked-loss sum and the mask count are summed over the
+    data axes the batch is split on (`shardctx.data_axes`), so the loss
+    is the global token mean, and the count takes no gradient."""
     B, S, D = h.shape
     labels = labels.long()
     mask_f = (torch.ones((B, S), dtype=torch.float32, device=h.device)
               if mask is None else mask.float())
+    lo, split = 0, bool(rows) and table.shape[0] != rows
+    if split:
+        lo, _ = local_range(rows, table.shape[0])
+        h = copy_to(h, "model")
 
     def one(hc, lc, mc):
         return checkpoint(_chunk_ce, hc.reshape(-1, D), table,
-                          lc.reshape(-1), mc.reshape(-1), valid_vocab,
-                          use_reentrant=False, preserve_rng_state=False)
+                          lc.reshape(-1), mc.reshape(-1), valid_vocab, lo,
+                          split, use_reentrant=False, preserve_rng_state=False)
     cs = max(chunk // B, 1)
     if S % cs != 0 or S <= cs:
         loss, cnt = one(h, labels, mask_f)
@@ -214,4 +243,7 @@ def chunked_ce_loss(h, table, labels, mask=None, chunk: int = 1024,
                               mask_f.split(cs, 1)):
             l, k = one(hc, lc, mc)
             loss, cnt = loss + l, cnt + k
+    for a in data_axes():
+        loss = all_reduce(loss, a)
+        cnt = all_reduce(cnt.detach(), a)
     return loss / cnt.clamp_min(1.0)

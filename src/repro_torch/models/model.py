@@ -25,7 +25,11 @@ are this rank's vocabulary share: `embed_lookup` sums the rows over
 "model", `masked_logits` returns the share's columns (the padded ones
 masked on the rank that holds them) and `greedy_tokens` picks the token
 across the shares without gathering the logits. The vision
-`frontend_proj` split by columns is gathered over "model".
+`frontend_proj` split by columns is gathered over "model". `loss_fn`
+runs there too, on this rank's rows: the chunked CE over the vocabulary
+share, the loss the global token mean over the data shards
+(`layers.chunked_ce_loss`), the gradients flowing back through the
+collectives (`distributed.shardctx`).
 """
 from __future__ import annotations
 
@@ -140,7 +144,7 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str, cache=None,
     if cfg.frontend != "none" and mode != "decode" \
             and frontend_embeds is not None:
         fe = frontend_embeds.to(cfg.dtype) @ params["frontend_proj"]
-        fe, = whole_columns([(fe, cfg.d_model)])
+        fe, = whole_columns([(fe, cfg.d_model)], grad="slice")
         x = torch.cat([fe, x], dim=1)
     aux, new_cache = 0.0, None
     if mode == "train":
@@ -170,7 +174,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
         h = h[:, batch["frontend_embeds"].shape[1]:]
     ce = chunked_ce_loss(h, _unembed_table(params, cfg), batch["labels"],
                          batch.get("loss_mask"), cfg.loss_chunk,
-                         valid_vocab=cfg.vocab)
+                         valid_vocab=cfg.vocab, rows=cfg.padded_vocab)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

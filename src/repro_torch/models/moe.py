@@ -61,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.shardctx import all_reduce, axis_size, axis_sizes, \
-    batch_axes, current, local_range, placements
+    batch_axes, copy_to, current, local_range, placements
 from .layers import apply_act, dense_init
 
 
@@ -76,10 +76,15 @@ def moe_params(gen, d: int, f: int, n_experts: int, glu: bool,
 
 
 def moe_layer(x, p, *, top_k: int, capacity_factor: float,
-              act: str = "silu", glu: bool = True, no_drop: bool = False):
+              act: str = "silu", glu: bool = True, no_drop: bool = False,
+              ff_split: bool = False):
     """x: (..., D) -> (out (..., D) in x's dtype, aux load-balance loss, a
     float32 scalar). no_drop=True sets the capacity to the token count, so
-    no pair is dropped (decode)."""
+    no pair is dropped (decode). `ff_split`: the experts are this rank's
+    d_ff slices, so `out` is a part of the sum over "model" and the
+    gradients of the experts' input and of the combine weights are
+    summed over "model" (`shardctx.copy_to`); the routing and `aux`,
+    which every "model" rank computes alike, are not."""
     shape = x.shape
     D = shape[-1]
     x2 = x.reshape(-1, D)
@@ -114,6 +119,8 @@ def moe_layer(x, p, *, top_k: int, capacity_factor: float,
     keep = kept.to(x2.dtype)
     slot = pos_in_e.clamp(0, C - 1)
 
+    if ff_split:
+        x2, w = copy_to(x2, "model"), copy_to(w, "model")
     x_rep = x2.repeat_interleave(k, dim=0)                       # (T*k, D)
     buf = torch.zeros((E, C, D), dtype=x2.dtype, device=x.device)
     buf.index_put_((flat_e, slot), x_rep * keep[:, None], accumulate=True)
@@ -184,13 +191,15 @@ def moe_layer_sharded(x, p, *, top_k: int, capacity_factor: float,
                 aux)
     rows_pl = placements((ba,) + ((),) * (x.dim() - 1), mesh)
     xl = x.redistribute(mesh, rows_pl).to_local() if whole else x
-    out, aux = moe_layer(xl, _to_local(p, mesh, full=whole), **kw)
-    if sizes.get("model", 1) > 1:
-        all_reduce(out, "model")
+    split = sizes.get("model", 1) > 1
+    out, aux = moe_layer(xl, _to_local(p, mesh, full=whole),
+                         ff_split=split, **kw)
+    if split:
+        out = all_reduce(out, "model")
     aux = aux.reshape(1)
     for a in ba:
         if sizes[a] > 1:
-            all_reduce(aux, a)
+            aux = all_reduce(aux, a)
     aux = aux[0] / nb
     if whole:
         out = DTensor.from_local(out, mesh, rows_pl)

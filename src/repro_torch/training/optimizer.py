@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+
+from ..distributed.shardctx import piece_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +57,17 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, float32."""
-    total = None
-    for g in tree.values():
-        sq = g.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+def global_norm(tree: Mapping[str, torch.Tensor],
+                split: Optional[Mapping[str, Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, float32. With `split`
+    {name: the mesh axes the leaf is cut over} the leaves are this
+    rank's pieces: each leaf's squares are summed over the axes it is
+    split on, and a replicated leaf is counted once
+    (`shardctx.piece_sum`)."""
+    return torch.sqrt(piece_sum([(g.float().square().sum(),
+                                  () if split is None else split[k])
+                                 for k, g in tree.items()]))
 
 
 def init(params: Mapping[str, torch.Tensor]) -> Dict:
@@ -85,12 +91,16 @@ def decay_mask(name: str) -> bool:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: Dict,
-           params: Mapping[str, torch.Tensor]
+           params: Mapping[str, torch.Tensor],
+           split: Optional[Mapping[str, Tuple[str, ...]]] = None
            ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """One AdamW step: writes `params` and the state's `m` and `v` in
-    place and returns (the state with step + 1, {"grad_norm", "lr"})."""
+    place and returns (the state with step + 1, {"grad_norm", "lr"}).
+    With `split` the trees are a rank's pieces under the ZeRO plan (the
+    moments' pieces, the gradient and the parameter cut alike), and the
+    global norm is taken over the pieces (`global_norm`)."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     scale = (torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-9), max=1.0)
              if cfg.clip_norm > 0 else torch.ones_like(gnorm))
     lr = schedule_lr(cfg, step)

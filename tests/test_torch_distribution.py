@@ -249,8 +249,7 @@ def test_dryrun_bytes_match_reference(dry, cell):
     assert rec["status"] == "ok" and rec["n_chips"] == (512 if multi_pod
                                                          else 256)
     assert rec["bytes_per_device"] == _ref_bytes(arch, shape, multi_pod)
-    # a serving cell of an executed arch runs its step and counts; the
-    # others keep the plan and say why
+    # every ok cell runs its step and counts; none keeps the plan only
     assert ("flops_per_device" in rec) != ("plan_only" in rec)
 
 

@@ -41,8 +41,7 @@ def _port_meta(cell):
     plan, meta, step = lower_cell(get_config(arch), SHAPES[shape],
                                   MESHES[multi_pod])
     assert set(plan) >= {"params", "batch", "rules"}
-    assert (step is None) == (SHAPES[shape].kind == "train" or arch in (
-        "recurrentgemma-2b", "whisper-tiny"))
+    assert callable(step)             # every family and kind runs
     assert ("opt" in plan) == (SHAPES[shape].kind == "train")
     assert ("cache" in plan) == (SHAPES[shape].kind == "decode")
     return meta

@@ -17,12 +17,16 @@ group.
     0.93-1.05 measured), the same collective kinds, and the same
     all-reduce count where no MoE layer runs (XLA combines the MoE's aux
     all-reduces);
+  * the smoke train cells of the same archs (4 x 64, (data 2, model
+    2)): `flops_per_device` (forward, backward and recomputation) within
+    10% of the reference's walk of its compiled train step;
   * every cell of the production meshes: 66 ok, 14 skipped, 0 errors;
-    FLOPs, HBM bytes, collectives by kind and peak bytes on exactly the
-    36 serving cells of the eight executed archs, the other 30 ok cells
-    plan-only with a reason; each of the 36 makes the all-reduces and
-    all-gathers its plan implies (`torch_tp_plan.want_collectives`, FSDP
-    gathers counted from the plan), with link bytes at the ring factors.
+    FLOPs, HBM bytes, collectives by kind and peak bytes on all 66; each
+    of the 36 serving cells of the eight archs first executed makes the
+    all-reduces and all-gathers its plan implies
+    (`torch_tp_plan.want_collectives`, FSDP gathers counted from the
+    plan), with link bytes at the ring factors;
+  * each collective's backward rule on a fake group.
 """
 import pytest
 import torch
@@ -86,12 +90,14 @@ def test_smoke_cell_collectives_are_the_plans(kind):
 WALK_ARCHS = ("granite-3-2b", "granite-moe-3b-a800m", "mamba2-1.3b")
 WALK = [(a, (f"smoke_{k}", S, B, k), (2, 2)) for a in WALK_ARCHS
         for k in ("prefill", "decode")]
+WALK_TRAIN = [(a, ("smoke_train", S, B, "train"), (2, 2))
+              for a in WALK_ARCHS]
 
 
 @pytest.fixture(scope="module")
 def walk(tmp_path_factory):
     from torch_mesh_reference import run_reference
-    return run_reference({"walk": WALK}, 4,
+    return run_reference({"walk": WALK + WALK_TRAIN}, 4,
                          tmp_path_factory.mktemp("walk"))["walk"]
 
 
@@ -118,6 +124,25 @@ def test_smoke_cell_counts_hold_against_the_reference_walk(walk, cell):
         assert got["all-reduce"] == ref["by_kind"]["all-reduce"]["count"]
 
 
+@pytest.mark.parametrize("cell", WALK_TRAIN, ids=[c[0] for c in WALK_TRAIN])
+def test_smoke_train_cell_flops_hold_against_the_reference_walk(walk, cell):
+    """The train step on meta tensors (forward, the CE's recomputation,
+    backward, the optimizer) against the reference's compiled train
+    step: FLOPs within 10%."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.dryrun import fake_world, step_costs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import lower_cell
+    from repro_torch.models.config import ShapeSpec
+    arch, shape, mesh_shape = cell
+    cfg, shape = smoke_variant(get_config(arch)), ShapeSpec(*shape)
+    with fake_world(4):
+        mesh = make_mesh(mesh_shape, ("data", "model"))
+        plan, _, step = lower_cell(cfg, shape, mesh)
+        rec = step_costs(cfg, shape, plan, step, mesh)
+    assert abs(rec["flops_per_device"] / walk[cell]["flops"] - 1) <= 0.10
+
+
 @pytest.fixture(scope="module")
 def dry():
     from repro_torch.configs import SHAPES, list_archs
@@ -139,25 +164,28 @@ COUNTS = ("flops_per_device", "hbm_bytes_per_device", "collectives",
 
 
 def test_dryrun_counts_exactly_the_36_serving_cells(dry):
+    """Every ok cell is counted: FLOPs, HBM bytes, collectives and peak
+    bytes on all 66 (the 36 serving cells of the eight archs executed
+    first, the RG-LRU hybrid's and the encoder-decoder's serving cells
+    and the 20 train cells of each mesh since), none left as a plan."""
     status = [r["status"] for r in dry.values()]
     assert (status.count("ok"), status.count("skipped"),
             status.count("error")) == (66, 14, 0)
     counted = {c for c, r in dry.items() if "flops_per_device" in r}
-    want = {c for c, r in dry.items() if r["status"] == "ok"
-            and c[0] in EXECUTED and c[1] != "train_4k"}
-    assert counted == want and len(counted) == 36
+    serving = {c for c in counted if c[0] in EXECUTED
+               and c[1] != "train_4k"}
+    assert len(serving) == 36
+    assert counted == {c for c, r in dry.items() if r["status"] == "ok"}
     for c, r in dry.items():
         if r["status"] != "ok":
             continue
-        if c in counted:
-            assert all(k in r for k in COUNTS) and "plan_only" not in r
-            assert r["flops_per_device"] > 0
-            assert r["peak_bytes_per_device"] > sum(
-                r["bytes_per_device"].values()) // 2
-        else:
-            assert r["plan_only"].startswith("plan only") and \
-                "ROADMAP queue 1 item 10" in r["plan_only"]
-            assert not any(k in r for k in COUNTS)
+        assert all(k in r for k in COUNTS) and "plan_only" not in r
+        assert r["flops_per_device"] > 0
+        assert r["peak_bytes_per_device"] > sum(
+            r["bytes_per_device"].values()) // 2
+        if c[1] == "train_4k":
+            assert r["meta"]["microbatches"] >= 1
+            assert r["collectives"]["reduce_scatter"]["count"] > 0
 
 
 SERVING = [(a, s, mp) for a in EXECUTED
@@ -187,16 +215,45 @@ def test_serving_cell_collectives_are_the_plans(dry, cell):
 
 
 def test_train_step_refuses_the_collectives_autograd():
-    """The collectives have no backward yet: a tensor that requires grad
-    is refused under a split mesh (the train step under the plan is
-    ROADMAP queue 1 item 10)."""
+    """Each collective's backward on a fake group (the dry run's: it
+    records and moves nothing): the all-reduce passes its gradient
+    ("g"), `copy_to` all-reduces it ("f"), the all-gather reduce-scatters
+    it or, with grad="slice", takes the rank's slice, the reduce-scatter
+    all-gathers it, a max takes none; each counted under its kind with
+    the gradient's shape. (The collectives refused autograd before the
+    train step ran under the plans; their values on ranks:
+    `test_torch_tp_train.test_each_backward_rule_on_ranks`.)"""
     from repro_torch.distributed import shardctx
     from repro_torch.launch.dryrun import fake_world
     from repro_torch.launch.mesh import make_mesh
+    cases = {
+        "all_reduce": (lambda t: shardctx.all_reduce(t, "model"), 4, None),
+        "copy_to": (lambda t: shardctx.copy_to(t, "model"), 4,
+                    "all_reduce"),
+        "scatter": (lambda t: shardctx.all_gather(t, "model", 0), 8,
+                    "reduce_scatter"),
+        "slice": (lambda t: shardctx.all_gather(t, "model", 0,
+                                                grad="slice"), 8, None),
+        "reduce_scatter": (lambda t: shardctx.reduce_scatter(t, "model",
+                                                             0), 2,
+                           "all_gather")}
     with fake_world(4):
         mesh = make_mesh((2, 2), ("data", "model"))
         with shardctx.sharding_rules(mesh):
+            for name, (f, n, kind) in cases.items():
+                x = torch.arange(4.0, requires_grad=True)
+                y = f(x * 1.0)
+                assert y.shape == (n,) and y.requires_grad, name
+                shardctx.reset_collectives()
+                g, = torch.autograd.grad((y * torch.arange(n)).sum(), x)
+                assert g.shape == x.shape, name
+                counts = {k: v["count"] for k, v in
+                          shardctx.COLLECTIVES.items()}
+                assert counts == {k: int(k == kind) for k in counts}, name
+                if name in ("all_reduce", "copy_to"):
+                    assert torch.equal(g, torch.arange(4.0)), name
+                if name == "slice":        # rank 0's slice of its own
+                    assert torch.equal(g, torch.arange(4.0)), name
             x = torch.ones(3, requires_grad=True)
-            with pytest.raises(NotImplementedError, match="item 10"):
-                shardctx.all_reduce(x * 2, "model")
-            shardctx.all_reduce(x.detach(), "model")
+            assert not shardctx.all_reduce(x * 2, "model",
+                                           op="max").requires_grad

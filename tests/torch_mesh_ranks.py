@@ -289,3 +289,119 @@ def _collectives_api(rank, mesh):
                 dim=1).numpy())
         got["counts"] = copy.deepcopy(shardctx.COLLECTIVES)
     return got
+
+
+def tp_train(case, mesh, rank):
+    """One case's train step through `lower_cell`'s plan on `mesh`: the
+    bridged one-process model cut to this rank's pieces, its rows, its
+    ZeRO optimizer pieces (the case's `state0` moments, a reference
+    tree, cut by `shard_opt_state`); then the step (`make_train_step(...,
+    plan=, mesh=)`) with the case's AdamW config, microbatches and
+    compression, in its two halves: the gradients of this rank's pieces
+    before the data ranks' sum (and the collectives so far), then the
+    rest: the metrics, the moments' pieces by reference path, the
+    parameters' pieces and the collectives of the whole step by kind."""
+    import torch
+
+    from repro_torch.distributed import shardctx
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch.steps import init_opt_state, lower_cell, \
+        make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.bridge import opt_state_from_jax, \
+        params_from_jax
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = case["cfg"]
+    B, S = case["batch"]["labels"].shape
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(case["params"], cfg)
+                          if case.get("params") is not None else
+                          {k: torch.from_numpy(v)
+                           for k, v in case["state_dict"].items()})
+    plan, meta, _ = lower_cell(cfg, ShapeSpec("tp_train", S, B, "train"),
+                               mesh, fsdp=case.get("fsdp"))
+    shr.shard_params(model, plan["params"], mesh, rank)
+    whole = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    batch = shr.shard_batch(whole, shr.batch_pspecs(whole, mesh), mesh,
+                            rank)
+    comp = case.get("compression", False)
+    state = init_opt_state(model, comp, plan=plan, mesh=mesh)
+    if case.get("state0") is not None:      # the moments carried over
+        full = opt_state_from_jax(dict(case["state0"], step=0), cfg)
+        state = dict(state, **shr.shard_opt_state(full, plan["opt"], mesh,
+                                                  rank, cfg))
+    step = make_train_step(model, AdamWConfig(**case["ocfg"]),
+                           microbatches=case.get("microbatches", 1),
+                           grad_compression=comp, plan=plan, mesh=mesh)
+    res = {}
+    shardctx.reset_collectives()
+    value, grads = step.grads(batch)
+    res["grad_collectives"] = _collective_counts()
+    res["grads"] = {k: _np(g).copy() for k, g in grads.items()}
+    state, mets = step.apply(state, value, grads)
+    res["collectives"] = _collective_counts()
+    res["mets"] = {k: float(v) for k, v in mets.items()}
+    res["m"] = {k: _np(v) for k, v in state["m"].items()}
+    res["v"] = {k: _np(v) for k, v in state["v"].items()}
+    res["params"] = {k: _np(p) for k, p in model.named_parameters()}
+    res["meta"] = meta
+    return res
+
+
+def train_ranks(rank, world, init_method, in_path, out_dir):
+    """Every case of `in_path` ({name: dict(cfg, params, batch, ocfg,
+    meshes[, fsdp, microbatches, compression])}) through `tp_train` on
+    each of its (data, model) meshes; also each backward rule of
+    `shardctx` on known inputs (`_backward_rules`)."""
+    from repro_torch.launch.mesh import make_mesh
+    with rank_group(rank, world, init_method):
+        with open(in_path, "rb") as fh:
+            cases = pickle.load(fh)
+        meshes, out = {}, {}
+        for name, case in cases.items():
+            for shape in case["meshes"]:
+                if shape not in meshes:
+                    meshes[shape] = make_mesh(shape, ("data", "model"))
+                out[(name, shape)] = tp_train(case, meshes[shape], rank)
+        out["rules"] = _backward_rules(rank, meshes[(2, 2)])
+        _dump(out_dir, rank, out)
+
+
+def _backward_rules(rank, mesh):
+    """Each collective's backward on a (data 2, model 2) mesh: the
+    gradient of sum(w * f(x)) with rank-dependent x and w, for f the
+    all-reduce, `copy_to`, the all-gather with each rule, and the
+    reduce-scatter; with the counts of the backward by kind."""
+    import torch
+
+    from repro_torch.distributed import shardctx
+    out = {}
+    with shardctx.sharding_rules(mesh):
+        for name in ("all_reduce", "copy_to", "gather_scatter",
+                     "gather_slice", "reduce_scatter", "all_reduce_max"):
+            x = (torch.arange(4.0) + 10 * rank).requires_grad_()
+            w = torch.arange(8.0 if name.startswith("gather") else 4.0) \
+                + rank
+            if name == "reduce_scatter":
+                w = w[:2]
+            f = {"all_reduce": lambda t: shardctx.all_reduce(t, "model"),
+                 "copy_to": lambda t: shardctx.copy_to(t, "model"),
+                 "gather_scatter": lambda t: shardctx.all_gather(
+                     t, "model", 0, grad="scatter"),
+                 "gather_slice": lambda t: shardctx.all_gather(
+                     t, "model", 0, grad="slice"),
+                 "reduce_scatter": lambda t: shardctx.reduce_scatter(
+                     t, "model", 0),
+                 "all_reduce_max": lambda t: shardctx.all_reduce(
+                     t * 1.0, "model", op="max")}[name]
+            y = f(x * 1.0)
+            shardctx.reset_collectives()
+            if y.requires_grad:
+                (g,) = torch.autograd.grad((w * y).sum(), x)
+                g = g.numpy()
+            else:
+                g = None
+            out[name] = dict(y=y.detach().numpy(), grad=g,
+                             counts=_collective_counts())
+    return out

@@ -27,6 +27,12 @@ The modes:
   * walk      - smoke cells' steps lowered by the reference's
                 `lower_cell` on a small mesh, compiled and walked as its
                 dry run walks them (FLOPs, collectives by kind);
+  * train     - one train step of a smoke model (`make_train_step` with
+                the case's AdamW config, microbatches and compression)
+                jitted with `lower_cell`'s shardings (the case's FSDP
+                rule) on a (data, model) mesh of the 4 host devices under
+                the residual rule, as the reference's dry run lowers a
+                train cell; MoE takes its capacity per data shard there;
   * tp        - smoke models unsharded, prefill and greedy decode over
                 given row ranges (the tensor-parallel tests' reference:
                 the reference's placement plans change where its values
@@ -161,6 +167,58 @@ def run_tp(cases):
     return out
 
 
+def run_train(cases):
+    """{name: dict(arch, mesh, batch, ocfg[, state0 (the moments "m",
+    "v" to start from), fsdp, microbatches, compression, remat])} ->
+    {name: dict(params (before), new_params,
+    m, v, mets)}, numpy; the model is the smoke variant in float32 with
+    the vocabulary padded to 256 (`lower_cell`'s), drawn from
+    `jax.random.key(0)`."""
+    from jax.sharding import PartitionSpec as P
+    from repro.configs import ARCHS, smoke_variant
+    from repro.distributed.shardctx import sharding_rules
+    from repro.launch import sharding as shr
+    from repro.launch.steps import init_opt_state, make_train_step
+    from repro.models import Model
+    from repro.training import optimizer as opt
+    out = {}
+    for name, case in cases.items():
+        cfg = smoke_variant(ARCHS[case["arch"]]).replace(
+            dtype=jnp.float32, vocab_pad_to=256,
+            remat=case.get("remat", False))
+        model = Model(cfg)
+        params = model.init(jax.random.key(0))
+        mesh = auto_mesh(case["mesh"], ("data", "model"))
+        batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
+        comp = case.get("compression", False)
+        psh = shr.to_named(shr.param_pspecs(params, mesh,
+                                            fsdp=case.get("fsdp", False)),
+                           mesh)
+        ospec = shr.opt_pspecs(params, mesh)
+        osh = shr.to_named({"m": ospec["m"], "v": ospec["v"], "step": P()},
+                           mesh)
+        if comp:
+            osh["ef"] = psh
+        bsh = shr.to_named(shr.batch_pspecs(batch, mesh), mesh)
+        with sharding_rules(mesh, residual=shr.residual_spec(mesh)):
+            fn = jax.jit(make_train_step(
+                model, opt.AdamWConfig(**case["ocfg"]),
+                microbatches=case.get("microbatches", 1),
+                grad_compression=comp),
+                in_shardings=(psh, osh, bsh), out_shardings=(psh, osh, None))
+            state = init_opt_state(params, comp)
+            if case.get("state0") is not None:
+                state = dict(state, **{k: jax.tree.map(jnp.asarray, v)
+                                       for k, v in case["state0"].items()})
+            new, state, mets = fn(params, state, batch)
+        out[name] = dict(params=jax.tree.map(np.asarray, params),
+                         new_params=jax.tree.map(np.asarray, new),
+                         m=jax.tree.map(np.asarray, state["m"]),
+                         v=jax.tree.map(np.asarray, state["v"]),
+                         mets={k: float(v) for k, v in mets.items()})
+    return out
+
+
 def run_lower(cells):
     from repro.configs import get_config
     from repro.launch.steps import lower_cell
@@ -203,6 +261,12 @@ def run_reference(args, devices, tmp_path, timeout=600):
     """Run {MODE: argument} through this script with `devices` host
     devices, in a subprocess bounded by `timeout` seconds; returns {MODE:
     result}."""
+    return start_reference(args, devices, tmp_path, timeout)()
+
+
+def start_reference(args, devices, tmp_path, timeout=600):
+    """`run_reference` started in the background: returns a function that
+    waits for the subprocess and returns {MODE: result}."""
     src, dst = Path(tmp_path) / "ref_in.pkl", Path(tmp_path) / "ref_out.pkl"
     with open(src, "wb") as fh:
         pickle.dump(args, fh)
@@ -212,17 +276,27 @@ def run_reference(args, devices, tmp_path, timeout=600):
            "PYTHONPATH": os.pathsep.join(
                [str(root / "src"), str(root / "tests"),
                 os.environ.get("PYTHONPATH", "")])}
-    r = subprocess.run([sys.executable, __file__, str(src), str(dst)],
-                       env=env, cwd=root, capture_output=True, text=True,
-                       timeout=timeout)
-    if r.returncode:
-        raise RuntimeError(f"reference run failed:\n{r.stderr[-4000:]}")
-    with open(dst, "rb") as fh:
-        return pickle.load(fh)
+    proc = subprocess.Popen([sys.executable, __file__, str(src), str(dst)],
+                            env=env, cwd=root, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        if proc.returncode:
+            raise RuntimeError(f"reference run failed:\n{err[-4000:]}")
+        with open(dst, "rb") as fh:
+            return pickle.load(fh)
+    return wait
 
 
 MODES = {"moe": run_moe, "allreduce": run_allreduce, "model": run_model,
-         "lower": run_lower, "tp": run_tp, "walk": run_walk}
+         "lower": run_lower, "tp": run_tp, "walk": run_walk,
+         "train": run_train}
 
 
 def main():
