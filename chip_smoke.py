@@ -134,7 +134,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      controller crash at t = 5.3 resumed from a `CheckpointManager` on
      disk: completions identical to the uncrashed run's. Then
      `hyperfleet_10k`: the megakernel refuses its 10,000 instances by
-     name, and 1,000 of its requests run on the staged torch backend
+     name, and 500 of its requests run on the staged torch backend
      with one K2 launch per scoring call; every 16th lookup and the last,
      recorded through `knn_topk.tap`, held against the plain version
      (idx rows identical on >= 99%, d2 within rtol 1e-5 plus 1e-6 of
@@ -145,7 +145,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      per-request trajectories) and at two cells with `RecoveryConfig()`
      (every request terminal once, none failed, retries > 0 and the cell
      managers' retries summing to the router's); `hyperfleet_10k` on
-     1,000 requests in balanced cells at 16 (K1 at I = 1,024) and 32
+     500 requests in balanced cells at 16 (K1 at I = 1,024) and 32
      (I = 512) cells with exact digests and at 16 with int8 digests
      (terminal once, K1 launches = the cells' fired batches less degraded
      ones, no plain call, no K2 launch, each cell's shape variants equal
@@ -155,7 +155,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      holds its calls); span at 16 cells on the staged torch backend with
      K2 (completions identical to 5f's unsharded staged run, one K2
      launch per scoring call, no K1 launch), and span on `cluster` at 2
-     cells (200 requests; each decision's choice and est_T kept for 5k,
+     cells (100 requests; each decision's choice and est_T kept for 5k,
      as for the 16-cell run); K1 alone at I = 512 and
      1,024 (R = 8, 64): exact against the plain version on dyadic inputs,
      then call ms, device ms and bound, and at R = 8 the device ms
@@ -166,12 +166,12 @@ Phases, each printing one JSON line; any failed check exits nonzero
      runs there, recovery being off);
   5h. zoo families — at full width, random seeded bf16 weights drawn on
      the card, through `Model.prefill` / `Model.decode`:
-     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 16 steps),
-     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 16 steps),
+     `recurrentgemma-2b` (26 layers, 4 x 2,048, ring wrapped, 8 steps),
+     `granite-moe-3b-a800m` (32, 8 x 512, pad_to 1,024, 8 steps),
      `phi-3-vision-4.2b` (32, 4 x 576 image embeddings + 64 tokens, pad_to
-     1,024, 16 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
-     decoder tokens, 16 steps) and `mixtral-8x7b` (8 of 32 layers, cut
-     to fit the card; 4 x 512, pad_to 1,024, 16 steps): finite logits, K3
+     1,024, 8 steps), `whisper-tiny` (4 + 4, 8 x 1,500 frames, 4
+     decoder tokens, 8 steps) and `mixtral-8x7b` (8 of 32 layers, cut
+     to fit the card; 4 x 512, pad_to 1,024, 8 steps): finite logits, K3
      launches = attention calls x steps, no K4 launch, no plain call,
      MoE pairs dropped at prefill capacity and none at decode, prefill
      and decode ms with the profiler's device time, busy share and K3's
@@ -191,8 +191,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
      gradient difference can move AdamW's step there, and every leaf's
      update larger than that limit, so that a missing one would show);
      `granite-3-2b` at full width (40 layers, bf16,
-     remat, 4 x 4,096 tokens in 2 microbatches: 1 warm-up and 2 timed
-     steps) and `mamba2-1.3b` (48 layers, 2 x 4,096: 1 + 2): finite loss,
+     remat, 4 x 4,096 tokens in 2 microbatches: 1 warm-up and 1 timed
+     step) and `mamba2-1.3b` (48 layers, 2 x 4,096: 1 + 1): finite loss,
      grad_norm, lr, ms, tokens/s and peak memory each step, one step under
      the profiler (device ms, busy share, six leading operations), the
      model FLOPs beside their time at the bf16 peak and the float32
@@ -210,8 +210,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
   5k. span over torch.distributed — this process rank 0 of a gloo group,
      the other ranks (every group's, spawned at the phase's start) on
      the same card in `cell_worker`, the
-     ``("cell",)`` mesh pinned with `sharding_rules`: `cluster` (200
-     requests) over 2 and over 4 ranks, `hyperfleet_10k` (5f's 1,000
+     ``("cell",)`` mesh pinned with `sharding_rules`: `cluster` (100
+     requests) over 2 and over 4 ranks, `hyperfleet_10k` (5f's 500
      requests, 4,096 padded columns a rank) over 4: completions, every
      decision's choice and est_T identical to 5g's emulation, one K2
      launch on rank 0 per scoring call, 4 all-reduces a scanned row plus
@@ -283,9 +283,26 @@ Phases, each printing one JSON line; any failed check exits nonzero
      one process on the same batch, weights and moments (m = 0, v =
      1e-4): loss, ce and grad_norm within 1e-5 relative, 512 sampled
      elements of every moment's and parameter's piece within 1e-4 of
-     the piece's scale; then 2 more steps (the loss finite and falling)
+     the piece's scale; then 1 more step (the loss finite and falling)
      and one of 2 microbatches; step ms, peak GB a rank beside one
      process's, the collectives a step by kind;
+  5o. overrides and the soak — (a) the reference's randomized soak
+     worlds through K1: `random_scenario` seeds 0-3 at up to 16 tiers x
+     128 instances (bundles trained on the card), 200 requests each on
+     the world's own failure schedule, affinity weights 0 and 0.5:
+     K1 launches = fired batches less degraded ones, no plain call; the
+     same run with K1's wrapper tapped, the same completions, every
+     recorded call held against the plain version as 5f holds its
+     calls; the staged torch backend on the card, the same completions
+     and no K1 launch; I, calls and decide ms a request per world; (b)
+     in 5l-5n's spawn, `granite-3-2b` with `{"vocab_pad_to": 1}`
+     planned as configured (49,155 rows do not divide over "model", so
+     the embedding and the logits are split over d_model: the rank's
+     columns all-gathered, its partial logits summed) at full width and
+     depth, float32, 8 x 512, 8 steps on (data 2, model 2), held as 5m
+     holds its archs (tokens identical to one process, logits within
+     1e-3, the collectives `tp_want`'s, K3 40 x 8 a rank, no plain
+     call);
   5j. examples — `examples/torch_{quickstart, budget_serving,
      serve_cluster, zoo_serving}.py` at the reference's sizes as a user
      runs them (their printed lines kept): every request terminal once,
@@ -294,10 +311,10 @@ Phases, each printing one JSON line; any failed check exits nonzero
      and the recorded K1 calls (the first, every 16th, the last) held
      against the plain version;
   6. the kernels line (launches of every driven path: K1 the main path,
-     5f and 5g's hierarchy and 5j's examples, K2 5b, 5c, 5f's hyperfleet,
-     5g's span, 5k's span over ranks and 5j's serve_cluster, K3
-     5d, 5h by model, 5i's trained granite, 5l's, 5m's and 5n's ranks by
-     model, K4 5e,
+     5f and 5g's hierarchy, 5j's examples and 5o(a)'s soak, K2 5b, 5c,
+     5f's hyperfleet, 5g's span, 5k's span over ranks and 5j's
+     serve_cluster, K3 5d, 5h by model, 5i's trained granite, 5l's,
+     5m's, 5n's and 5o(b)'s ranks by part and model, K4 5e,
      5i's trained mamba2 and 5m's ranks),
      then the card's `nvidia-smi` line, then the last line
      `{"ok": true, "device": {...}}`.
@@ -1359,6 +1376,106 @@ def phase_crash_restore(run, faults):
     return dict(identical=same, dropped_events=dropped)
 
 
+# -- the reference's randomized soak through K1 (phase 5o(a)) -----------------
+
+SOAK_SEEDS = (0, 1, 2, 3)
+SOAK_SIZE = dict(max_tiers=16, max_instances=128)
+SOAK_N = 200
+SOAK_DATASET_N = 220         # the soak's world size (tests/test_torch_soak.py)
+SOAK_AFFINITY = (0.0, 0.5)
+
+
+def phase_soak(mk):
+    """`random_scenario` worlds (seeds SOAK_SEEDS, up to 16 tiers x 128
+    instances, bundles trained on the card), SOAK_N requests each on
+    the world's own failure schedule, affinity weights 0 and 0.5: a run
+    through K1, counted (launches = fired batches less degraded ones, no
+    plain call); the same run with K1's wrapper tapped (`K1Recorder`):
+    the same completions, every recorded call held against the plain
+    version at 5f's bar (`hold_recorded_k1`); the same run on the staged
+    torch backend on the card: the same completions, no K1 launch."""
+    from repro_torch.core import RBConfig, RouteBalance
+    from repro_torch.serving.metrics import check_terminal_states
+    from repro_torch.serving.scenarios import random_scenario
+    rows, total = {}, 0
+    for seed in SOAK_SEEDS:
+        t0 = time.perf_counter()
+        run = random_scenario(seed, **SOAK_SIZE).build(
+            dataset_n=SOAK_DATASET_N)
+        run.bundle(device=DEV)
+        setup = time.perf_counter() - t0
+        check(run.n_instances <= mk.MAX_I,
+              f"soak world {seed}: {run.n_instances} instances > MAX_I")
+        for w in SOAK_AFFINITY:
+            label = f"soak/{seed}/affinity_{w}"
+
+            def one(tap, backend="megakernel"):
+                reqs = run.requests(SOAK_N, seed=seed)
+                run.bundle().__dict__.pop("_fused_cache", None)
+                rb = RouteBalance(RBConfig(decision_backend=backend,
+                                           affinity_weight=w,
+                                           charge_compute=False),
+                                  run.bundle(), run.tiers)
+                mk.reset_counts()
+                mk.decision_megakernel.tap = tap
+                try:
+                    t1 = time.perf_counter()
+                    m = run.run_cell(rb, reqs, seed=0)
+                    wall = time.perf_counter() - t1
+                finally:
+                    mk.decision_megakernel.tap = None
+                return reqs, rb, m, wall
+
+            reqs, rb, m, wall = one(None)
+            launches, plain = k1_counts(mk)
+            total += launches
+            check_terminal_states(reqs)
+            fired = len(rb.compute_log)
+            mgr = getattr(rb.sim, "recovery", None)
+            degraded = mgr.degraded_batches if mgr is not None else 0
+            recorder = K1Recorder()
+            reqs2, _, _, _ = one(recorder)
+            same = completion_tuples(reqs2) == completion_tuples(reqs)
+            held = hold_recorded_k1(mk, recorder, label)
+            sreqs, _, sm, swall = one(None, "torch")
+            staged_k1 = sum(k1_counts(mk))
+            staged_same = completion_tuples(sreqs) == completion_tuples(reqs)
+            row = dict(cell=label, seed=seed, tiers=len(run.tiers),
+                       instances=run.n_instances, requests=len(reqs),
+                       affinity_weight=w, schedule_events=len(
+                           run.scenario.schedule),
+                       served=m["n"], failed=m["failed"], shed=m["shed"],
+                       fired_batches=fired, degraded_batches=degraded,
+                       k1_launches=launches, k1_plain_calls=plain,
+                       decide_ms_per_req=m["measured_decide_ms_per_req"],
+                       staged_decide_ms_per_req=sm[
+                           "measured_decide_ms_per_req"],
+                       mean_batch_size=m["mean_batch_size"],
+                       quality=m["quality"], mean_e2e=m["mean_e2e"],
+                       wall_s=wall, staged_wall_s=swall, setup_s=setup,
+                       tapped_run_identical=same, recorded_vs_plain=held,
+                       staged_torch_identical=staged_same,
+                       staged_k1_launches=staged_k1)
+            rows[label] = row
+            emit("soak", **row)
+            check(m["n"] + m["failed"] + m["shed"] == len(reqs),
+                  f"{label}: {len(reqs)} requests, not all terminal once")
+            check(launches == fired - degraded > 0 and plain == 0,
+                  f"{label}: {launches} K1 launches for {fired} batches, "
+                  f"{degraded} degraded, {plain} plain calls")
+            check(recorder.n == launches and same,
+                  f"{label}: the tapped run made {recorder.n} calls "
+                  f"(counted {launches}), completions identical={same}")
+            check(staged_same and staged_k1 == 0,
+                  f"{label}: the staged torch backend's completions "
+                  f"identical={staged_same}, K1 calls {staged_k1}")
+            check(np.isfinite(m["mean_e2e"]) and 0.0 < m["quality"] < 1.0,
+                  f"{label}: implausible metrics")
+    emit("soak_done", k1_launches=total,
+         script_s=time.perf_counter() - T_START)
+    return dict(cells=rows, k1_launches=total)
+
+
 class K2Recorder:
     """A tap for the KNN kernel's wrapper (`knn_topk.tap`): keeps every
     `every`-th call's query (cloned) and the last call's, beside the index
@@ -1402,12 +1519,12 @@ def hold_recorded_k2(kt, rec):
                 idx_row_agreement=n_agree / n_rows, d2_max_abs_err=worst)
 
 
-HYPERFLEET_N = 1000      # 5f, 5g and 5k (cut from 2,000: time)
+HYPERFLEET_N = 500       # 5f, 5g and 5k (cut from 2,000, then 1,000: time)
 
 
 def phase_hyperfleet(mk, kt):
     """`hyperfleet_10k`: the megakernel refuses its 10,000-instance roster
-    by name; 1,000 of its requests run on the staged torch backend
+    by name; HYPERFLEET_N of its requests run on the staged torch backend
     with the KNN kernel, one K2 launch per scoring call. Returns (row,
     the built run, the staged run's completion tuples)."""
     from repro_torch.core import RBConfig, RouteBalance
@@ -1466,7 +1583,7 @@ def phase_hyperfleet(mk, kt):
 
 HIER_N = 400                      # cluster cells: 5f's request count
 HIER_FLEET = ((16, "exact", 1024), (32, "exact", 512), (16, "int8", 1024))
-SPAN_CLUSTER_N = 200    # 5g's span emulation on `cluster` and 5k's runs
+SPAN_CLUSTER_N = 100    # 5g's span on `cluster` and 5k's (cut from 200)
 LAUNCHER_N = 100        # each launcher run (cut from 200: time)
 
 
@@ -2237,7 +2354,14 @@ TP_SERVE = (("5l(b)", MESH_ARCH, MESH_SERVE, (2, 2), 0),
                                                 pad_to=2048, steps=8),
              (2, 2), 0),
             ("5n(b)", "whisper-tiny", dict(batch=8, prompt=4, pad_to=1500,
-                                           steps=16, extra=1500), (2, 2), 0))
+                                           steps=16, extra=1500), (2, 2), 0),
+            # 5o(b): `{"vocab_pad_to": 1}` planned as configured: 49,155
+            # rows do not divide over "model", so the embedding and the
+            # logits go to d_model
+            ("5o(b)", "granite-3-2b", dict(batch=8, prompt=512, pad_to=1024,
+                                           steps=8, overrides={
+                                               "vocab_pad_to": 1}),
+             (2, 2), 0))
 # 5n(c): granite-3-2b at full width, 20 of its 40 layers (four ranks'
 # float32 weights, gradients and ZeRO moments share the one card), remat,
 # a 4 x 1,024 global batch on (data 2, model 2): one step held against
@@ -2246,19 +2370,32 @@ TP_SERVE = (("5l(b)", MESH_ARCH, MESH_SERVE, (2, 2), 0),
 # first step is m / (sqrt(v) + eps) of a gradient known to about 1e-6,
 # not the sign of a gradient element near eps
 TRAIN_TP = dict(arch="granite-3-2b", layers=20, batch=4, seq=1024,
-                mesh=(2, 2), steps=3)
+                mesh=(2, 2), steps=2)
 TRAIN_TP_V0 = 1e-4
 TRAIN_TP_SAMPLES = 512               # elements a leaf's piece is held by
 TP_SEED = 6
 TP_LIMIT_S = 600                     # the ranks are killed past this
 
 
-def tp_cfg(name, layers=0):
+def tp_cfg(name, layers=0, overrides=None):
     """The arch at full width in float32 (`layers` deep, all of them for
-    0), its vocabulary padded to 256 as the dry run plans it."""
+    0), its vocabulary padded to 256 as the dry run plans it, then the
+    config `overrides`."""
     from repro_torch.configs import get_config
-    cfg = get_config(name).replace(dtype=torch.float32, vocab_pad_to=256)
+    cfg = get_config(name).replace(dtype=torch.float32, **{
+        "vocab_pad_to": 256, **(overrides or {})})
     return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def tp_whole_logits(group, vocab):
+    """A data shard's logits at one step from its "model" ranks: their
+    vocabulary shares put together, or, where the plan splits the
+    embedding over d_model, the whole logits every rank holds (alike)."""
+    if group[0].shape[-1] == vocab:
+        check(all(np.array_equal(g, group[0]) for g in group),
+              "the model ranks' whole logits differ")
+        return group[0]
+    return np.concatenate(group, -1)
 
 
 def tp_cut(cfg, m):
@@ -2570,7 +2707,7 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, train,
     out = dict(rank=rank, rendezvous_s=time.perf_counter() - t0, runs={})
     try:
         meshes = {}
-        for cfg, serve, shape in serves:
+        for i, (cfg, serve, shape) in enumerate(serves):
             if shape not in meshes:
                 meshes[shape] = make_mesh(shape, ("data", "model"))
             mesh = meshes[shape]
@@ -2583,11 +2720,15 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, train,
                 cfg, ShapeSpec("tp_prefill", S, B, "prefill"), mesh)
             _, _, dstep = lower_cell(
                 cfg, ShapeSpec("tp_decode", S, B, "decode"), mesh)
+            if "overrides" in serve:     # planned as configured (5o(b))
+                plan = dict(plan, params=shr.param_pspecs(
+                    Model(cfg, device="meta"), mesh))
             shr.shard_params(model, plan["params"], mesh, rank)
             if device == "cuda":
                 torch.cuda.empty_cache()
             _sync(device)
             run = dict(init_s=time.perf_counter() - t1,
+                       embed_spec=plan["params"]["['embed']"].spec,
                        params_kept=sum(p.numel()
                                        for p in model.parameters()))
             batch = shr.shard_batch(
@@ -2633,7 +2774,7 @@ def tp_rank(init_method, rank, world, device, serves, ar_numel, train,
                                        for layer in cache["layers"]
                                        for t in layer.values()
                                        if isinstance(t, torch.Tensor)))
-            out["runs"][cfg.name] = run
+            out["runs"][i] = run
             del model, cache, step, dstep
             if device == "cuda":
                 torch.cuda.empty_cache()
@@ -2773,15 +2914,16 @@ def phase_tp():
     dry = phase_dryrun()
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    serves = tuple((tp_cfg(name, layers), serve, shape)
-                   for _, name, serve, shape, layers in TP_SERVE)
+    serves = tuple((tp_cfg(name, layers, serve.get("overrides")), serve,
+                    shape) for _, name, serve, shape, layers in TP_SERVE)
     train = train_tp_cfg()
     ranks, ranks_s = spawn_mesh_ranks(
         tp_rank, (DEV, serves, MESH_AR_NUMEL, train), TP_LIMIT_S, "tp")
     rows = {}
-    for (label, *_), (cfg, serve, (d, m)) in zip(TP_SERVE, serves):
+    for i, ((label, *_), (cfg, serve, (d, m))) in enumerate(zip(TP_SERVE,
+                                                                serves)):
         name = cfg.name
-        runs = [r["runs"][name] for r in ranks]
+        runs = [r["runs"][i] for r in ranks]
         routes = [runs[j * m]["experts"] for j in range(d)] \
             if cfg.n_experts else None
         one = one_process(cfg, serve, DEV, TP_SEED, shards=d, routes=routes)
@@ -2790,8 +2932,9 @@ def phase_tp():
         for j in range(d):
             group = runs[j * m:(j + 1) * m]
             for t in range(serve["steps"] + 1):
-                full = np.concatenate([g["logits"][t] for g in group], -1)
                 want = one[j]["logits"][t]
+                full = tp_whole_logits([g["logits"][t] for g in group],
+                                       want.shape[-1])
                 worst = max(worst, float(np.abs(full - want).max()))
                 same &= bool(np.array_equal(group[0]["tokens"][t],
                                             one[j]["tokens"][t]))
@@ -2810,6 +2953,7 @@ def phase_tp():
         want_k3 = (2 if cfg.is_encdec else 1) * n_attn * serve["steps"]
         row = dict(
             part=label, model=name, layers=cfg.n_layers,
+            embed_spec=runs[0]["embed_spec"],
             d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv_heads),
             head_cut=tp_cut(cfg, m), experts=cfg.n_experts, d_ff=cfg.d_ff,
             vocab=cfg.vocab, padded_vocab=cfg.padded_vocab, dtype="float32",
@@ -2858,7 +3002,11 @@ def phase_tp():
               f"{label} {name}: K3 {row['k3_launches_per_rank']} (want "
               f"{want_k3}), K4 {row['k4_launches_per_rank']} (want "
               f"{n_ssd}), plain {row['plain_calls']}")
-        rows[name] = row
+        if "overrides" in serve:
+            check(runs[0]["embed_spec"] == ((), ("model",)),
+                  f"{label} {name}: the embedding's plan is "
+                  f"{runs[0]['embed_spec']}, not d_model over \"model\"")
+        rows[f"{label} {name}"] = row
     ar = {k: dict(v, numel=MESH_AR_NUMEL, mb=MESH_AR_NUMEL * 4 / 2 ** 20,
                   ms_per_rank=[r["allreduce"][k]["ms"] for r in ranks],
                   bitwise_every_rank=all(r["allreduce"][k]["bitwise"]
@@ -3531,11 +3679,11 @@ def phase_zoo_serving(label, name, batch, prompt_len, pad_to, steps, k3, k4,
 # not fit one 80 GB card, so its depth is cut to 8.
 # 16 decode steps each (cut from 32: the script's time)
 ZOO_FAMILIES = (
-    ("recurrentgemma-2b", 4, 2048, 2048, 16, 8 * 16, 0, None, (3, 0)),
-    ("granite-moe-3b-a800m", 8, 512, 1024, 16, 32 * 16, 0, None, (2, 0)),
-    ("phi-3-vision-4.2b", 4, 64, 1024, 16, 32 * 16, 576, None, (2, 32)),
-    ("whisper-tiny", 8, 4, 0, 16, 2 * 4 * 16, 1500, None, (2, 1500)),
-    ("mixtral-8x7b", 4, 512, 1024, 16, 8 * 16, 0, 8, (2, 0)),
+    ("recurrentgemma-2b", 4, 2048, 2048, 8, 8 * 8, 0, None, (3, 0)),
+    ("granite-moe-3b-a800m", 8, 512, 1024, 8, 32 * 8, 0, None, (2, 0)),
+    ("phi-3-vision-4.2b", 4, 64, 1024, 8, 32 * 8, 576, None, (2, 32)),
+    ("whisper-tiny", 8, 4, 0, 8, 2 * 4 * 8, 1500, None, (2, 1500)),
+    ("mixtral-8x7b", 4, 512, 1024, 8, 8 * 8, 0, 8, (2, 0)),
 )
 
 
@@ -3572,8 +3720,8 @@ TRAIN_TOL = dict(loss=1e-5, grad=1e-4, param=1e-4)
 TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=0)
 # full width: (arch, batch, sequence, microbatches, warm-up, timed steps,
 # serving check: (batch, prompt, decode steps, K3 launches, K4 launches))
-TRAIN_WIDE = (("granite-3-2b", 4, 4096, 2, 1, 2, (4, 512, 16, 40 * 16, 0)),
-              ("mamba2-1.3b", 2, 4096, 1, 1, 2, (2, 1024, 0, 0, 48)))
+TRAIN_WIDE = (("granite-3-2b", 4, 4096, 2, 1, 1, (4, 512, 16, 40 * 16, 0)),
+              ("mamba2-1.3b", 2, 4096, 1, 1, 1, (2, 1024, 0, 0, 48)))
 TRAIN_LOOP_STEPS = 40
 # the trained weights' card-against-CPU check: 2 x this prompt, 8 steps
 TRAINED_CPU_PROMPT = 64
@@ -3928,6 +4076,7 @@ def main():
         if ex["k2_launches"]:
             knn_counts[f"examples/{name}"] = ex["k2_launches"]
     examples_k1 = {name: ex["k1_launches"] for name, ex in examples.items()}
+    soak = phase_soak(mk)
     dense = phase_zoo_serving("dense_serving", "qwen2.5-3b", 8, 512, 1024,
                               64, k3, k4, want_k3=36 * 64, want_k4=0)
     ssm = phase_zoo_serving("ssm_serving", "mamba2-1.3b", 4, 1024, 1024, 32,
@@ -3953,11 +4102,13 @@ def main():
         "replaces": "src/repro/kernels/decision_megakernel.py:283",
         "function": "decision_call",
         "launches": (launches[12.0] + launches[30.0] + scen_k1["total"]
-                     + hier["k1_launches"] + sum(examples_k1.values())),
+                     + hier["k1_launches"] + sum(examples_k1.values())
+                     + soak["k1_launches"]),
         "launches_by_path": {"main_12rps": launches[12.0],
                              "main_30rps": launches[30.0],
                              "scenarios": scen_k1["total"],
                              "hierarchy": hier["k1_launches"],
+                             "soak": soak["k1_launches"],
                              **{f"examples/{k}": v
                                 for k, v in examples_k1.items()}},
         "launches_by_scenario": scen_k1["by_cell"],

@@ -3,10 +3,11 @@ per-(model, GPU)-tier TPOT heads (§4.2).
 
 Port of `repro.estimators.gbm`: the numpy histogram fit, `pack` and
 `pack_ensemble` are copies (training stays on the host), and the packed
-inference the decision runs (`_accumulate`, `predict_packed_gathered`)
-is torch. `_accumulate` adds the trees one by one in float32, the
-numpy ensemble's rounding order, so packed inference is bitwise the
-numpy `predict`.
+inference is torch: `predict_packed` (every tree against every row) and
+the one the decision runs, `predict_packed_gathered` (each row against
+its own member's trees). Both accumulate through `_accumulate`, which
+adds the trees one by one in float32, the numpy ensemble's rounding
+order, so packed inference is bitwise the numpy `predict`.
 """
 from __future__ import annotations
 
@@ -193,6 +194,36 @@ def _accumulate(base, lr, vals):
                       dtype=torch.float32, device=vals.device) + base
     for j in range(vals.shape[-2]):
         out = out + lr * vals[..., j, :]
+    return out
+
+
+def predict_packed(packed, X, return_leaves: bool = False):
+    """Inference over one booster's packed trees (`pack()`), every tree
+    against every row: X (n, f) -> (n,) float32, and with
+    `return_leaves` the leaf index of each (tree, row) as (T, n) int32.
+    One gather per depth level over all T trees at once; the trees are
+    added through `_accumulate`. Runs where X lies (a tensor), else on
+    the card (`resolve_device`)."""
+    from ..core.device import resolve_device
+    dev = X.device if isinstance(X, torch.Tensor) else resolve_device(None)
+    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    feat = torch.as_tensor(packed["feature"], device=dev).long()  # (T, n_int)
+    thr = torch.as_tensor(packed["threshold"], dtype=torch.float32,
+                          device=dev)
+    leaf = torch.as_tensor(packed["leaf"], dtype=torch.float32, device=dev)
+    idx = torch.zeros((feat.shape[0], X.shape[0]), dtype=torch.int64,
+                      device=dev)
+    for _ in range(packed["depth"]):
+        f = feat.gather(1, idx)                         # (T, n)
+        t = thr.gather(1, idx)
+        xv = X.T.gather(0, f)                           # X[row, f]
+        idx = 2 * idx + 1 + (xv > t).long()
+    leaf_idx = idx - (2 ** packed["depth"] - 1)
+    vals = leaf.gather(1, leaf_idx)                     # (T, n)
+    base = torch.as_tensor(packed["base"], dtype=torch.float32, device=dev)
+    out = _accumulate(base, packed["lr"], vals)
+    if return_leaves:
+        return out, leaf_idx.to(torch.int32)
     return out
 
 

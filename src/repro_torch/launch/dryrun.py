@@ -32,6 +32,13 @@ Usage:
   python -m repro_torch.launch.dryrun --all [--multi-pod]
   python -m repro_torch.launch.dryrun --all --both-meshes
   python -m repro_torch.launch.dryrun --all --shape train_4k   # one shape
+  python -m repro_torch.launch.dryrun --arch granite-3-2b --shape \
+      decode_32k --overrides '{"vocab_pad_to": 1}' --tag ovr
+
+`--overrides` (a JSON dict of `ModelConfig` fields) replaces fields of
+every planned cell's config, as the reference's flag does; the cell's
+file is named by `--tag`, as the reference's. `lower_cell` pads the
+vocabulary to 256 rows whatever `vocab_pad_to` says, in both packages.
 """
 from __future__ import annotations
 
@@ -64,9 +71,13 @@ def mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             overrides=None) -> dict:
     """One cell's record; needs a default group of the mesh's size
-    (`fake_world(512 if multi_pod else 256)`)."""
+    (`fake_world(512 if multi_pod else 256)`). `overrides` ({field:
+    value}) replace fields of the arch's config first, as the
+    reference's `cfg.replace(**overrides)` (an unknown field raises
+    TypeError)."""
     from repro_torch.configs import SHAPES, get_config, skip_reason
     from repro_torch.launch import sharding as shr
     from repro_torch.launch.mesh import make_production_mesh
@@ -77,8 +88,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     reason = skip_reason(arch, shape_name)
     if reason:
         return dict(head, status="skipped", reason=reason)
-    mesh = make_production_mesh(multi_pod=multi_pod)
     cfg, shape = get_config(arch), SHAPES[shape_name]
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    mesh = make_production_mesh(multi_pod=multi_pod)
     plan, meta, step = lower_cell(cfg, shape, mesh)
     trees = {"params": plan["params"], "batch": plan["batch"]}
     if "opt" in plan:
@@ -185,7 +198,10 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--overrides", default="",
+                    help="JSON dict of ModelConfig overrides (perf iter)")
     args = ap.parse_args(argv)
+    overrides = json.loads(args.overrides) if args.overrides else None
     from repro_torch.configs import SHAPES, list_archs
     meshes = (False, True) if args.both_meshes else (args.multi_pod,)
     if args.all:          # every cell, or every cell of --arch / --shape
@@ -209,7 +225,7 @@ def main(argv=None) -> int:
             for arch, shape in todo:
                 out = cell_path(arch, shape, mp, args.tag)
                 try:
-                    res = run_cell(arch, shape, mp)
+                    res = run_cell(arch, shape, mp, overrides)
                 except Exception:                   # recorded per cell
                     res = {"arch": arch, "shape": shape,
                            "mesh": mesh_name(mp), "status": "error",

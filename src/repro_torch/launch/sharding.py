@@ -27,10 +27,12 @@ optimizer state are planned per stacked group, over the stacked shape
 (n_cycles,) + layer shape and under the reference's own path
 (`['slot0']['mixer']['conv_x']['w']`), so that its substring rules and
 FSDP's choice of dimension come out as on the reference's leaves. Where
-that choice is the stack dimension (mamba2's `conv_x.w` and `out_norm`
-under FSDP), the plan places whole layers on the "data" ranks, and the
-per-device bytes count it so. Caches are planned per layer: the
-reference never shards a cache's stack dimension.
+that choice is the stack dimension (mamba2's `conv_x.w` and `out_norm`,
+recurrentgemma's `lam`, under FSDP), the plan places whole layers on
+the "data" ranks, the per-device bytes count it so, and `shard_params`
+keeps a rank's own layers and gathers a layer where it is read. Caches
+are planned per layer: the reference never shards a cache's stack
+dimension.
 
 `shard_params`, `shard_cache`, `shard_batch` and `shard_opt_state`
 carry out a plan on one rank: they cut the one-process trees (a `Model` built or bridged as
@@ -318,16 +320,35 @@ def _own(t: torch.Tensor) -> torch.Tensor:
 
 def _layer_spec(cfg, name: str, plan: Mapping[str, Placed]) -> Spec:
     """The plan entry of port leaf `name`: its stacked group's less the
-    stack dimension."""
+    stack dimension (`shard_params` carries out a split of that one)."""
     path, stacked = reference_path(cfg, name)
     spec = plan[path].spec
-    if not stacked:
-        return spec
-    if spec[0]:
-        raise NotImplementedError(
-            f"{path} places whole layers on {spec[0]} ranks; the executed "
-            "plans take a layer's parameters on every rank")
-    return spec[1:]
+    return spec[1:] if stacked else spec
+
+
+def _stack_splits(cfg, names, plan: Mapping[str, Placed], mesh, rank: int
+                  ) -> Dict[str, Tuple[Tuple[str, ...], int, str]]:
+    """{port leaf: (the axes, the index along them of the rank holding
+    that layer, the leaf this rank holds in its place)} of the stacked
+    groups whose plan splits the stack dimension over axes of size > 1
+    (FSDP's "data" where the stack is a leaf's largest free dimension,
+    e.g. mamba2's `out_norm`): whole layers lie on the ranks, n / s a
+    rank in layer order, and reading layer t gathers from every rank its
+    layer t % (n / s) (`api.Params.__getitem__`)."""
+    sizes, at = axis_sizes(mesh), coordinates(mesh, rank)
+    out = {}
+    for path, (group, stacked) in stacked_groups(cfg, names).items():
+        axes = tuple(a for a in plan[path].spec[0] if sizes[a] > 1) \
+            if stacked else ()
+        if not axes:
+            continue
+        s, j = 1, 0
+        for a in axes:
+            s, j = s * sizes[a], j * sizes[a] + at[a]
+        b = len(group) // s
+        for t, n in enumerate(group):
+            out[n] = (axes, t // b, group[j * b + t % b])
+    return out
 
 
 def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
@@ -337,7 +358,14 @@ def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
     FSDP-sharded over "data" is registered with its module, whose
     `__getitem__` gathers it over "data" where it is read; "model"
     shares stay as they are (the experts' among them: their d_ff slices,
-    which `moe.moe_layer_sharded` reads with this rank's rows)."""
+    which `moe.moe_layer_sharded` reads with this rank's rows). Where the
+    plan splits a stacked group's stack dimension (`_stack_splits`), the
+    rank keeps the parameters of its own layers only, and every layer's
+    module is registered to gather its layer where it is read."""
+    stack = _stack_splits(model.cfg, [n for n, _ in
+                                      model.named_parameters()], plan,
+                          mesh, rank)
+    mine = coordinates(mesh, rank)
     for mname, mod in list(model.named_modules()):
         for leaf, p in list(mod.named_parameters(recurse=False)):
             name = f"{mname}.{leaf}" if mname else leaf
@@ -349,6 +377,16 @@ def shard_params(model, plan: Mapping[str, Placed], mesh, rank: int):
             for d, axes in enumerate(spec):
                 if "data" in axes:
                     mod.gathers = dict(mod.gathers, **{leaf: (d, "data")})
+    for name, (axes, owner, held) in stack.items():
+        mname, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(mname)
+        j = 0
+        for a in axes:
+            j = j * axis_sizes(mesh)[a] + mine[a]
+        if owner != j:                      # another rank holds the layer
+            delattr(mod, leaf)
+        mod.gathers = dict(mod.gathers, **{leaf: (
+            axes, owner, model.get_submodule(held.rsplit(".", 1)[0]))})
     return model
 
 

@@ -56,12 +56,15 @@ def flatten_tree(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
 class Params(nn.Module):
     """A nested dict/list of tensors as modules: `p[name]` reads a leaf
     or a subtree, and the state-dict keys are the tree's dotted paths.
-    Parameters do not require gradients (serving). `gathers` {leaf:
-    (dim, axis)} names the leaves that hold an FSDP share
-    (`launch.sharding.shard_params`): reading one gathers it over the
-    axis of the pinned mesh."""
+    Parameters do not require gradients (serving). `gathers` names the
+    leaves that hold an FSDP share (`launch.sharding.shard_params`):
+    {leaf: (dim, axis)}, reading one gathers it over the axis of the
+    pinned mesh; or, where the plan places whole layers on the ranks,
+    {leaf: (axes, owner, holder)}, reading one gathers over `axes` the
+    layer each rank holds in the leaf's place (`holder`'s, this rank's
+    own layer of the same slot) and takes the `owner`-th, this layer."""
 
-    gathers: Dict[str, Tuple[int, str]] = {}
+    gathers: Dict[str, tuple] = {}
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -76,8 +79,15 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         if name in self.gathers:
-            dim, axis = self.gathers[name]
-            return all_gather(getattr(self, name), axis, dim)
+            how = self.gathers[name]
+            if len(how) == 2:
+                dim, axis = how
+                return all_gather(getattr(self, name), axis, dim)
+            axes, owner, holder = how
+            t = getattr(holder, name)[None]
+            for a in reversed(axes):
+                t = all_gather(t, a, 0)
+            return t[owner]
         return getattr(self, name)
 
 

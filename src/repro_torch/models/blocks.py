@@ -76,7 +76,8 @@ def causal_conv(x, p, width: int):
     """x: (B, S, C) full-sequence causal depthwise conv, in x's dtype."""
     pad = F.pad(x, (0, 0, width - 1, 0))
     S = x.shape[1]
-    return sum(pad[:, i:i + S] * p["w"][i] for i in range(width))
+    w = p["w"]                  # read once (an FSDP share gathers here)
+    return sum(pad[:, i:i + S] * w[i] for i in range(width))
 
 
 def conv_step(x_t, state, p, width: int):
@@ -157,10 +158,10 @@ def attn_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     projections are split (`shardctx.copy_to`)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    wq, wo = p["wq"], p["wo"]
-    if wq.shape[1] != H * hd or p["wk"].shape[1] != K * hd:
+    wq, wk, wo = p["wq"], p["wk"], p["wo"]   # read once (FSDP gathers)
+    if wq.shape[1] != H * hd or wk.shape[1] != K * hd:
         x = copy_to(x, "model")
-    q, k, v = x @ wq, x @ p["wk"], x @ p["wv"]
+    q, k, v = x @ wq, x @ wk, x @ p["wv"]
     Hc, Kc = q.shape[-1], k.shape[-1]
     if Hc % hd == 0 and Kc % hd == 0 and Hc * K == Kc * H:
         o, new_cache = _attn_heads(q.view(B, S, Hc // hd, hd),
@@ -232,11 +233,13 @@ def _attn_cut(q, k, v, h0: int, h1: int, p, cfg: ModelConfig,
     """Heads cut by the plan: q (B, S, H, hd), k, v (B, S, K, hd) whole
     on every rank; the rank attends heads [h0, h1), those its `wo` rows
     read. Its cache holds what `cache_pspecs` places on it: a share of
-    the slots (the KV heads do not divide; `shardctx.kv_cache_dim`), or
-    all of them. At decode K3 attends every head over the rank's slots
-    and the ranks' outputs merge over "model" by their (max, exp-sum)
-    (`attention.split_decode_attention`, one all-gather), or, over a
-    whole cache, K3 attends the rank's heads. Returns (o
+    the slots (the KV heads do not divide; `shardctx.kv_cache_dim`), its
+    share of head_dim (neither heads nor slots divide), or all of it. At
+    decode K3 attends every head over the rank's slots and the ranks'
+    outputs merge over "model" by their (max, exp-sum)
+    (`attention.split_decode_attention`, one all-gather), or, over all
+    the slots, K3 attends the rank's heads, a head_dim share gathered to
+    whole heads first (`whole_head_dim`, one all-gather). Returns (o
     (B, S, h1 - h0, hd), new cache)."""
     B, S, H, hd = q.shape
     K = k.shape[2]
@@ -244,19 +247,19 @@ def _attn_cut(q, k, v, h0: int, h1: int, p, cfg: ModelConfig,
     kv_dim = kv_cache_dim(blk.cache_len(max(pad_to, S)) if mode != "decode"
                           else cache["positions"].shape[0], K, hd,
                           axis_size("model"))
-    if kv_dim == -1:
-        raise NotImplementedError("a KV cache split over head_dim")
+    d0, d1 = share(hd) if kv_dim == -1 else (0, hd)
     if mode == "decode":
         C = cache["positions"].shape[0]
         lo, hi = local_range(C, cache["k"].shape[1])
         slot = pos % C
         if lo <= slot < hi:
-            cache["k"][:, slot - lo] = k[:, 0]
-            cache["v"][:, slot - lo] = v[:, 0]
+            cache["k"][:, slot - lo] = k[:, 0, :, d0:d1]
+            cache["v"][:, slot - lo] = v[:, 0, :, d0:d1]
         cache["positions"][slot] = pos
-        o = split_decode_attention(q, cache["k"], cache["v"],
-                                   cache["positions"][lo:hi], pos, (h0, h1),
-                                   blk.window, split=hi - lo < C)
+        kc, vc = whole_head_dim(cache["k"], cache["v"], hd)
+        o = split_decode_attention(q, kc, vc, cache["positions"][lo:hi],
+                                   pos, (h0, h1), blk.window,
+                                   split=hi - lo < C)
         return o, cache
     heads = torch.arange(h0, h1, device=q.device) // (H // K)
     o = flash_attention(q[:, :, h0:h1], k.index_select(2, heads),
@@ -271,7 +274,22 @@ def _attn_cut(q, k, v, h0: int, h1: int, p, cfg: ModelConfig,
         lo, hi = share(C)
         new_cache["k"] = new_cache["k"][:, lo:hi].contiguous()
         new_cache["v"] = new_cache["v"][:, lo:hi].contiguous()
+    elif kv_dim == -1:
+        new_cache["k"] = new_cache["k"][..., d0:d1].contiguous()
+        new_cache["v"] = new_cache["v"][..., d0:d1].contiguous()
     return o, new_cache
+
+
+def whole_head_dim(k, v, hd: int):
+    """A (B, C, K, d) KV cache pair whole: as it is, or, where the plan
+    splits head_dim over "model" (`cache_pspecs`' last resort, where
+    neither the KV heads nor the slots divide), this rank's d = hd /
+    model columns all-gathered to whole heads (one all-gather of both;
+    GSPMD answers that placement by all-gathering the cache too)."""
+    if k.shape[-1] == hd:
+        return k, v
+    kv = all_gather(torch.stack([k, v]), "model", 4)
+    return kv[0], kv[1]
 
 
 def attn_cache_spec(cfg: ModelConfig, blk: BlockCfg, B: int, ctx: int,
@@ -372,14 +390,15 @@ def rglru_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
     all-gather) and the output is summed over "model" (one
     all-reduce)."""
     w, W = cfg.conv_width, cfg.lru_width or cfg.d_model
-    split = p["w_in"].shape[1] != W
+    w_in = p["w_in"]                     # read once (FSDP gathers)
+    split = w_in.shape[1] != W
     conv = {"w": p["conv"]["w"]}
     if split:
         x = copy_to(x, "model")
         if conv["w"].shape[1] == W:     # kept whole: a stacked leaf's plan
-            lo, hi = local_range(W, p["w_in"].shape[1])
+            lo, hi = local_range(W, w_in.shape[1])
             conv["w"] = copy_to(conv["w"], "model")[:, lo:hi]
-    u_in = x @ p["w_in"]
+    u_in = x @ w_in
     gate = apply_act(x @ p["w_gate_branch"], "gelu")
     if mode == "decode":
         u, conv_state = conv_step(u_in[:, 0], cache["conv"], conv, w)
@@ -552,43 +571,54 @@ def _norm_sum(t):
 def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                 pos: int, pad_to: int = 0):
     """Under a pinned mesh `p` holds this rank's shares (`in_z` / `in_x`
-    / `in_dt` / `conv_x` columns, `out_norm`, `out_proj` rows): the rank
-    scans its heads [lo, hi) with K4 and reads its share of the per-head
-    parameters the plan keeps whole. The gated RMSNorm takes its mean
-    over the whole d_inner, so its sum of squares is summed over "model"
-    before the rsqrt (one all-reduce), and so is the output (one more).
-    `in_B` / `in_C` are whole; where the plan splits their conv caches
-    over "model", a decode step convolves the rank's channels and
-    gathers the others (one all-gather for both).
+    / `in_dt` / `conv_x` columns, `out_norm`, `out_proj` rows). Where the
+    heads divide, the rank scans its heads [lo, hi) with K4 and reads its
+    share of the per-head parameters the plan keeps whole; a group the
+    rank's heads cut is read per head. Where they do not (the plan still
+    splits d_inner's columns: `in_dt` and the state whole, a head cut),
+    the rank's channels of x are gathered to whole heads over "model"
+    (one all-gather, as the attention's head cut does), every rank scans
+    every head with K4 (the state the plan keeps whole) and keeps its
+    channels of y. The gated RMSNorm takes its mean over the whole
+    d_inner, so its sum of squares is summed over "model" before the
+    rsqrt (one all-reduce), and so is the output (one more). `in_B` /
+    `in_C` are whole; where the plan splits their conv caches over
+    "model", a decode step convolves the rank's channels and gathers the
+    others (one all-gather for both).
 
-    Under autograd, where the heads are split, the gradients that each
-    rank holds a part of are summed over "model": the input's of the
-    split projections, that of the (whole) B / C after their conv, and
-    that of the per-head parameters the plan keeps whole (one all-reduce
-    each, `shardctx.copy_to`)."""
+    Under autograd, where d_inner is split, the gradients that each rank
+    holds a part of are summed over "model": the input's of the split
+    projections, that of the (whole) B / C after their conv, that of the
+    per-head parameters the plan keeps whole and, at a head cut, that of
+    the whole dt projection (one all-reduce each, `shardctx.copy_to`);
+    the gathered channels' gradient is reduce-scattered back."""
     B, S, _ = x.shape
     di, N, G, nh, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_groups,
                        cfg.ssm_heads, cfg.ssm_head_dim)
-    w, GN = cfg.conv_width, G * N
-    split = p["in_dt"].shape[-1] != nh
-    xc = copy_to(x, "model") if split else x
+    w, GN, rep = cfg.conv_width, G * N, nh // G
+    in_x, in_dt = p["in_x"], p["in_dt"]     # read once (FSDP gathers)
+    wide = in_x.shape[-1] != di             # this rank holds d_inner / m
+    split = in_dt.shape[-1] != nh           # ... and nh / m whole heads
+    cut = wide and not split
+    xc = copy_to(x, "model") if wide else x
     z = xc @ p["in_z"]
-    xr = xc @ p["in_x"]
+    xr = xc @ in_x
     Br = x @ p["in_B"]
     Cr = x @ p["in_C"]
-    dt_raw = xc @ p["in_dt"]
-    lo, hi = local_range(nh, dt_raw.shape[-1])
-    nhl, rep = hi - lo, nh // G
-    g0, g1 = lo // rep, -(-hi // rep)
-    if xr.shape[-1] != nhl * P or (G > 1 and (lo % rep or hi % rep)):
-        raise NotImplementedError("a plan that cuts an SSD head or group")
+    dt_raw = copy_to(x @ in_dt, "model") if cut else xc @ in_dt
+    c0, c1 = local_range(di, xr.shape[-1])  # this rank's channels
+    lo, hi = local_range(nh, dt_raw.shape[-1])   # the heads it scans
+    nhl = hi - lo
+    aligned = lo % rep == 0 and hi % rep == 0
+    g0, g1 = (lo // rep, hi // rep) if aligned else (0, 0)
+    hg = torch.arange(lo, hi, device=x.device) // rep  # each head's group
     heads = torch.stack([p["A_log"], p["dt_bias"], p["D_skip"]])
-    if split:
+    if wide:
         heads = copy_to(heads, "model")
     A_log, dt_bias, D_skip = (_share_of(t, lo, hi, nh)
                               for t in heads.unbind(0))
     A = -torch.exp(A_log)                                  # (nhl,)
-    conv_x = {"w": _share_of(p["conv_x"]["w"], lo * P, hi * P, di, 1)}
+    conv_x = {"w": _share_of(p["conv_x"]["w"], c0, c1, di, 1)}
     clo, chi = share(GN)              # the conv_B / conv_C caches' share
 
     if mode == "decode":
@@ -597,12 +627,13 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                              {"w": p["conv_B"]["w"][:, clo:chi]}, w)
         Ct, cs_C = conv_step(Cr[:, 0, clo:chi], cache["conv_C"],
                              {"w": p["conv_C"]["w"][:, clo:chi]}, w)
-        Bt, Ct = whole_columns([(Bt, GN), (Ct, GN)])
+        if cut:
+            xt, Bt, Ct = whole_columns([(xt, di), (Bt, GN), (Ct, GN)])
+        else:
+            Bt, Ct = whole_columns([(Bt, GN), (Ct, GN)])
         xh = apply_act(xt, "silu").view(B, nhl, P)
-        Bm = apply_act(Bt, "silu").view(B, G, N)[:, g0:g1].float() \
-            .repeat_interleave(nhl // (g1 - g0), dim=1)
-        Cm = apply_act(Ct, "silu").view(B, G, N)[:, g0:g1].float() \
-            .repeat_interleave(nhl // (g1 - g0), dim=1)
+        Bm = apply_act(Bt, "silu").view(B, G, N)[:, hg].float()
+        Cm = apply_act(Ct, "silu").view(B, G, N)[:, hg].float()
         dt = _softplus(dt_raw[:, 0].float() + dt_bias)
         dA = torch.exp(dt * A)                               # (B, nhl)
         state = cache["state"] * dA[..., None, None] + torch.einsum(
@@ -614,13 +645,18 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                      "conv_C": cs_C}
     else:
         xh = apply_act(causal_conv(xr, conv_x, w), "silu")
+        if cut:
+            xh, = whole_columns([(xh, di)])
         Bm = apply_act(causal_conv(Br, p["conv_B"], w), "silu")
         Cm = apply_act(causal_conv(Cr, p["conv_C"], w), "silu")
-        if split:
+        if wide:
             Bm, Cm = copy_to(Bm, "model"), copy_to(Cm, "model")
         xh = xh.reshape(B, S, nhl, P)
-        Bm = Bm.reshape(B, S, G, N)[:, :, g0:g1].float()
-        Cm = Cm.reshape(B, S, G, N)[:, :, g0:g1].float()
+        # the rank's groups, or, where its heads cut one, a group a head
+        Bm = Bm.reshape(B, S, G, N)
+        Cm = Cm.reshape(B, S, G, N)
+        Bm = (Bm[:, :, g0:g1] if aligned else Bm[:, :, hg]).float()
+        Cm = (Cm[:, :, g0:g1] if aligned else Cm[:, :, hg]).float()
         dt = _softplus(dt_raw.float() + dt_bias)
         scan = ssd_chunked_train if mode == "train" else ssd_chunked
         y, final_state = scan(xh, Bm, Cm, dt, A, min(cfg.ssm_chunk, S))
@@ -630,16 +666,18 @@ def ssd_forward(x, p, cfg: ModelConfig, blk: BlockCfg, mode: str, cache,
                      "conv_x": xr[:, -(w - 1):].contiguous(),
                      "conv_B": Br[:, -(w - 1):, clo:chi].contiguous(),
                      "conv_C": Cr[:, -(w - 1):, clo:chi].contiguous()}
+    if cut:                           # this rank's channels of every head
+        y = y[..., c0:c1]
     # gated RMSNorm, then the out projection (mamba2)
     yf = y.float() * F.silu(z.float())
-    if nhl == nh:
+    if not wide:
         var = yf.square().mean(-1, keepdim=True)
     else:
         var = _norm_sum(yf.square().sum(-1, keepdim=True)) / di
     yf = yf * torch.rsqrt(var + cfg.norm_eps) * (
-        1.0 + _share_of(p["out_norm"], lo * P, hi * P, di).float())
+        1.0 + _share_of(p["out_norm"], c0, c1, di).float())
     out = yf.to(x.dtype) @ p["out_proj"]
-    if nhl != nh:
+    if wide:
         out = all_reduce(out, "model")
     return out, new_cache
 

@@ -37,7 +37,7 @@ from ..distributed.shardctx import all_reduce, axis_size, copy_to, \
     kv_cache_dim, local_range, share
 from .attention import decode_attention, flash_attention, repeat_kv, \
     split_decode_attention
-from .blocks import whole_columns
+from .blocks import whole_columns, whole_head_dim
 from .config import ModelConfig
 from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
     mlp, mlp_params, norm_params, remat, sinusoidal_pos
@@ -171,7 +171,8 @@ def _mha(x_q, x_kv, p, cfg: ModelConfig, *, causal: bool):
 def _embed(params, cfg: ModelConfig, tokens, at):
     """Token rows (the table may be this rank's vocabulary share,
     `layers.embed_lookup`) plus the decoder's learned positions `at`."""
-    return embed_lookup(tokens, params["embed"], rows=cfg.padded_vocab) \
+    return embed_lookup(tokens, params["embed"], rows=cfg.padded_vocab,
+                        cols=cfg.d_model) \
         + params["pos_dec"][at][None]
 
 
@@ -233,14 +234,12 @@ def init_cache(cfg: ModelConfig, batch: int, enc_len: int, device=None):
 def _cache_share(t, cut):
     """A (B, C, k, hd) cache tensor as this rank holds it: as it is where
     the heads are its own (`cut` None), else, from whole heads, its piece
-    where `cache_pspecs` splits it over "model" (the slots; head_dim is
-    refused)."""
+    where `cache_pspecs` splits it over "model" (the slots, else
+    head_dim)."""
     if cut is None:
         return t
     d = kv_cache_dim(t.shape[1], t.shape[2], t.shape[3],
                      axis_size("model"))
-    if d == -1:
-        raise NotImplementedError("a KV cache split over head_dim")
     if d is None:
         return t
     lo, hi = share(t.shape[d])
@@ -287,10 +286,12 @@ def _decode_attend(q, k_cache, v_cache, positions, pos: int, cfg, cut):
     """K3 for one decode token: over this rank's heads and cache
     (`cut` None), or, for the query heads its `wo` rows read, over its
     share of the slots (merged over "model" by each head's (max,
-    exp-sum)) or the whole cache (`attention.split_decode_attention`)."""
+    exp-sum)) or all the slots, a head_dim share gathered to whole heads
+    first (`blocks.whole_head_dim`; `attention.split_decode_attention`)."""
     if cut is None:
         return decode_attention(q, k_cache, v_cache, positions, pos)
     hd = cfg.hd
+    k_cache, v_cache = whole_head_dim(k_cache, v_cache, hd)
     C = positions.shape[0]
     lo, hi = local_range(C, k_cache.shape[1])
     return split_decode_attention(q, k_cache, v_cache, positions[lo:hi],
@@ -315,9 +316,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
         s = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
         q, k, v, cut = _qkv(s, s, lp["attn"], cfg)
         lo, hi = local_range(C, lc["self_k"].shape[1])
+        d0, d1 = local_range(cfg.hd, lc["self_k"].shape[3])
         if lo <= slot < hi:
-            lc["self_k"][:, slot - lo] = k[:, 0]
-            lc["self_v"][:, slot - lo] = v[:, 0]
+            lc["self_k"][:, slot - lo] = k[:, 0, :, d0:d1]
+            lc["self_v"][:, slot - lo] = v[:, 0, :, d0:d1]
         o = _decode_attend(q, lc["self_k"], lc["self_v"], positions, pos,
                            cfg, cut)
         x = x + _out(o, lp["attn"], cfg, cut)

@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.shardctx import all_reduce, copy_to, data_axes, \
-    local_range
+from ..distributed.shardctx import all_gather, all_reduce, copy_to, \
+    data_axes, local_range
 
 
 def dense_init(gen: torch.Generator, shape, scale: float | None = None,
@@ -152,14 +152,22 @@ class _Embed(torch.autograd.Function):
         return acc.to(dtype), None
 
 
-def embed_lookup(tokens, table, rows: int = 0):
+def embed_lookup(tokens, table, rows: int = 0, cols: int = 0):
     """table[tokens]: (B, S) integer -> (B, S, D); the table's gradient
     sums in float32 and rounds once to the table's dtype. Given the full
     row count `rows`, `table` may be this rank's vocabulary share (the
     plan's split over "model"): each rank looks up the tokens it holds,
     zeros for the others, and the rows are summed over "model" (one
     all-reduce; reference lines 113-116), exactly the row, as every other
-    rank adds zeros; the gradient reaches this rank's own rows."""
+    rank adds zeros; the gradient reaches this rank's own rows. Given the
+    full width `cols`, `table` may be this rank's share of the d_model
+    columns (the plan's fallback where the rows do not divide): the rank
+    looks up its columns and they are all-gathered over "model" (one
+    all-gather; every rank reads the whole rows alike, so the gradient
+    of its columns is its own slice)."""
+    if cols and table.shape[1] != cols:
+        x = _Embed.apply(table, tokens)
+        return all_gather(x, "model", x.dim() - 1, grad="slice")
     if not rows or table.shape[0] == rows:
         return _Embed.apply(table, tokens)
     lo, hi = local_range(rows, table.shape[0])
@@ -185,9 +193,15 @@ def _chunk_ce(h, table, labels, mask, valid_vocab: int, lo: int,
     rank's vocabulary share, rows [lo, lo + its rows): the log-sum-exp
     then takes the max over "model" (no gradient), sums the exponentials
     over "model", and the rank holding a label gives its logit (two
-    all-reduces and a max). Returns (sum of the masked losses, sum of
-    the mask)."""
-    logits = (h @ table.T).float()                       # (T, Vl)
+    all-reduces and a max). Or it may be this rank's share of the d_model
+    columns, h then its columns too: the logits are this rank's partial
+    products, summed over "model" (one all-reduce). Returns (sum of the
+    masked losses, sum of the mask)."""
+    if h.shape[1] != table.shape[1]:
+        c0, c1 = local_range(h.shape[1], table.shape[1])
+        logits = all_reduce((h[:, c0:c1] @ table.T).float(), "model")
+    else:
+        logits = (h @ table.T).float()                   # (T, Vl)
     Vl = table.shape[0]
     if valid_vocab and lo + Vl > valid_vocab:
         cols = torch.arange(lo, lo + Vl, device=h.device) < valid_vocab
@@ -217,10 +231,12 @@ def chunked_ce_loss(h, table, labels, mask=None, chunk: int = 1024,
 
     Under a tensor-parallel plan, given the full row count `rows`, the
     table may be this rank's vocabulary share (`_chunk_ce`; h's gradient
-    is then summed over "model"), and the rows of h this rank's data
-    shard: the masked-loss sum and the mask count are summed over the
-    data axes the batch is split on (`shardctx.data_axes`), so the loss
-    is the global token mean, and the count takes no gradient."""
+    is then summed over "model"), or its share of the d_model columns
+    (each rank's partial logits summed over "model", h's gradient
+    summed too), and the rows of h this rank's data shard: the
+    masked-loss sum and the mask count are summed over the data axes
+    the batch is split on (`shardctx.data_axes`), so the loss is the
+    global token mean, and the count takes no gradient."""
     B, S, D = h.shape
     labels = labels.long()
     mask_f = (torch.ones((B, S), dtype=torch.float32, device=h.device)
@@ -228,6 +244,7 @@ def chunked_ce_loss(h, table, labels, mask=None, chunk: int = 1024,
     lo, split = 0, bool(rows) and table.shape[0] != rows
     if split:
         lo, _ = local_range(rows, table.shape[0])
+    if split or table.shape[1] != D:
         h = copy_to(h, "model")
 
     def one(hc, lc, mc):

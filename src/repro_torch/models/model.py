@@ -24,7 +24,11 @@ Under a tensor-parallel plan the embedding table and the unembedding
 are this rank's vocabulary share: `embed_lookup` sums the rows over
 "model", `masked_logits` returns the share's columns (the padded ones
 masked on the rank that holds them) and `greedy_tokens` picks the token
-across the shares without gathering the logits. The vision
+across the shares without gathering the logits. Where the rows do not
+divide, the plan splits the d_model columns instead (reference
+`launch/sharding.py:54-59`): `embed_lookup` gathers the rank's columns
+over "model", and `masked_logits` and the CE sum each rank's partial
+products over "model", so the logits are whole rows. The vision
 `frontend_proj` split by columns is gathered over "model". `loss_fn`
 runs there too, on this rank's rows: the chunked CE over the vocabulary
 share, the loss the global token mean over the data shards
@@ -35,7 +39,8 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.shardctx import all_gather, constrain, local_range
+from ..distributed.shardctx import all_gather, all_reduce, constrain, \
+    local_range
 from .blocks import block_cache_spec, block_forward, block_params, \
     whole_columns
 from .config import ModelConfig
@@ -46,10 +51,9 @@ from .layers import apply_norm, chunked_ce_loss, dense_init, embed_lookup, \
 def _embed(tokens, table, cfg: ModelConfig):
     """Table rows of the tokens times the embedding scale rounded to the
     table's dtype (the reference's one-hot matmul returns the same rows);
-    the table may be this rank's vocabulary share (`embed_lookup`)."""
-    if table.shape[1] != cfg.d_model:
-        raise NotImplementedError("an embedding split over d_model")
-    x = embed_lookup(tokens, table, rows=cfg.padded_vocab)
+    the table may be this rank's vocabulary share or its share of the
+    d_model columns (`embed_lookup`)."""
+    x = embed_lookup(tokens, table, rows=cfg.padded_vocab, cols=cfg.d_model)
     s = float(torch.tensor(cfg.embed_scale, dtype=table.dtype))
     return x * s
 
@@ -62,8 +66,15 @@ def masked_logits(h_last, table, cfg: ModelConfig):
     """(B, D) against a (V, D) table -> (B, V) float32 with padded-vocab
     columns at -1e30. The table may be this rank's vocabulary share: the
     logits are then its columns (B, V / model), the padded ones masked on
-    the rank that holds them."""
-    logits = h_last.float() @ table.float().T
+    the rank that holds them. Or it may be this rank's share of the
+    d_model columns: each rank's partial products over its columns are
+    summed over "model" (one all-reduce), and the logits are whole."""
+    if table.shape[1] != h_last.shape[-1]:
+        c0, c1 = local_range(h_last.shape[-1], table.shape[1])
+        logits = all_reduce(h_last[..., c0:c1].float() @ table.float().T,
+                            "model")
+    else:
+        logits = h_last.float() @ table.float().T
     lo, hi = local_range(cfg.padded_vocab, table.shape[0])
     if hi > cfg.vocab:
         logits[:, max(cfg.vocab - lo, 0):] = -1e30

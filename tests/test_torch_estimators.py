@@ -143,3 +143,36 @@ def test_world_and_arrivals_match_reference(small_ctx):
         assert a.len_in == b.len_in
     np.testing.assert_array_equal(p_arr(12.0, 50, seed=3),
                                   r_arr(12.0, 50, seed=3))
+
+
+@pytest.mark.parametrize("leaves", [False, True], ids=["values", "leaves"])
+@pytest.mark.parametrize("seed,n_trees,depth", [(1, 15, 3), (4, 60, 4)])
+def test_predict_packed_bitwise(seed, n_trees, depth, leaves):
+    """`predict_packed` (every tree against every row) is bitwise the
+    reference's jnp `predict_packed` and the numpy booster's `predict`,
+    and with `return_leaves` gives the reference's (T, n) leaf indices;
+    on numpy input without a card it refuses to choose the CPU."""
+    import jax.numpy as jnp
+    from repro.estimators.gbm import GradientBoostedRegressor as RefGBM
+    from repro.estimators.gbm import predict_packed as ref_predict
+    from repro_torch.estimators.gbm import GradientBoostedRegressor, \
+        predict_packed
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(400, 4)).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 2] ** 2).astype(np.float32)
+    ref = RefGBM(n_trees=n_trees, depth=depth).fit(X, y)
+    g = GradientBoostedRegressor.from_packed(ref.pack())
+    Xq = rng.normal(size=(97, 4)).astype(np.float32)
+    got = predict_packed(g.pack(), torch.from_numpy(Xq),
+                         return_leaves=leaves)
+    want = ref_predict(ref.pack(), jnp.asarray(Xq), return_leaves=leaves)
+    if leaves:
+        (got, got_idx), (want, want_idx) = got, want
+        assert got_idx.dtype == torch.int32
+        assert np.array_equal(got_idx.numpy(), np.asarray(want_idx))
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy(), ref.predict(Xq))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            predict_packed(g.pack(), Xq)

@@ -184,10 +184,24 @@ def _local_shape(placed, mesh):
     return tuple(shape)
 
 
+def _params_plan(case, plan, meta, mesh):
+    """The parameter plan a case runs under: `lower_cell`'s (its model's
+    vocabulary padded to 256 rows), or with `unpadded`, `param_pspecs`
+    of the case's model as configured (rows that may not divide, so the
+    embedding splits over d_model)."""
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import Model
+    if not case.get("unpadded"):
+        return plan["params"]
+    return shr.param_pspecs(Model(case["cfg"], device="meta"), mesh,
+                            fsdp=meta["fsdp"])
+
+
 def tp_serve(case, mesh, rank):
     """One case through `lower_cell`'s prefill and decode steps on
     `mesh` (with the case's `fsdp`, the plan's FSDP rule forced on or
-    off): the bridged one-process model cut to this rank's pieces, its
+    off; with `unpadded`, the parameters under `_params_plan`): the
+    bridged one-process model cut to this rank's pieces, its
     rows; per step this rank's share of the logits, the tokens and the
     collectives by kind; the cache's shapes beside the plan's."""
     import torch
@@ -204,13 +218,14 @@ def tp_serve(case, mesh, rank):
     model = Model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(case["params"], cfg))
     fsdp = case.get("fsdp")
-    plan, _, step = lower_cell(
+    plan, meta, step = lower_cell(
         cfg, ShapeSpec("tp_prefill", case["pad_to"], B, "prefill"), mesh,
         fsdp=fsdp)
     dplan, _, dstep = lower_cell(
         cfg, ShapeSpec("tp_decode", case["pad_to"], B, "decode"), mesh,
         fsdp=fsdp)
-    shr.shard_params(model, plan["params"], mesh, rank)
+    shr.shard_params(model, _params_plan(case, plan, meta, mesh), mesh,
+                     rank)
     batch = shr.shard_batch({k: torch.from_numpy(v)
                              for k, v in case["batch"].items()},
                             plan["batch"], mesh, rank)
@@ -292,8 +307,10 @@ def _collectives_api(rank, mesh):
 
 
 def tp_train(case, mesh, rank):
-    """One case's train step through `lower_cell`'s plan on `mesh`: the
-    bridged one-process model cut to this rank's pieces, its rows, its
+    """One case's train step through `lower_cell`'s plan on `mesh` (with
+    `unpadded`, the parameters and moments planned on the case's model
+    as configured): the bridged one-process model cut to this rank's
+    pieces, its rows, its
     ZeRO optimizer pieces (the case's `state0` moments, a reference
     tree, cut by `shard_opt_state`); then the step (`make_train_step(...,
     plan=, mesh=)`) with the case's AdamW config, microbatches and
@@ -321,6 +338,9 @@ def tp_train(case, mesh, rank):
                            for k, v in case["state_dict"].items()})
     plan, meta, _ = lower_cell(cfg, ShapeSpec("tp_train", S, B, "train"),
                                mesh, fsdp=case.get("fsdp"))
+    if case.get("unpadded"):
+        plan = dict(plan, params=_params_plan(case, plan, meta, mesh),
+                    opt=shr.opt_pspecs(Model(cfg, device="meta"), mesh))
     shr.shard_params(model, plan["params"], mesh, rank)
     whole = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
     batch = shr.shard_batch(whole, shr.batch_pspecs(whole, mesh), mesh,

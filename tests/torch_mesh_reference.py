@@ -33,6 +33,12 @@ The modes:
                 rule) on a (data, model) mesh of the 4 host devices under
                 the residual rule, as the reference's dry run lowers a
                 train cell; MoE takes its capacity per data shard there;
+  * tpjit     - smoke models with config overrides, prefill and greedy
+                decode jitted under the reference's placement plans on
+                (data, model) meshes of the host devices (the
+                placements the port executed last: an embedding over
+                d_model, a KV cache over head_dim, a cut SSD head or
+                group, whole layers on the data ranks);
   * tp        - smoke models unsharded, prefill and greedy decode over
                 given row ranges (the tensor-parallel tests' reference:
                 the reference's placement plans change where its values
@@ -169,11 +175,11 @@ def run_tp(cases):
 
 def run_train(cases):
     """{name: dict(arch, mesh, batch, ocfg[, state0 (the moments "m",
-    "v" to start from), fsdp, microbatches, compression, remat])} ->
-    {name: dict(params (before), new_params,
+    "v" to start from), fsdp, microbatches, compression, remat,
+    overrides, unpadded])} -> {name: dict(params (before), new_params,
     m, v, mets)}, numpy; the model is the smoke variant in float32 with
-    the vocabulary padded to 256 (`lower_cell`'s), drawn from
-    `jax.random.key(0)`."""
+    the case's config overrides and the vocabulary padded to 256
+    (`lower_cell`'s) unless `unpadded`, drawn from `jax.random.key(0)`."""
     from jax.sharding import PartitionSpec as P
     from repro.configs import ARCHS, smoke_variant
     from repro.distributed.shardctx import sharding_rules
@@ -184,8 +190,10 @@ def run_train(cases):
     out = {}
     for name, case in cases.items():
         cfg = smoke_variant(ARCHS[case["arch"]]).replace(
-            dtype=jnp.float32, vocab_pad_to=256,
-            remat=case.get("remat", False))
+            dtype=jnp.float32, remat=case.get("remat", False),
+            **case.get("overrides", {}))
+        if not case.get("unpadded"):
+            cfg = cfg.replace(vocab_pad_to=256)
         model = Model(cfg)
         params = model.init(jax.random.key(0))
         mesh = auto_mesh(case["mesh"], ("data", "model"))
@@ -216,6 +224,59 @@ def run_train(cases):
                          m=jax.tree.map(np.asarray, state["m"]),
                          v=jax.tree.map(np.asarray, state["v"]),
                          mets={k: float(v) for k, v in mets.items()})
+    return out
+
+
+def run_tpjit(cases):
+    """{name: dict(arch, overrides, batch, pad_to, steps, meshes[,
+    fsdp])} -> {name: {"params": numpy tree, mesh: [logits per step]}}:
+    the smoke model (float32, the case's config overrides, the
+    vocabulary as they leave it, drawn from `jax.random.key(0)`) jitted
+    under the reference's own placement plans on each (data, model) mesh
+    of the host devices: parameters by `param_pspecs` (the case's FSDP
+    rule), the batch by `batch_pspecs`, the decode cache by
+    `cache_pspecs`; prefill and greedy decode steps of the whole batch
+    under the residual rule. GSPMD lowers each placement (an embedding
+    over d_model, a cache over head_dim, a cut SSD head, whole layers on
+    the data ranks) and places the values; the logits come back whole."""
+    from repro.configs import ARCHS, smoke_variant
+    from repro.distributed.shardctx import sharding_rules
+    from repro.launch import sharding as shr
+    from repro.models import Model
+    from repro.models.api import greedy_sample
+    out = {}
+    for name, case in cases.items():
+        cfg = smoke_variant(ARCHS[case["arch"]]).replace(
+            dtype=jnp.float32, **case.get("overrides", {}))
+        model = Model(cfg)
+        params = model.init(jax.random.key(0))
+        res = {"params": jax.tree.map(np.asarray, params)}
+        batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
+        B = batch["tokens"].shape[0]
+        for shape in case["meshes"]:
+            mesh = auto_mesh(shape, ("data", "model"))
+            psh = shr.to_named(shr.param_pspecs(
+                params, mesh, fsdp=case.get("fsdp", False)), mesh)
+            bsh = shr.to_named(shr.batch_pspecs(batch, mesh), mesh)
+            with mesh, sharding_rules(mesh,
+                                      residual=shr.residual_spec(mesh)):
+                p = jax.device_put(params, psh)
+                lg, cache = jax.jit(
+                    lambda p, b: model.prefill(p, b, pad_to=case["pad_to"]),
+                    in_shardings=(psh, bsh))(p, jax.device_put(batch, bsh))
+                csh = shr.to_named(shr.cache_pspecs(cache, mesh, B), mesh)
+                tsh = shr.to_named(shr.batch_pspecs(
+                    {"t": jnp.zeros((B, 1), jnp.int32)}, mesh), mesh)["t"]
+                decode = jax.jit(model.decode, in_shardings=(psh, csh, tsh))
+                cache = jax.device_put(cache, csh)
+                logits = [np.asarray(lg)]
+                for _ in range(case["steps"]):
+                    tok = jax.device_put(greedy_sample(lg)[:, None], tsh)
+                    lg, cache = decode(p, cache, tok)
+                    cache = jax.device_put(cache, csh)
+                    logits.append(np.asarray(lg))
+            res[shape] = logits
+        out[name] = res
     return out
 
 
@@ -296,7 +357,7 @@ def start_reference(args, devices, tmp_path, timeout=600):
 
 MODES = {"moe": run_moe, "allreduce": run_allreduce, "model": run_model,
          "lower": run_lower, "tp": run_tp, "walk": run_walk,
-         "train": run_train}
+         "train": run_train, "tpjit": run_tpjit}
 
 
 def main():

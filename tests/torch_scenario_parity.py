@@ -79,14 +79,10 @@ def assert_metrics_equal(rm, pm):
             assert same(rm[k], pm[k]), (k, rm[k], pm[k])
 
 
-def run_pair(rrun, prun, schedule=None, recovery="scenario", n=120,
-             lam_scale=1.0, seed=0, **rb_kw):
-    """One cell on each package: the scenario's roster and tenants, the
-    given schedule (default: the scenario's own) and recovery config
-    (default: the scenario's own; None disarms it). Returns
-    ((ref reqs, ref metrics), (port reqs, port metrics, port engine))."""
-    import repro.core as R
-    import repro_torch.core as P
+def arm_scenario(rrun, prun, schedule=None, recovery="scenario"):
+    """Set both runs' schedule (default: the scenario's own as built) and
+    recovery config (default: the scenario's own; None disarms it) for
+    the cells that follow."""
     from repro_torch.serving.recovery import RecoveryConfig as PortRC
 
     for run, rc in ((rrun, None), (prun, PortRC)):
@@ -100,6 +96,18 @@ def run_pair(rrun, prun, schedule=None, recovery="scenario", n=120,
                             rc(**dataclasses.asdict(recovery)))
         run.scenario = (base if schedule is None else dataclasses.replace(
             base, schedule=schedule(run.tiers)))
+
+
+def run_pair(rrun, prun, schedule=None, recovery="scenario", n=120,
+             lam_scale=1.0, seed=0, **rb_kw):
+    """One cell on each package: the scenario's roster and tenants, the
+    given schedule (default: the scenario's own) and recovery config
+    (default: the scenario's own; None disarms it). Returns
+    ((ref reqs, ref metrics), (port reqs, port metrics, port engine))."""
+    import repro.core as R
+    import repro_torch.core as P
+
+    arm_scenario(rrun, prun, schedule, recovery)
     rreqs = rrun.requests(n, lam_scale=lam_scale, seed=seed)
     rb = R.RouteBalance(R.RBConfig(decision_backend="fused",
                                    charge_compute=False, **rb_kw),
