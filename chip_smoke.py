@@ -10,18 +10,23 @@ Phases, each printing one JSON line; any failed check exits nonzero
   3. check  — the decision kernel against its plain PyTorch version on
      the card, at the main path's shapes (N=14,886 x E=128 index, M=4,
      four 60-tree depth-3 TPOT heads, I=16 with 13 alive, R in
-     {8, 64, 256}, and one request in the R=8 bucket) plus I=128 and
-     I=4096, K=2 windows, the affinity term, the four latency modes,
+     {8, 64, 256}, and one request in the R=8 bucket) plus I=128,
+     I=4096 (the shared carry's largest), I=4097 and I=16,384 (the
+     global carry), K=2 windows, the affinity term, the four latency modes,
      LPT and the budget filter on and off, the GBM off:
      on dyadic inputs (multiples of 1/8, so every distance is exact)
      choice/b1/f1 must be identical and est_T/l_chosen/d1 within rtol
-     1e-5; on random normal inputs choice must agree on >= 99% of rows;
+     1e-5; on random normal inputs (I=16 and 16,384) choice must agree
+     on >= 99% of rows;
   4. times  — kernel and plain version, median of 50 CUDA-event-timed
      calls after warm-up, beside the least time the card could take, and
      the profiler's device time of the kernel's one function; back to
      back: CUDA events around 200 launches / 200, twice; fails if 20
      profiled calls run anything on the device but at most 20 launches
-     of that function (as 4b, 4c and 4d do for K2, K3 and K4);
+     of that function (as 4b, 4c and 4d do for K2, K3 and K4); then K1
+     at I=16,384 (R=8, 16) with its device time without the TPOT heads,
+     and K1's device time with each carry about the boundary between
+     them (I = 1,024 to 8,192), the two carries' outputs bitwise equal;
   3b. knn check — the KNN lookup kernel against its plain version on the
      main-path index (N=14,886 x E=128, k=10) at B in {1, 3, 8, 12, 40,
      64, 256, 300},
@@ -133,9 +138,13 @@ Phases, each printing one JSON line; any failed check exits nonzero
      version on the same tensors as 3e holds random normal inputs. Then a
      controller crash at t = 5.3 resumed from a `CheckpointManager` on
      disk: completions identical to the uncrashed run's. Then
-     `hyperfleet_10k`: the megakernel refuses its 10,000 instances by
-     name, and 500 of its requests run on the staged torch backend
-     with one K2 launch per scoring call; every 16th lookup and the last,
+     `hyperfleet_10k`: 500 of its requests on the staged torch backend
+     with one K2 launch per scoring call, then as one controller
+     through K1 (10,000 instances, bucket 16,384: the global carry;
+     launches = fired batches less degraded ones, no plain call, shape
+     variants = R buckets, completions identical to the staged run; at
+     most 8 recorded calls held against the plain version as above);
+     every 16th lookup of the staged run and the last,
      recorded through `knn_topk.tap`, held against the plain version
      (idx rows identical on >= 99%, d2 within rtol 1e-5 plus 1e-6 of
      its scale);
@@ -152,7 +161,8 @@ Phases, each printing one JSON line; any failed check exits nonzero
      to its R buckets, digests on the wire), the exact runs once more
      with `decision_megakernel.tap` (the same completions; the first
      call, every 16th and the last held against the plain version as 5f
-     holds its calls); span at 16 cells on the staged torch backend with
+     holds its calls), each beside 5f's staged and flat K1 decide ms a
+     request; span at 16 cells on the staged torch backend with
      K2 (completions identical to 5f's unsharded staged run, one K2
      launch per scoring call, no K1 launch), and span on `cluster` at 2
      cells (100 requests; each decision's choice and est_T kept for 5k,
@@ -437,8 +447,10 @@ def kernel_out(mk, tensors, statics):
 def bound_ms(tensors, statics, n_neighbour_rows):
     """Least time for the function: bytes it must move (inputs read once,
     outputs written once; of the label planes only the neighbours' rows,
-    of the trees only the nodes walked) over the memory rate, or float32
-    operations over the CUDA-core peak, whichever is larger."""
+    of the trees each node once: the nodes walked, or where the walks
+    cover more, the trees of the tiers in the roster) over the memory
+    rate, or float32 operations over the CUDA-core peak, whichever is
+    larger."""
     emb, rv, bud, lin = tensors[:4]
     K, R, _ = emb.shape
     I = tensors[5].shape[0]
@@ -448,7 +460,9 @@ def bound_ms(tensors, statics, n_neighbour_rows):
               + n_neighbour_rows * M * 4 * 2 + I * per_inst
               + K * R * 12 + K * I * 12)
     if statics["use_gbm"]:
-        nbytes += I * N_TREES * (DEPTH * 8 + 4)
+        n_tiers = int(torch.unique(tensors[15]).numel())
+        per_tier = N_TREES * ((2 ** DEPTH - 1) * 8 + 2 ** DEPTH * 4) + 4
+        nbytes += min(I * N_TREES * (DEPTH * 8 + 4), n_tiers * per_tier)
     if statics["w_aff"] > 0:
         nbytes += K * R * 8 * 4 + I * 64 * 4
     flops = 2 * K * R * N_INDEX * E + 3 * K * R * N_INDEX
@@ -614,9 +628,14 @@ def phase_check(mk):
         dict(R=64, I=128, n_alive=100),
         dict(R=64, I=16, n_alive=13, K=2),
         dict(R=64, I=16, n_alive=13, w_aff=0.5),
-        # one request in the R = 8 bucket; the carry's largest roster
+        # one request in the R = 8 bucket; the shared carry's largest
+        # roster; the global carry one past it and at hyperfleet_10k's
+        # bucket (one window, and two with the affinity term)
         dict(R=8, I=16, n_alive=13, valid=1),
         dict(R=64, I=4096, n_alive=4000),
+        dict(R=64, I=4097, n_alive=4097),
+        dict(R=16, I=16384, n_alive=10000),
+        dict(R=16, I=16384, n_alive=10000, K=2, w_aff=0.5),
     ]
     max_abs = 0.0
     for seed, case in enumerate(cases):
@@ -646,6 +665,18 @@ def phase_check(mk):
         emit("check", inputs="normal", R=R, I=16, choice_agreement=frac,
              est_T_max_rel_err_on_agreeing_rows=rel_max)
         check(frac >= 0.99, f"R={R}: choice agreement {frac} < 0.99")
+    # the global carry on random normal inputs: choices on >= 99% of the
+    # rows, est_T and l_chosen within rtol 1e-5 where they agree
+    tensors, statics = make_case(116, R=16, I=16384, n_alive=10000,
+                                 dyadic=False)
+    rows, agree, rel = hold_k1(kernel_out(mk, tensors, statics),
+                               plain_reference(mk, tensors, statics),
+                               tensors[1].cpu().numpy(), False,
+                               "K1 I=16384 normal")
+    agreements.append(agree / rows)
+    emit("check", inputs="normal", R=16, I=16384, choice_agreement=agree / rows,
+         est_T_l_chosen_max_rel_err_on_agreeing_rows=rel)
+    check(agree >= 0.99 * rows, f"I=16384: choice agreement {agree}/{rows}")
     return max_abs, min(agreements)
 
 
@@ -672,6 +703,82 @@ def phase_times(mk):
          rows[R]["device_activities_per_call"]) = functions_per_call(
             kernel, K1_FUNCTION, f"K1 R={R}")
         emit("times", R=R, I=16, K=1, **rows[R], calls_timed=50)
+    return rows
+
+
+def phase_times_wide(mk):
+    """K1 at hyperfleet_10k's roster bucket (I = 16,384 with 10,000
+    alive: the global carry) for R = 8 and 16, timed as phase 4 times
+    it (call, device, plain, bound), with the device time once more
+    without the TPOT heads' trees (their share: a warp an instance)."""
+    rows = {}
+    for I, R, n_alive in ((16384, 8, 10000), (16384, 16, 10000)):
+        tensors, statics = make_case(900 + R, R=R, I=I, n_alive=n_alive,
+                                     dyadic=False)
+
+        def kernel():
+            return mk.decision_megakernel(*tensors, **statics)
+        b_ms, by, nbytes, flops = bound_ms(tensors, statics,
+                                           neighbour_rows(tensors))
+        off, st_off = make_case(900 + R, R=R, I=I, n_alive=n_alive,
+                                dyadic=False, use_gbm=False)
+        row = dict(I=I, R=R, K=1, alive=n_alive, ms=time_ms(kernel, n=20),
+                   plain_ms=time_ms(lambda: mk.decision_megakernel_plain(
+                       *tensors, **statics), n=10),
+                   bound_ms=b_ms, bound_by=by, bytes=nbytes, flops=flops,
+                   device_ms=required_split(
+                       kernel, (K1_FUNCTION,), f"K1 I={I} R={R}",
+                       n=10)[K1_FUNCTION],
+                   device_ms_gbm_off=required_split(
+                       lambda: mk.decision_megakernel(*off, **st_off),
+                       (K1_FUNCTION,), f"K1 I={I} R={R} GBM off",
+                       n=10)[K1_FUNCTION])
+        (row["global_functions_per_call"],
+         row["device_activities_per_call"]) = functions_per_call(
+            kernel, K1_FUNCTION, f"K1 I={I} R={R}", n=10)
+        rows[f"I={I},R={R}"] = row
+        emit("times_wide", **row)
+    return rows
+
+
+def phase_carry_boundary(mk):
+    """Where the scan's carry moves from shared to global memory: K1 on
+    the same random-normal inputs with each carry, at rosters about
+    `MAX_SHARED_I` (the hierarchy's cell bucket 1,024, 4,096, and 8,192,
+    where the shared carry still fits up to R = 16). The wrapper picks
+    the carry by `MAX_SHARED_I`, which is set around each timing: 0 for
+    the global carry, past any roster for the shared one. The two
+    carries' outputs must be bitwise equal; device ms (profiler, 20
+    calls) are taken in turns shared, global, global, shared."""
+    rows = {}
+    saved = mk.MAX_SHARED_I
+    for I, R in ((1024, 8), (1024, 64), (4096, 8), (4096, 16), (4096, 64),
+                 (8192, 8), (8192, 16)):
+        tensors, statics = make_case(950 + I + R, R=R, I=I,
+                                     n_alive=I * 5 // 8, dyadic=False)
+
+        def kernel():
+            return mk.decision_megakernel(*tensors, **statics)
+        times, outs = {"shared": [], "global": []}, {}
+        try:
+            for carry in ("shared", "global", "global", "shared"):
+                mk.MAX_SHARED_I = 0 if carry == "global" else 1 << 30
+                outs.setdefault(carry, [o.cpu() for o in kernel()])
+                times[carry].append(required_split(
+                    kernel, (K1_FUNCTION,), f"K1 I={I} R={R} {carry}")
+                    [K1_FUNCTION])
+        finally:
+            mk.MAX_SHARED_I = saved
+        check(all(torch.equal(a, b)
+                  for a, b in zip(outs["shared"], outs["global"])),
+              f"K1 I={I} R={R}: the global carry differs from the shared")
+        row = dict(I=I, R=R, device_ms_shared=times["shared"],
+                   device_ms_global=times["global"],
+                   global_over_shared=sum(times["global"])
+                   / sum(times["shared"]),
+                   runs=("shared" if I <= saved else "global"))
+        rows[f"I={I},R={R}"] = row
+        emit("carry_boundary", bitwise_equal=True, **row)
     return rows
 
 
@@ -1241,7 +1348,8 @@ def phase_scenarios(mk, kt):
 
         def one(tap):
             reqs = run.requests(n, lam_scale=scale, seed=0)
-            run.bundle().__dict__.pop("_fused_cache", None)  # fresh hot path
+            from repro_torch.core.hotpath import FusedHotPath
+            FusedHotPath.clear_cache(run.bundle())  # fresh hot path
             rb = RouteBalance(RBConfig(charge_compute=False, **rb_kw),
                               run.bundle(), run.tiers)
             mk.reset_counts()
@@ -1404,14 +1512,16 @@ def phase_soak(mk):
             dataset_n=SOAK_DATASET_N)
         run.bundle(device=DEV)
         setup = time.perf_counter() - t0
-        check(run.n_instances <= mk.MAX_I,
-              f"soak world {seed}: {run.n_instances} instances > MAX_I")
+        check(run.n_instances <= mk.MAX_SHARED_I,
+              f"soak world {seed}: {run.n_instances} instances, past the "
+              "shared carry the soak exercises")
         for w in SOAK_AFFINITY:
             label = f"soak/{seed}/affinity_{w}"
 
             def one(tap, backend="megakernel"):
                 reqs = run.requests(SOAK_N, seed=seed)
-                run.bundle().__dict__.pop("_fused_cache", None)
+                from repro_torch.core.hotpath import FusedHotPath
+                FusedHotPath.clear_cache(run.bundle())
                 rb = RouteBalance(RBConfig(decision_backend=backend,
                                            affinity_weight=w,
                                            charge_compute=False),
@@ -1523,30 +1633,27 @@ HYPERFLEET_N = 500       # 5f, 5g and 5k (cut from 2,000, then 1,000: time)
 
 
 def phase_hyperfleet(mk, kt):
-    """`hyperfleet_10k`: the megakernel refuses its 10,000-instance roster
-    by name; HYPERFLEET_N of its requests run on the staged torch backend
-    with the KNN kernel, one K2 launch per scoring call. Returns (row,
-    the built run, the staged run's completion tuples)."""
+    """`hyperfleet_10k`: HYPERFLEET_N of its requests on the staged torch
+    backend with the KNN kernel (one K2 launch per scoring call, the
+    recorded lookups held against the plain version), then the same
+    requests as one controller through K1 (`RBConfig()`, I bucket
+    16,384: the global carry), counted (launches = fired batches less
+    degraded ones, no plain call, shape variants = R buckets, completions
+    identical to the staged run) and once more tapped (at most 8
+    recorded calls held against the plain version). Returns (row, the
+    built run, the staged run's completion tuples)."""
     from repro_torch.core import RBConfig, RouteBalance
+    from repro_torch.core.decision import bucket_pow2
+    from repro_torch.serving.metrics import check_terminal_states
     from repro_torch.serving.scenarios import get_scenario
     t0 = time.perf_counter()
     run = get_scenario("hyperfleet_10k").build(dataset_n=SCEN_DATASET_N)
     run.bundle(device=DEV)
     setup = time.perf_counter() - t0
     reqs = run.requests(HYPERFLEET_N, seed=0)
-    mk.reset_counts()
-    try:
-        run.run_cell(RouteBalance(RBConfig(), run.bundle(), run.tiers),
-                     reqs, seed=0)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    check(refused is not None and "MAX_I" in refused,
-          "the megakernel did not refuse hyperfleet_10k by name")
-    check(sum(k1_counts(mk)) == 0, "K1 ran on hyperfleet_10k")
-    reqs = run.requests(HYPERFLEET_N, seed=0)
     rb = RouteBalance(RBConfig(decision_backend="torch", knn_backend="kernel",
                                charge_compute=False), run.bundle(), run.tiers)
+    mk.reset_counts()
     kt.reset_counts()
     recorder = K2Recorder()
     kt.knn_topk.tap = recorder
@@ -1557,17 +1664,17 @@ def phase_hyperfleet(mk, kt):
     finally:
         kt.knn_topk.tap = None
     launches, plain = k2_counts(kt)
+    staged_k1 = sum(k1_counts(mk))
     calls = len(rb.compute_log)
     held = hold_recorded_k2(kt, recorder)
+    staged = completion_tuples(reqs)
     row = dict(instances=run.n_instances, requests=len(reqs), served=m["n"],
                failed=m["failed"], scoring_calls=calls, knn_launches=launches,
                knn_plain_calls=plain, quality=m["quality"],
                mean_e2e=m["mean_e2e"], p99_e2e=m["p99_e2e"],
                measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
                mean_batch_size=m["mean_batch_size"], setup_s=setup,
-               wall_s=wall, megakernel_refusal=refused,
-               recorded_vs_plain=held)
-    emit("hyperfleet", **row)
+               wall_s=wall, recorded_vs_plain=held)
     check(m["n"] + m["failed"] + m["shed"] == len(reqs) and m["n"] > 0,
           "hyperfleet_10k: requests not all terminal")
     check(launches == calls > 0,
@@ -1575,8 +1682,73 @@ def phase_hyperfleet(mk, kt):
     check(plain == 0, "hyperfleet_10k: plain KNN calls")
     check(recorder.n == launches,
           f"hyperfleet_10k: the tap saw {recorder.n} of {launches} calls")
-    check(sum(k1_counts(mk)) == 0, "K1 ran on the staged backend")
-    return row, run, completion_tuples(reqs)
+    check(staged_k1 == 0, "K1 ran on the staged backend")
+
+    # one controller through K1
+    def flat(tap):
+        reqs = run.requests(HYPERFLEET_N, seed=0)
+        from repro_torch.core.hotpath import FusedHotPath
+        FusedHotPath.clear_cache(run.bundle())   # fresh hot path
+        rb = RouteBalance(RBConfig(charge_compute=False), run.bundle(),
+                          run.tiers)
+        mk.reset_counts()
+        kt.reset_counts()
+        mk.decision_megakernel.tap = tap
+        try:
+            t1 = time.perf_counter()
+            m = run.run_cell(rb, reqs, seed=0)
+            wall = time.perf_counter() - t1
+        finally:
+            mk.decision_megakernel.tap = None
+        return reqs, rb, m, wall, k1_counts(mk), sum(k2_counts(kt))
+
+    freqs, frb, fm, fwall, (k1, k1_plain), k2 = flat(None)
+    check_terminal_states(freqs)
+    fired = len(frb.compute_log)
+    mgr = getattr(frb.sim, "recovery", None)
+    degraded = mgr.degraded_batches if mgr is not None else 0
+    buckets = len({bucket_pow2(n) for n, _ in frb.compute_log})
+    variants = frb._fused.shape_variants()
+    same = completion_tuples(freqs) == staged
+    # at most 8 recorded calls (the plain version is slow at this width):
+    # the first, 2 after roster events, at most 3 sampled, the last
+    rec = K1Recorder(events=2, every=max(16, -(-k1 // 4)))
+    treqs, _, _, _, (t_k1, _), _ = flat(rec)
+    tapped_same = completion_tuples(treqs) == completion_tuples(freqs)
+    check(len(rec.calls()) <= 8, f"hyperfleet_10k flat: {len(rec.calls())} "
+          "recorded calls")
+    check(all(args[5].shape[0] == 16384 for _, _, args, _ in rec.calls()),
+          "hyperfleet_10k flat: a recorded call is not at I = 16,384")
+    row["flat"] = dict(
+        i_bucket=frb._fused._Itot, requests=len(freqs), served=fm["n"],
+        failed=fm["failed"], shed=fm["shed"], fired_batches=fired,
+        degraded_batches=degraded, k1_launches=k1, k1_plain_calls=k1_plain,
+        k2_launches=k2, shape_variants=variants, r_buckets=buckets,
+        identical_to_staged=same, tapped_run_identical=tapped_same,
+        measured_decide_ms_per_req=fm["measured_decide_ms_per_req"],
+        staged_torch_decide_ms_per_req=m["measured_decide_ms_per_req"],
+        mean_batch_size=fm["mean_batch_size"], quality=fm["quality"],
+        mean_e2e=fm["mean_e2e"], p99_e2e=fm["p99_e2e"], wall_s=fwall,
+        recorded_vs_plain=hold_recorded_k1(mk, rec, "hyperfleet_10k flat"),
+        **hot_path_split([frb]))
+    emit("hyperfleet", **row)
+    f = row["flat"]
+    check(fm["n"] + fm["failed"] + fm["shed"] == len(freqs) and fm["n"] > 0,
+          "hyperfleet_10k flat: requests not all terminal once")
+    check(f["i_bucket"] == 16384, f"hyperfleet_10k flat: I bucket "
+          f"{f['i_bucket']}")
+    check(k1 == fired - degraded > 0 and k1_plain == 0 and k2 == 0,
+          f"hyperfleet_10k flat: {k1} K1 launches ({k1_plain} plain) for "
+          f"{fired} batches, {degraded} degraded; K2 {k2}")
+    check(variants == buckets if not degraded else variants <= buckets,
+          f"hyperfleet_10k flat: {variants} shape variants for {buckets} "
+          "R buckets")
+    check(same, "hyperfleet_10k flat: completions differ from the staged "
+          "torch run")
+    check(t_k1 == k1 and rec.n == k1 and tapped_same,
+          f"hyperfleet_10k flat: the tapped run made {rec.n} calls "
+          f"(counted {k1}), completions identical={tapped_same}")
+    return row, run, staged
 
 
 # -- the hierarchy (phase 5g) -----------------------------------------------
@@ -1593,7 +1765,8 @@ def hier_run(mk, kt, run, make, reqs, tap=None):
     K2 counts set to 0 just before and read just after. Returns
     (scheduler, metrics, wall s, (K1 launches, K1 plain), (K2 launches,
     K2 plain))."""
-    run.bundle().__dict__.pop("_fused_cache", None)
+    from repro_torch.core.hotpath import FusedHotPath
+    FusedHotPath.clear_cache(run.bundle())
     sched = make()
     mk.reset_counts()
     kt.reset_counts()
@@ -1725,6 +1898,7 @@ def phase_hierarchy(mk, kt, scen):
     # hyperfleet_10k in balanced cells, then once more tapped
     fleet = scen["fleet_run"]
     staged_ms = scen["hyperfleet"]["measured_decide_ms_per_req"]
+    flat_ms = scen["hyperfleet"]["flat"]["measured_decide_ms_per_req"]
     out["fleet"] = {}
     for n_cells, mode, bucket in HIER_FLEET:
         label = f"hyperfleet_10k/{n_cells} cells/{mode}"
@@ -1750,6 +1924,7 @@ def phase_hierarchy(mk, kt, scen):
                    measured_decide_ms_per_req=m[
                        "measured_decide_ms_per_req"],
                    staged_torch_decide_ms_per_req_5f=staged_ms,
+                   flat_k1_decide_ms_per_req_5f=flat_ms,
                    mean_batch_size=m["mean_batch_size"],
                    imbalance=bal.imbalance(), digests=bal.digests_sent,
                    digest_bytes=bal.bytes_sent,
@@ -4044,6 +4219,8 @@ def main():
     max_abs, min_agree = phase_check(mk)
     knn_abs, knn_agree = phase_knn_check(kt)
     times = phase_times(mk)
+    times_wide = phase_times_wide(mk)
+    carry_split = phase_carry_boundary(mk)
     knn_times = phase_knn_times(kt)
     from repro_torch.kernels import decode_attention as k3
     from repro_torch.kernels import ssd_scan as k4
@@ -4069,7 +4246,8 @@ def main():
     tp = phase_tp()
     scen_k1 = dict(total=scen["k1_launches"],
                    by_cell={k: v["k1_launches"]
-                            for k, v in scen["cells"].items()})
+                            for k, v in scen["cells"].items()},
+                   flat=scen["hyperfleet"]["flat"]["k1_launches"])
     del scen
     examples = phase_examples(mk, kt)
     for name, ex in examples.items():
@@ -4102,11 +4280,12 @@ def main():
         "replaces": "src/repro/kernels/decision_megakernel.py:283",
         "function": "decision_call",
         "launches": (launches[12.0] + launches[30.0] + scen_k1["total"]
-                     + hier["k1_launches"] + sum(examples_k1.values())
-                     + soak["k1_launches"]),
+                     + scen_k1["flat"] + hier["k1_launches"]
+                     + sum(examples_k1.values()) + soak["k1_launches"]),
         "launches_by_path": {"main_12rps": launches[12.0],
                              "main_30rps": launches[30.0],
                              "scenarios": scen_k1["total"],
+                             "hyperfleet_10k_flat": scen_k1["flat"],
                              "hierarchy": hier["k1_launches"],
                              "soak": soak["k1_launches"],
                              **{f"examples/{k}": v
@@ -4127,7 +4306,8 @@ def main():
         "device_activities_per_call": main8["device_activities_per_call"],
         "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
                                       "E": E, "M": M},
-        "by_R": {str(R): v for R, v in times.items()}}, {
+        "by_R": {str(R): v for R, v in times.items()},
+        "global_carry": times_wide, "carry_boundary": carry_split}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk.py:83",

@@ -110,6 +110,13 @@ class FusedHotPath:
             runner.reset()
         return runner
 
+    @staticmethod
+    def clear_cache(bundle) -> None:
+        """Drop the runners cached on `bundle`, so that the next cell
+        builds a fresh hot path: `reset` keeps a runner's shape count,
+        which a cell that counts its own shapes must start at 0."""
+        bundle.__dict__.pop("_fused_cache", None)
+
     def __init__(self, bundle, instances, cfg):
         dev = bundle.device
         self.device = dev

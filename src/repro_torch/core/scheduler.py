@@ -23,11 +23,11 @@ engine does not call it, as in the reference. `RBConfig.window_coalesce`
 is accepted and validated (>= 1, > 1 only on the megakernel) to match
 the reference's API, and, as there, nothing reads it: a caller groups
 the windows itself and passes them to `assign_windows`. The megakernel
-takes rosters of at most `kernels.decision_megakernel.MAX_I` instances
-and refuses a larger one when the policy attaches to its sim (the
-hierarchy, `serving.hierarchy`, splits such a fleet into cells).
-`RBConfig.shard_cells > 1` (the hierarchy's span routing) runs the
-staged torch backend's scan cell-sharded, bitwise the unsharded scan:
+decides a roster of any size as one controller, as the reference's
+"fused" does (the hierarchy, `serving.hierarchy`, can split a fleet
+into cells instead). `RBConfig.shard_cells > 1` (the hierarchy's span
+routing) runs the staged torch backend's scan cell-sharded, bitwise the
+unsharded scan:
 over the ranks of a ``("cell",)`` mesh when there is one (a mesh pinned
 with `distributed.shardctx.sharding_rules` whose "cell" dimension has
 `shard_cells` ranks, else `launch.mesh.make_cell_mesh`; this process is
@@ -245,17 +245,6 @@ class RouteBalancePolicy(SchedulingPolicy):
     def on_attach(self, sim: ClusterSim):
         self._fused = None                    # new sim -> new roster
         self._cell_mesh = self._resolve_cell_mesh()
-        if self.cfg.decision_backend == "megakernel":
-            from ..kernels.decision_megakernel import MAX_I
-            if len(sim.instances) > MAX_I:
-                raise ValueError(
-                    f"a roster of {len(sim.instances)} instances is more "
-                    f"than the decision kernel takes (MAX_I = {MAX_I}): "
-                    "split it into balanced cells with n_cells >= "
-                    f"ceil(I / MAX_I) = {-(-len(sim.instances) // MAX_I)} "
-                    "(repro_torch.serving.hierarchy.build_scheduler), or "
-                    "use decision_backend='torch' (the staged torch "
-                    "backend)")
 
     def _resolve_cell_mesh(self):
         """The span scan's mesh, as the reference's hot path resolves it
@@ -441,3 +430,12 @@ class RouteBalance(ServingEngine):
     def _fused(self):
         """The policy's lazily-built FusedHotPath (diagnostics)."""
         return self.policy._fused
+
+    def _decide_core(self, batch: List[Request]
+                     ) -> Tuple[list, np.ndarray, np.ndarray]:
+        """The per-batch decision alone (no dispatch), fetched eagerly:
+        the candidate roster and (choice (R,) indices into it, l_chosen
+        (R,)). The reference's hot-path probe (its `_decide_core`)."""
+        res = self.policy.assign(BatchView(batch), self.sim)
+        choice, l_chosen = res.fetch()
+        return res.instances, choice, l_chosen

@@ -33,16 +33,29 @@
 //      by shuffles; the LPT order; and the greedy loop. With I <= 32
 //      (the main path) one warp runs the loop, lane i holding instance
 //      i's constants and its (d, b, free) carry in registers, so a step
-//      is three warp reductions; above, the block runs it with the carry
-//      in shared memory. Eq. 2 admission, the affinity hit and Eq. 1 are
-//      evaluated for one row over I on the fly: no (R, I) plane is ever
-//      written.
-// The dynamic shared memory is the larger of the two stages' needs, and
-// every CTA gets it. At the main path's I = 16 that is stage 1's (43 KB
-// at the 4-row tile), and registers (128 a thread, for the scan) hold
-// the kernel to two CTAs an SM; at I = 4096 (MAX_I) the scan's carry
+//      is three warp reductions; above, the block runs it, thread t
+//      owning the columns i = t (mod blockDim.x). Eq. 2 admission, the
+//      affinity hit and Eq. 1 are evaluated for one row over I on the
+//      fly: no (R, I) plane is ever written.
+// The block's per-instance arrays (the carry d/b/free, b0, the TPOT, and
+// a step's cost and latency: 28 B an instance) have two homes. The
+// shared carry keeps them in shared memory, up to I = 4096 (MAX_SHARED_I
+// in the wrapper) where they fit beside the R-length arrays. Past that,
+// or where they do not fit, the global carry keeps d/b/free in the
+// window's rows of the outputs d1/b1/f1 (no copy at the end) and the
+// other four in a (K, 4, I) scratch, L2-resident (458 KB at I = 16,384).
+// Only the owner of a column reads or writes it, so the two carries run
+// the same operations in the same order: the global one is bitwise the
+// shared one.
+// The dynamic shared memory is the larger of stage 1's need and the
+// scan's, and every CTA gets it. At the main path's I = 16 that is stage
+// 1's (43 KB at the 4-row tile), and registers (128 a thread, for the
+// scan) hold the kernel to two CTAs an SM; at I = 4096 the shared carry
 // makes it about 115 KB, one CTA an SM, so stage 1 runs in about twice
-// the waves there.
+// the waves there; with the global carry it is stage 1's again. The
+// boundary is measured, not the opt-in limit: the global carry's reads
+// from L2 cost the scan more than stage 1's second CTA an SM gains at
+// I = 4096 for R >= 16, and less at I = 8192 (chip_smoke.py times both).
 //
 // Exactness. Everything after the distance dot product spells the
 // plain PyTorch version's operations one by one, with IEEE rounding:
@@ -109,6 +122,8 @@ struct RtDecisionParams {
   float* qmix;               // (K*R, M) scratch: label mixes
   float* lmix;
   float* plm;                // (K*R,) scratch: LPT key
+  float* scan_i;             // (K, 4, I) scratch of the global carry, or
+                             // null: the shared-memory carry
   int* choice;               // (K, R)
   float* est;                // (K, R)
   float* lchosen;            // (K, R)
@@ -192,11 +207,21 @@ struct ScanSmem {
   int* redi;     // 32
 };
 
-__host__ __device__ inline size_t scan_smem_words(int R, int M, int I) {
-  return (size_t)2 * R * M + (size_t)7 * R + (size_t)7 * I + 96;
+// Shared-memory words of the scan: with the shared carry the seven
+// I-length arrays too, with the global carry the R-length ones and the
+// reduction words only.
+__host__ __device__ inline size_t scan_smem_words(int R, int M, int I,
+                                                  bool shared_carry) {
+  return (size_t)2 * R * M + (size_t)7 * R
+         + (shared_carry ? (size_t)7 * I : 0) + 96;
 }
 
-__device__ ScanSmem carve(float* base, int R, int M, int I) {
+// The scan's arrays for window w: the R-length ones and the reduction
+// words from shared memory; the I-length ones from shared memory too
+// (shared carry), or (global carry) the carry d/b/free in the window's
+// rows of the outputs d1/b1/f1 and the other four in its scratch rows.
+__device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w) {
+  const int R = prm.R, M = prm.M, I = prm.I;
   ScanSmem s;
   float* p = base;
   s.qmix = p; p += (size_t)R * M;
@@ -208,13 +233,25 @@ __device__ ScanSmem carve(float* base, int R, int M, int I) {
   s.rv = reinterpret_cast<int*>(p); p += R;
   s.pick = reinterpret_cast<int*>(p); p += R;
   s.est = p; p += R;
-  s.d = p; p += I;
-  s.b = p; p += I;
-  s.fr = p; p += I;
-  s.b0 = p; p += I;
-  s.tpot = p; p += I;
-  s.tc = p; p += I;
-  s.tt = p; p += I;
+  if (prm.scan_i == nullptr) {
+    s.d = p; p += I;
+    s.b = p; p += I;
+    s.fr = p; p += I;
+    s.b0 = p; p += I;
+    s.tpot = p; p += I;
+    s.tc = p; p += I;
+    s.tt = p; p += I;
+  } else {
+    const size_t o = (size_t)w * I;
+    s.d = prm.d1 + o;
+    s.b = prm.b1 + o;
+    s.fr = prm.f1 + o;
+    float* g = prm.scan_i + 4 * o;
+    s.b0 = g;
+    s.tpot = g + I;
+    s.tc = g + 2 * (size_t)I;
+    s.tt = g + 3 * (size_t)I;
+  }
   s.redf = p; p += 64;
   s.redi = reinterpret_cast<int*>(p);
   return s;
@@ -436,7 +473,11 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
 }
 
 // The R-step greedy loop for I > 32, by the whole block: thread `tid`
-// owns the instances i = tid (mod blockDim.x), the carry in shared memory.
+// owns the instances i = tid (mod blockDim.x). Every I-length array is
+// read and written by the owner of the column only (tpot was written
+// before a barrier), so the carry may sit in shared memory or in global
+// memory (the outputs themselves) with the same operations in the same
+// order.
 __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   const int I = p.I, M = p.M, tid = threadIdx.x, nthr = blockDim.x;
   const bool off = p.mode == OFF_REACTIVE || p.mode == OFF_PREDICTIVE;
@@ -537,6 +578,7 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
     }
     __syncthreads();
   }
+  if (p.scan_i != nullptr) return;          // the carry is the output
   for (int i = tid; i < I; i += nthr) {
     const size_t o = (size_t)w * I + i;
     p.d1[o] = s.d[i];
@@ -549,7 +591,7 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = blockDim.x >> 5;
-  ScanSmem s = carve(smem, R, M, I);
+  ScanSmem s = carve(smem, p, w);
 
   // per-row inputs; the mixes and keys other CTAs wrote (L2, not L1)
   for (int r = tid; r < R; r += blockDim.x) {
@@ -685,9 +727,12 @@ int launch(const RtDecisionParams& p, int S, size_t smem, cudaStream_t st) {
 extern "C" {
 
 // Dynamic shared memory of the kernel, in bytes: the larger of stage 1's
-// at row tile RT and the scan's.
-size_t rt_decision_smem(int RT, int E, int R, int M, int I) {
-  const size_t scan = sizeof(float) * scan_smem_words(R, M, I);
+// at row tile RT and the scan's, with the shared carry (shared_carry != 0)
+// or the global one.
+size_t rt_decision_smem(int RT, int E, int R, int M, int I,
+                        int shared_carry) {
+  const size_t scan = sizeof(float) * scan_smem_words(R, M, I,
+                                                      shared_carry != 0);
   const size_t knn1 = knn::smem_bytes(RT, E);
   return scan > knn1 ? scan : knn1;
 }
@@ -704,7 +749,8 @@ int rt_decision_megakernel(const RtDecisionParams* p, int RT, int S,
       p->k > p->N || p->per_split < 1 ||
       S != (n_ct + p->per_split - 1) / p->per_split)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = rt_decision_smem(RT, p->E, p->R, p->M, p->I);
+  const size_t smem = rt_decision_smem(RT, p->E, p->R, p->M, p->I,
+                                       p->scan_i == nullptr);
   switch (RT) {
     case 1: return launch<1, 1, 1, knn::SMALL_ES>(*p, S, smem, st);
     case 2: return launch<2, 2, 1, knn::SMALL_ES>(*p, S, smem, st);

@@ -25,9 +25,17 @@ check can record the arguments the serving path passes and hold the
 kernel against its plain version on them afterwards. Stage 1 takes its
 layout (row tile and index splits) for the K * R rows from the KNN
 lookup's measured table (`layout`); the kernel's scratch (split lists,
-tickets, the rows' label mixes) lives per (device, stream), allocated
-once and grown on demand, so a call allocates only its outputs and
-launches nothing else.
+tickets, the rows' label mixes, the global carry's per-instance arrays)
+lives per (device, stream), allocated once and grown on demand, so a
+call allocates only its outputs and launches nothing else.
+
+Any roster size I is taken. The scan keeps its per-instance arrays in
+shared memory up to `MAX_SHARED_I` instances where they fit there (the
+shared carry); a larger roster, or one whose arrays do not fit beside
+the R-length ones, takes the global carry (the arrays in the outputs
+and in scratch, see csrc/decision_megakernel.cu), which is bitwise the
+shared one. The wrapper raises only when even the R-length arrays do
+not fit in a block's shared memory.
 
 Per-window args carry a leading K axis — emb (K, R, E), row_valid
 (K, R) bool, budgets/len_in (K, R) float32, psig (K, R, SIG_WIDTH)
@@ -53,7 +61,12 @@ from ..serving.affinity import hit_fraction
 from .build import scratch, smem_limit
 from .knn_topk import knn_splits, row_tile
 
-MAX_I = 4096            # instances the kernel's shared-memory carry takes
+# Largest roster the scan carries in shared memory. A measured choice, not
+# the hardware's limit (the shared carry still fits at I = 8,192 for
+# R <= 16): chip_smoke.py's carry boundary times both carries on the same
+# inputs, and the global one is the faster at I = 8,192, while at 4,096
+# the shared one is the faster for R >= 16 (PERF.md section 6).
+MAX_SHARED_I = 4096
 MAX_K_NEIGHBOURS = 32   # one lane per neighbour in the merge
 
 
@@ -64,14 +77,17 @@ def layout(rows: int, n_index: int) -> Tuple[int, int, int]:
     return (row_tile(rows), *knn_splits(rows, n_index))
 
 
-def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int
-                  ) -> Tuple[int, int, int]:
-    """(split-list entries, tickets, label-mix floats) of the kernel's
-    scratch for K windows of R rows: k candidates per row and split, one
-    ticket per row tile and per window, and each row's two label mixes
-    (M each) and LPT key."""
+def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int, I: int,
+                  shared_carry: bool) -> Tuple[int, int, int, int]:
+    """(split-list entries, tickets, label-mix floats, carry floats) of
+    the kernel's scratch for K windows of R rows over I instances: k
+    candidates per row and split, one ticket per row tile and per
+    window, each row's two label mixes (M each) and LPT key, and with
+    the global carry four I-length arrays per window (b0, TPOT, a
+    step's cost and latency; the carry itself lives in the outputs)."""
     rt, S, _ = layout(K * R, n_index)
-    return K * R * S * k, -(-K * R // rt) + K, K * R * (2 * M + 1)
+    return (K * R * S * k, -(-K * R // rt) + K, K * R * (2 * M + 1),
+            0 if shared_carry else 4 * K * I)
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -151,7 +167,7 @@ class _Params(ctypes.Structure):
         "m_of_i", "tier_of_i", "maxb", "price_in", "price_out", "nominal",
         "sig_plane", "gfeat", "gthr", "gleaf", "gbase",
         "cand_d", "cand_i", "tickets", "wtickets", "qmix", "lmix", "plm",
-        "choice", "est", "lchosen", "d1", "b1", "f1")]
+        "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1")]
         + [(n, ctypes.c_int) for n in (
             "K", "R", "E", "N", "M", "I", "k", "per_split", "sig_w",
             "sig_slots",
@@ -162,7 +178,7 @@ class _Params(ctypes.Structure):
 
 
 _lib = None
-_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes)
+_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes, carry)
 
 
 def _library():
@@ -174,7 +190,7 @@ def _library():
                                                ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         lib.rt_decision_megakernel.restype = ctypes.c_int
-        lib.rt_decision_smem.argtypes = [ctypes.c_int] * 5
+        lib.rt_decision_smem.argtypes = [ctypes.c_int] * 6
         lib.rt_decision_smem.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -231,8 +247,6 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
                          "a multiple of 4 and both 16-byte aligned")
     if not 1 <= k <= min(MAX_K_NEIGHBOURS, N):
         raise ValueError(f"k={k} outside [1, min({MAX_K_NEIGHBOURS}, N)]")
-    if I > MAX_I:
-        raise ValueError(f"I={I} exceeds the kernel's limit of {MAX_I}")
     if latency_mode not in LATENCY_MODES:
         raise ValueError(latency_mode)
     use_aff = w_aff > 0.0
@@ -254,14 +268,18 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
     lib = _library()
     RT, S, per = layout(K * R, N)
     limit = smem_limit(dev)
-    if lib.rt_decision_smem(RT, E, R, M, I) > limit:
+    shared = (I <= MAX_SHARED_I
+              and lib.rt_decision_smem(RT, E, R, M, I, 1) <= limit)
+    if lib.rt_decision_smem(RT, E, R, M, I, int(shared)) > limit:
         raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
                          f"memory than a block has ({limit} B)")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_cand, n_tickets, n_mix = scratch_sizes(K, R, M, k, N)
-    cand_d, cand_i, tickets, mix = scratch(
+    n_cand, n_tickets, n_mix, n_carry = scratch_sizes(K, R, M, k, N, I,
+                                                      shared)
+    cand_d, cand_i, tickets, mix, carry = scratch(
         _scratch, dev, stream, ((n_cand, f32, False), (n_cand, i32, False),
-                                (n_tickets, i32, True), (n_mix, f32, False)))
+                                (n_tickets, i32, True), (n_mix, f32, False),
+                                (n_carry, f32, False)))
     n_tiles = n_tickets - K
     outs = (torch.empty((K, R), dtype=i32, device=dev),
             *(torch.empty((K, R), dtype=f32, device=dev) for _ in range(2)),
@@ -272,7 +290,8 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         *(t.data_ptr() for t in args.values()), cand_d.data_ptr(),
         cand_i.data_ptr(), tickets.data_ptr(),
         tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
-        mix0 + 8 * K * R * M, *(o.data_ptr() for o in outs),
+        mix0 + 8 * K * R * M, None if shared else carry.data_ptr(),
+        *(o.data_ptr() for o in outs),
         K, R, E, N, M, I, k, per,
         psig.shape[2] if use_aff else 0,
         sig_plane.shape[1] if use_aff else 0,

@@ -12,7 +12,9 @@ Port of `repro.serving.hierarchy` (lines 1-615). Two routing modes:
     backend (`RBConfig(decision_backend="torch", shard_cells=n)`): each
     step of the greedy scan needs the global normalizers and the global
     winner before the next row, so the cells cannot scan apart, and the
-    decision kernel is one launch over at most `MAX_I` instances.
+    decision kernel is one launch over the whole roster (the reference
+    refuses its megakernel for span too). A whole roster on the kernel
+    is the single controller: `RBConfig()` at any size.
   * **balanced** (`HierarchicalScheduler`): the roster is partitioned
     into cells; each cell runs its own RouteBalance engine on the
     decision kernel (its own hot path and carried telemetry mirror,

@@ -32,10 +32,12 @@ Port of `repro.serving.scenarios` (numpy): the same seeds build the same
 rosters, datasets, request streams and schedules. `ScenarioRun` trains
 its estimator bundle through the port's `EstimatorBundle.train`, on the
 card unless given ``device="cpu"``, and runs cells through the port's
-`run_cell`. `hyperfleet_10k` (10,000 instances) is more than the
-decision kernel's roster limit (`kernels.decision_megakernel.MAX_I`):
-the default megakernel backend refuses it when it attaches, and it runs
-on the staged backends.
+`run_cell`. `hyperfleet_10k` (10,000 instances, roster bucket 16,384)
+runs on every backend: as one controller through the decision kernel
+(past `kernels.decision_megakernel.MAX_SHARED_I` instances the kernel
+keeps its scan's per-instance arrays in global memory; on the CPU the
+plain version decides), on the staged backends, or in the hierarchy's
+cells.
 """
 from __future__ import annotations
 
@@ -618,11 +620,10 @@ SCENARIOS: Dict[str, Scenario] = {
             TenantSpec("batch", 10.0, budget_frac=0.4),
         )),
     # The 10k-instance world the hierarchical scheduler exists for
-    # (`serving.hierarchy`). Its roster is over the decision kernel's
-    # MAX_I, so the megakernel backend refuses it as one controller; it
-    # runs in balanced cells (16 cells: I bucket 1,024 each, on the
-    # kernel) or on the staged backends (span) — a 10k roster is
-    # deliberately not tier-1.
+    # (`serving.hierarchy`). It runs as one controller on the decision
+    # kernel (I bucket 16,384, the kernel's global carry), in balanced
+    # cells (16 cells: I bucket 1,024 each, on the kernel) or on the
+    # staged backends (span) — a 10k roster is deliberately not tier-1.
     "hyperfleet_10k": Scenario(
         name="hyperfleet_10k", pool="synthetic", n_tiers=16,
         n_instances=10000, seed=7,

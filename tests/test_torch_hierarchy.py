@@ -357,7 +357,8 @@ def test_balanced_matches_reference(n_cells, recovery):
                        rrun.tiers, RefHC(n_cells=n_cells))
         rm = rrun.run_cell(rs, rreqs, seed=1)
         preqs = _requests(run, 80, 1, like=rreqs)
-        run.bundle().__dict__.pop("_fused_cache", None)
+        from repro_torch.core.hotpath import FusedHotPath
+        FusedHotPath.clear_cache(run.bundle())
         ps = build_scheduler(P.RBConfig(charge_compute=False), run.bundle(),
                              run.tiers, HierarchyConfig(n_cells=n_cells))
         pm = run.run_cell(ps, preqs, seed=1)

@@ -134,6 +134,25 @@ def test_plain_matches_pallas_reference(case):
     _case(0, use_gbm, aff=aff, **case)
 
 
+@pytest.mark.parametrize("case", [
+    dict(mode="full"), dict(mode="off_reactive"), dict(mode="full", aff=True),
+], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_plain_matches_pallas_reference_past_the_shared_carry(case):
+    """A roster of MAX_SHARED_I + 1 instances (the kernel's global carry
+    on the card), every fifth instance dead, K = 2 windows: the plain
+    version against the Pallas reference at the same tolerances."""
+    case = dict(case)
+    aff = case.pop("aff", False)
+    I = mk.MAX_SHARED_I + 1
+    args = _toy_world(1, I=I, aff=aff)
+    args["alive"] = np.arange(I) % 5 != 2
+    gbm, depth, lr = _gbm(True)
+    statics = _statics(w_aff=0.35 if aff else 0.0, **case)
+    got = _port(args, gbm, depth, lr, True, **statics)
+    _compare(got, _reference(args, gbm, depth, lr, True, **statics))
+    assert args["alive"][got[0]].all()             # dead never chosen
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("use_gbm", [True, False], ids=["gbm", "nominal"])
 @pytest.mark.parametrize("lpt", [True, False], ids=["lpt", "fifo"])
@@ -171,11 +190,16 @@ def test_layout_follows_the_lookup_table(rows, want):
 
 def test_scratch_is_split_lists_tickets_and_mixes():
     # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10
-    assert mk.scratch_sizes(2, 64, 4, 10, 14886) == (
-        128 * 30 * 10, 16 + 2, 128 * 9)
+    assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, True) == (
+        128 * 30 * 10, 16 + 2, 128 * 9, 0)
     # the main path's bucket: one window of 8 rows in 4-row tiles
-    assert mk.scratch_sizes(1, 8, 4, 10, 14886) == (8 * 117 * 10, 2 + 1,
-                                                    8 * 9)
+    assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, True) == (
+        8 * 117 * 10, 2 + 1, 8 * 9, 0)
+    # the global carry: four I-length arrays per window (32 rows take
+    # 8-row tiles and 59 splits)
+    assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, False) == (
+        32 * 59 * 10, 4 + 2, 32 * 9, 2 * 4 * 16384)
+    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True)[3] == 0
 
 
 @pytest.fixture
@@ -213,16 +237,21 @@ def test_kernel_matches_plain_on_card(cuda_device, mode, aff):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_what_it_cannot_take(cuda_device):
-    """Above the shared-memory carry's roster limit the wrapper raises
-    instead of launching; the plain version has no such limit."""
-    args = _toy_world(0, I=mk.MAX_I + 1)
-    args["alive"] = np.ones(mk.MAX_I + 1, bool)
+def test_kernel_takes_a_roster_past_the_shared_carry(cuda_device):
+    """One instance past the shared carry (I = MAX_SHARED_I + 1) the
+    wrapper launches once, on the global carry, and matches the plain
+    version: choice, b1, f1 exact, est_T/l_chosen/d1 within rtol 1e-5."""
+    args = _dyadic_world(0, I=mk.MAX_SHARED_I + 1)
+    args["alive"] = np.ones(mk.MAX_SHARED_I + 1, bool)
     gbm, depth, lr = _gbm(False)
     launches = mk.decision_megakernel.launches
-    with pytest.raises(ValueError, match="limit"):
-        _port(args, gbm, depth, lr, False, device=cuda_device, **_statics())
-    assert mk.decision_megakernel.launches == launches
+    got = _port(args, gbm, depth, lr, False, device=cuda_device, **_statics())
+    assert mk.decision_megakernel.launches == launches + 1
+    ts = [torch.as_tensor(np.array(a), device=cuda_device)
+          for a in list(args.values()) + list(gbm)]
+    want = [o.cpu().numpy() for o in mk.decision_megakernel_plain(
+        *ts, use_gbm=False, depth=depth, lr=lr, **_statics())]
+    _compare(got, want)
 
 
 def _dyadic_world(seed, **kw):
@@ -235,14 +264,19 @@ def _dyadic_world(seed, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one_row", "windows", "I128", "I4096"])
+@pytest.mark.parametrize("case", ["one_row", "windows", "I128", "I4096",
+                                  "I4097", "I16384"])
 def test_kernel_matches_plain_on_card_shapes(cuda_device, case):
     """One request padded to the R = 8 bucket, K = 2 windows whose rows
-    share row tiles, and rosters that take the block-wide scan (I = 128)
-    and the carry's limit (I = 4096): exact against the plain version."""
+    share row tiles, and rosters that take the block-wide scan (I = 128),
+    the shared carry's largest (I = 4096) and the global carry (I = 4097
+    and 16,384, K = 2 windows, each with its own scratch rows): exact
+    against the plain version."""
     kw = dict(one_row=dict(K=1, R=8), windows=dict(K=2, R=12),
               I128=dict(K=1, R=16, I=128),
-              I4096=dict(K=1, R=16, I=mk.MAX_I))[case]
+              I4096=dict(K=1, R=16, I=mk.MAX_SHARED_I),
+              I4097=dict(K=2, R=16, I=mk.MAX_SHARED_I + 1),
+              I16384=dict(K=2, R=16, I=16384))[case]
     args = _dyadic_world(11, **kw)
     if case == "one_row":
         args["row_valid"][:, 1:] = False

@@ -49,7 +49,8 @@ def _sim(pkg, ctx, seed=9):
 
 def _policy(ctx, sim, **cfg_kw):
     from repro_torch.core import RBConfig, RouteBalancePolicy
-    ctx["bundle"].__dict__.pop("_fused_cache", None)   # a fresh hot path
+    from repro_torch.core.hotpath import FusedHotPath
+    FusedHotPath.clear_cache(ctx["bundle"])   # a fresh hot path
     pol = RouteBalancePolicy(RBConfig(**cfg_kw))
     pol.prepare(ctx["bundle"], ctx["tiers"])
     pol.on_attach(sim)

@@ -214,44 +214,101 @@ def test_scenario_cell_matches_reference(pairs, name, dataset_n, n, seed,
         assert np.mean([r.prefix_hit for r in preqs]) > 0
 
 
-def test_megakernel_refuses_a_roster_over_its_limit():
-    """`hyperfleet_10k`'s roster is more than the decision kernel takes:
-    the megakernel refuses it by name when it attaches, before any
-    kernel call, naming the cell count the hierarchy needs for it; the
-    staged backends take it."""
-    from repro_torch.core import RBConfig, RouteBalance, run_cell
+@pytest.fixture(scope="module")
+def wide_pair():
+    """A 4,097-instance roster (I bucket 8,192, past the decision
+    kernel's shared carry) in both packages: the reference's bundle and
+    the port's bridged from it, and the port's dataset."""
+    from repro.core import EstimatorBundle as RBundle
+    from repro.serving.scenarios import synthetic_pool as r_pool
+    from repro.serving.world import build_dataset as r_build
+    from repro_torch.serving.scenarios import synthetic_pool
+    from repro_torch.serving.world import build_dataset
+    from torch_scenario_parity import port_bundle
+    tiers, names, world = synthetic_pool(3, 4097, seed=2)
+    r_tiers, r_names, r_world = r_pool(3, 4097, seed=2)
+    r_ds = r_build(r_world, n=150, seed=3)
+    r_bundle = RBundle.train(r_ds, r_tiers, r_names)
+    return dict(tiers=tiers, names=names, ds=build_dataset(world, n=150,
+                                                           seed=3),
+                bundle=port_bundle(r_bundle, r_tiers, r_names),
+                r_tiers=r_tiers, r_names=r_names, r_ds=r_ds,
+                r_bundle=r_bundle)
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["steady", "half_dead"])
+def test_megakernel_serves_a_roster_past_the_shared_carry(wide_pair, fail):
+    """One controller on the port's default megakernel backend (the
+    plain version on the CPU) over 4,097 instances, against the
+    reference's default "fused" backend on the same roster and
+    requests, with and without a `FailureEvent` that kills half the
+    roster: the same instance for every request, identical completions
+    and `run_cell` metrics, `pred_len` (the chosen l) within rtol 1e-5
+    as the kernel tests hold l_chosen; one kernel call per fired batch
+    at the 8,192 bucket."""
+    import repro.core as R
+    import repro_torch.core as P
+    from repro.serving.scenarios import FailureEvent as RFE
+    from repro.serving.workload import poisson_arrivals as r_arrivals
     from repro_torch.kernels import decision_megakernel as mk
-    from repro_torch.serving.scenarios import get_scenario, synthetic_pool
-    sc = get_scenario("hyperfleet_10k")
-    tiers, names, _ = synthetic_pool(sc.n_tiers, sc.n_instances, seed=sc.seed)
-    assert sum(t.n_instances for t in tiers) == 10000 > mk.MAX_I
-    calls = (mk.decision_megakernel.launches,
-             mk.decision_megakernel.plain_calls)
-    rb = RouteBalance(RBConfig(), None, tiers)
-    with pytest.raises(ValueError, match=r"MAX_I = 4096.*n_cells >= "
-                       r"ceil\(I / MAX_I\) = 3.*hierarchy.*'torch'"):
-        run_cell(rb, tiers, names, [])
-    assert (mk.decision_megakernel.launches,
-            mk.decision_megakernel.plain_calls) == calls
-    small, small_names, _ = synthetic_pool(4, mk.MAX_I, seed=1)
-    from repro_torch.serving.cluster import ClusterSim
-    RouteBalance(RBConfig(), None, small).attach(
-        ClusterSim(small, small_names))                # at the limit: fine
-    RouteBalance(RBConfig(decision_backend="torch"), None, tiers).attach(
-        ClusterSim(tiers, names))                      # staged: fine
+    from repro_torch.serving.scenarios import FailureEvent
+    from repro_torch.serving.workload import poisson_arrivals
+    w = wide_pair
+    kw = dict(t=0.05, kind="fail", frac=0.5)
+    rreqs = R.make_requests(w["r_ds"], "test",
+                            r_arrivals(200.0, 40, seed=0))
+    rm = R.run_cell(R.RouteBalance(R.RBConfig(charge_compute=False),
+                                   w["r_bundle"], w["r_tiers"]),
+                    w["r_tiers"], w["r_names"], rreqs,
+                    schedule=(RFE(**kw),) if fail else None, schedule_seed=1)
+    preqs = P.make_requests(w["ds"], "test",
+                            poisson_arrivals(200.0, 40, seed=0))
+    preqs[0].cols.emb = rreqs[0].cols.emb   # the reference's ingest rows
+    from repro_torch.core.hotpath import FusedHotPath
+    FusedHotPath.clear_cache(w["bundle"])
+    rb = P.RouteBalance(P.RBConfig(charge_compute=False), w["bundle"],
+                        w["tiers"])
+    calls = mk.decision_megakernel.plain_calls
+    pm = P.run_cell(rb, w["tiers"], w["names"], preqs,
+                    schedule=(FailureEvent(**kw),) if fail else None,
+                    schedule_seed=1)
+    assert rb._fused._Itot == 8192 and rb._fused._n_real == 4097
+    assert [r.instance for r in preqs] == [r.instance for r in rreqs]
+    assert completions(preqs) == completions(rreqs)
+    assert [r.pred_len for r in preqs] == pytest.approx(
+        [r.pred_len for r in rreqs], rel=1e-5)
+    assert_metrics_equal(rm, pm)
+    assert (mk.decision_megakernel.plain_calls - calls
+            == rb._fused.stats["calls"] == len(rb.compute_log) > 0)
+    assert pm["n"] + pm["failed"] == len(preqs) and pm["n"] > 0
+    if fail:
+        assert 2 * int(rb.sim.tel.alive.sum()) <= 4097 + 1   # half dead
+
+
+@pytest.mark.slow
+def test_hyperfleet_flat_matches_reference(pairs):
+    """`hyperfleet_10k` as one controller (10,000 instances, I bucket
+    16,384) on both packages' default backends, 200 requests: identical
+    completions and metrics, one kernel call per fired batch."""
+    (rreqs, rm), (preqs, pm, pb) = run_pair(*pairs("hyperfleet_10k", 1200),
+                                            n=200)
+    assert pb._fused._Itot == 16384
+    assert completions(preqs) == completions(rreqs)
+    assert_metrics_equal(rm, pm)
+    assert_kernel_calls(pm, pb)
 
 
 def test_run_cell_schedule_over_a_staged_roster_beyond_the_limit():
-    """A roster one instance past the kernel's limit serves a short
-    stream through `run_cell(schedule=...)` on the staged torch backend
-    (the path `hyperfleet_10k` takes), its requests all terminal."""
+    """A roster one instance past the kernel's shared carry serves a
+    short stream through `run_cell(schedule=...)` on the staged torch
+    backend, its requests all terminal."""
     from repro_torch.core import EstimatorBundle, RBConfig, RouteBalance
     from repro_torch.core import make_requests, run_cell
     from repro_torch.kernels import decision_megakernel as mk
     from repro_torch.serving.scenarios import FailureEvent, synthetic_pool
     from repro_torch.serving.workload import poisson_arrivals
     from repro_torch.serving.world import build_dataset
-    tiers, names, world = synthetic_pool(3, mk.MAX_I + 1, seed=2)
+    tiers, names, world = synthetic_pool(3, mk.MAX_SHARED_I + 1, seed=2)
     ds = build_dataset(world, n=150, seed=3)
     bundle = EstimatorBundle.train(ds, tiers, names, device="cpu")
     reqs = make_requests(ds, "test", poisson_arrivals(200.0, 40, seed=0))

@@ -9,6 +9,12 @@ stages, so that a disagreement can be pinned to its stage: first with
 the ingest embeddings taken from the reference's encoder, then with the
 port's own encoder. The instance chosen for every request must be
 identical, and every `aggregate` metric equal.
+
+Then the reference's `tests/test_serving.py` cases that exercise the
+serving path and the simulator's edge cases (tier loss, bursty
+arrivals, the zero-token clamp, the zero-length pending decode, failure
+finish times, FIFO admission), each on both packages with the same
+inputs and the same assertions, and the two results compared.
 """
 import jax
 import numpy as np
@@ -138,3 +144,152 @@ def test_unported_options_refuse():
                             (dict(knn_backend="jax"), "torch")):
         with pytest.raises(ValueError, match=repr(counterpart)):
             P.RBConfig(**kw)
+
+
+# -- the reference's serving cases (`tests/test_serving.py`) on both -----------
+
+def _pair_reqs(small_ctx, port, arrivals):
+    """The same request stream in both packages (the port's holding the
+    reference's ingest embeddings)."""
+    from repro.core import make_requests
+    rreqs = make_requests(small_ctx["ds"], "test", arrivals)
+    preqs = P.make_requests(port["ds"], "test", arrivals)
+    rreqs[0].cols.ensure_embeddings(small_ctx["bundle"].encoder)
+    preqs[0].cols.emb = np.asarray(rreqs[0].cols.emb)
+    return rreqs, preqs
+
+
+def _cells(small_ctx, port, arrivals, rb_kw=None, **cell_kw):
+    """One `run_cell` on each package's default backend (the reference's
+    "fused", the port's megakernel), `charge_compute=False`."""
+    from repro.core import RBConfig, RouteBalance, run_cell
+    rb_kw = dict(rb_kw or {}, charge_compute=False)
+    rreqs, preqs = _pair_reqs(small_ctx, port, arrivals)
+    rm = run_cell(RouteBalance(RBConfig(**rb_kw), small_ctx["bundle"],
+                               small_ctx["tiers"]),
+                  small_ctx["tiers"], small_ctx["names"], rreqs, **cell_kw)
+    pm = P.run_cell(P.RouteBalance(P.RBConfig(**rb_kw), port["bundle"],
+                                   port["tiers"]),
+                    port["tiers"], port["names"], preqs, **cell_kw)
+    _assert_same((rreqs, rm), (preqs, pm))
+    return preqs, pm
+
+
+def test_tier_loss_graceful(small_ctx, port):
+    """Every 72B instance killed at t = 0 on the quality preset: a
+    capacity event, not an availability one (none fails, none lands on
+    the 72B tier), as in the reference."""
+    from repro.serving.workload import poisson_arrivals
+    from repro_torch.core import PRESETS
+    iids = [f"{t.name}#{j}" for t in port["tiers"] if "72b" in t.name
+            for j in range(t.n_instances)]
+    assert iids
+    _, m = _cells(small_ctx, port, poisson_arrivals(10.0, 150, seed=0),
+                  dict(weights=PRESETS["quality"]),
+                  fail_at={"time": 0.0, "instances": iids})
+    assert m["failed"] == 0
+    assert not any("72b" in k for k in m["mix"])
+
+
+@pytest.mark.parametrize("kind", ["gamma", "square"])
+def test_nonstationary_arrivals_complete(small_ctx, port, kind):
+    """Bursty and square-wave arrivals: every request served, the
+    reference's choices."""
+    from repro.serving.workload import make_arrivals
+    _, m = _cells(small_ctx, port, make_arrivals(kind, 12.0, 100, seed=2))
+    assert m["n"] == 100 and m["failed"] == 0
+
+
+def _lone_pair(small_ctx, port, n, lam=10.0):
+    """A one-tier, one-instance sim in each package and n requests each
+    (`tests/test_serving.py::_lone_instance`)."""
+    from repro.serving.cluster import ClusterSim as RSim
+    from repro.serving.scenarios import synthetic_pool as r_pool
+    from repro.serving.workload import poisson_arrivals
+    from repro_torch.serving.cluster import ClusterSim
+    from repro_torch.serving.scenarios import synthetic_pool
+    rreqs, preqs = _pair_reqs(small_ctx, port,
+                              poisson_arrivals(lam, n, seed=0))
+    out = []
+    for pool, Sim, reqs in ((r_pool, RSim, rreqs),
+                            (synthetic_pool, ClusterSim, preqs)):
+        tiers, names, _ = pool(1, 1, seed=0)
+        sim = Sim(tiers, names, seed=0)
+        out.append((sim, sim.instances[0], reqs))
+    return out
+
+
+def _lives(reqs):
+    return [(r.tokens_out, r.finish_time, bool(r.failed),
+             bool(r.exhausted)) for r in reqs]
+
+
+def test_zero_token_clamp_is_not_unlimited(small_ctx, port):
+    """max_tokens = 0 is a one-token clamp, not "unlimited"."""
+    lives = []
+    for sim, inst, reqs in _lone_pair(small_ctx, port, 1):
+        r = reqs[0]
+        r.true_length = np.full_like(r.true_length, 500.0)
+        inst.submit(r, 0.0, pred_len=5.0, max_tokens=0)
+        sim.run()
+        assert r.tokens_out == 1 and r.exhausted and not r.failed
+        assert r.finish_time is not None
+        lives.append(_lives(reqs))
+    assert lives[0] == lives[1]
+
+
+def test_zero_pred_len_pending_decode_is_one(small_ctx, port):
+    """pred_len = 0.0 counts as one pending decode token in the
+    telemetry snapshot, not as the dispatch clamp."""
+    snaps = []
+    for sim, inst, reqs in _lone_pair(small_ctx, port, 1):
+        r = reqs[0]
+        r.true_length = np.full_like(r.true_length, 500.0)
+        inst.submit(r, 0.0, pred_len=0.0, max_tokens=None)
+        sim.run(until=0.0)                 # admit + 1 token
+        assert len(inst.running) == 1
+        assert inst.snapshot["pending_decode"] == 1.0
+        snaps.append(dict(inst.snapshot))
+    assert snaps[0] == snaps[1]
+
+
+def test_fail_stamps_finish_time_on_queued_and_running(small_ctx, port):
+    """`Instance.fail()` stamps the failure instant as every queued and
+    running request's finish time, and `aggregate` counts them."""
+    from repro.serving.metrics import aggregate as r_aggregate
+    from repro_torch.serving.metrics import aggregate
+    ms = []
+    for (sim, inst, reqs), agg in zip(_lone_pair(small_ctx, port, 3, 50.0),
+                                      (r_aggregate, aggregate)):
+        inst.busy_until = 100.0            # pin admission: all three queue
+        for r in reqs:
+            inst.submit(r, r.arrival, pred_len=20.0, max_tokens=None)
+        sim.push(2.5, lambda t, inst=inst: inst.fail())
+        sim.run(until=3.0)
+        assert all(r.failed and r.finish_time == 2.5 for r in reqs)
+        m = agg(reqs, sim.tiers, sim.model_names, wall=None)
+        assert m["failed"] == 3 and np.isfinite(m["throughput"])
+        ms.append(m)
+    from torch_scenario_parity import assert_metrics_equal
+    assert_metrics_equal(*ms)
+
+
+def test_admission_queue_is_fifo(small_ctx, port):
+    """One decode slot: requests finish in submission order, each after
+    its 4 tokens, at the reference's times."""
+    import collections
+    import dataclasses
+    lives = []
+    for sim, inst, reqs in _lone_pair(small_ctx, port, 4, 100.0):
+        assert isinstance(inst.queue, collections.deque)
+        inst.tier = dataclasses.replace(inst.tier, max_batch=1)
+        for r in reqs:
+            r.true_length = np.full_like(r.true_length, 4.0)
+            inst.submit(r, r.arrival, pred_len=4.0, max_tokens=None)
+        sim.run()
+        finishes = [r.finish_time for r in reqs]
+        assert all(f is not None for f in finishes)
+        assert finishes == sorted(finishes)
+        assert [r.tokens_out for r in reqs] == [4] * 4
+        lives.append(_lives(reqs))
+    assert lives[0] == lives[1]

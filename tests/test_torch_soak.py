@@ -191,7 +191,8 @@ def _port_cell(prun, be, rreqs, n, seed, **kw):
     reference's `rreqs` (the run's schedule and recovery as they stand)."""
     preqs = prun.requests(n, seed=seed)
     preqs[0].cols.emb = rreqs[0].cols.emb
-    prun.bundle().__dict__.pop("_fused_cache", None)
+    from repro_torch.core.hotpath import FusedHotPath
+    FusedHotPath.clear_cache(prun.bundle())
     rb = P.RouteBalance(P.RBConfig(decision_backend=be,
                                    charge_compute=False, **kw),
                         prun.bundle(), prun.tiers)

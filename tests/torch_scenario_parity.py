@@ -117,7 +117,8 @@ def run_pair(rrun, prun, schedule=None, recovery="scenario", n=120,
     assert preqs[0].cols.emb is None
     preqs[0].cols.emb = rreqs[0].cols.emb   # the reference's ingest rows
     # a fresh FusedHotPath per cell, so its shape count is this cell's
-    prun.bundle().__dict__.pop("_fused_cache", None)
+    from repro_torch.core.hotpath import FusedHotPath
+    FusedHotPath.clear_cache(prun.bundle())
     pb = P.RouteBalance(P.RBConfig(charge_compute=False, **rb_kw),
                         prun.bundle(), prun.tiers)
     pm = prun.run_cell(pb, preqs, seed=0)
