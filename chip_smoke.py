@@ -902,7 +902,7 @@ def phase_main_path(mk):
              measured_decide_ms_per_req=m["measured_decide_ms_per_req"],
              mean_batch_size=m["mean_batch_size"],
              per_call_ms={k: stats[k] / calls * 1e3 for k in
-                          ("stage_s", "dispatch_s", "device_s", "sync_s")},
+                          ("stage_s", "dispatch_s")},
              sync_counts={k: stats[k] for k in
                           ("full_reseed", "delta_sync", "carry")},
              shape_variants=rb._fused.shape_variants(), wall_s=wall)
@@ -1811,10 +1811,10 @@ def check_cells(label, sched, m, reqs, k1, k2):
 
 def hot_path_split(engines):
     """The cells' hot-path host clocks summed over their K1 calls, per
-    call (ms): staging, mirror sync, the launch, the wait for the answer
-    and its copy out, beside each decided batch's whole decide time, and
-    the mirror's reseed / delta / carry counts."""
-    keys = ("stage_s", "host_s", "dispatch_s", "device_s", "sync_s",
+    call (ms): staging, mirror sync and the launch, beside each decided
+    batch's whole decide time, and the mirror's reseed / delta / carry
+    counts."""
+    keys = ("stage_s", "host_s", "dispatch_s",
             "full_reseed", "roster_reseed", "delta_sync", "delta_rows",
             "carry")
     tot = {k: sum(e._fused.stats[k] for e in engines if e._fused)
@@ -1825,10 +1825,8 @@ def hot_path_split(engines):
         "stage": tot["stage_s"] / calls * 1e3,
         "mirror_sync": (tot["host_s"] - tot["stage_s"]) / calls * 1e3,
         "launch": tot["dispatch_s"] / calls * 1e3,
-        "device_wait": tot["device_s"] / calls * 1e3,
-        "copy_out": tot["sync_s"] / calls * 1e3,
         "decide_whole": decide / calls * 1e3},
-        sync_counts={k: tot[k] for k in keys[5:]})
+        sync_counts={k: tot[k] for k in keys[3:]})
 
 
 def phase_hierarchy(mk, kt, scen):

@@ -28,6 +28,12 @@ manager's degraded least-loaded assignment, and every dispatch arms a
 hedge deadline. The windowed deployment checkpoints its controller state
 as a flat numpy tree and resumes from it after a controller crash
 (`checkpoint_tree`, `save_checkpoint`, `resume`).
+
+With `repro_torch.tracing` on, the windowed engine records `rb.ingest`
+per arrival (`enqueue`; a hierarchy's cell engines are handed arrivals
+through `admit`, their scheduler's span around it), `rb.fire` per fire
+with `rb.window` and `rb.dispatch` (one `rb.submit` per request handed
+to an instance) inside.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..serving.cluster import ClusterSim, Instance
 from ..serving.request import Request
 from ..serving.tiers import Tier
@@ -236,6 +243,7 @@ class ServingEngine:
         self.decisions = 0
         self.shed_count = 0             # refused at admission (overload)
         self.batches = 0
+        self.cell_id = -1               # a hierarchy's cell, -1 when flat
         self.expected: Optional[int] = None   # stop firing once all served
         # windowed fire-loop liveness: the loop parks once the expected
         # count is met, and a late retry/requeue must be able to revive
@@ -306,6 +314,15 @@ class ServingEngine:
         return True
 
     def enqueue(self, req: Request, t: float):
+        """One arrival: `admit`, inside an `rb.ingest` span when traced."""
+        if tracing.ON:
+            sp = tracing.begin("rb.ingest", rid=req.rid)
+            self.admit(req, t)
+            tracing.end(sp)
+        else:
+            self.admit(req, t)
+
+    def admit(self, req: Request, t: float):
         if self._maybe_shed(req, t):
             return
         if self.ecfg.deployment != "windowed":
@@ -346,11 +363,14 @@ class ServingEngine:
     def _window(self) -> float:
         if not self.ecfg.adaptive:
             return self.ecfg.base_window
+        sp = tracing.begin("rb.window", True) if tracing.ON else None
         tel = self.sim.tel
         alive = tel.alive
         busy = float(np.mean(np.minimum(
             tel.batch[alive] / np.maximum(tel.max_batch[alive], 1.0),
             1.0))) if alive.any() else 0.0
+        if sp is not None:
+            tracing.end(sp)
         return float(np.clip(self.ecfg.base_window * (0.4 + 1.8 * busy),
                              0.04, 0.30))
 
@@ -361,6 +381,10 @@ class ServingEngine:
             batch = batch[:self.ecfg.fixed_batch]
         self.waiting = self.waiting[len(batch):]
         k = len(batch)
+        sp = (tracing.begin("rb.fire", True, cell=self.cell_id,
+                            batch=self.batches, rows=k,
+                            rids=[r.rid for r in batch])
+              if tracing.ON else None)
         cols = rows = None
         if self._wait_cols not in (None, False):
             cols = self._wait_cols
@@ -377,10 +401,12 @@ class ServingEngine:
             self._measured_compute = (0.8 * self._measured_compute
                                       + 0.2 * dt_meas)
             self.compute_log.append((len(batch), dt_meas))
-        if (self.expected is not None and not self.waiting
-                and self.decisions + self.shed_count >= self.expected):
-            return              # all dispatched/shed; enqueue re-arms us
-        self._arm_fire(t + self._window())
+        # once all are dispatched or shed, the loop parks: enqueue re-arms it
+        if (self.expected is None or self.waiting
+                or self.decisions + self.shed_count < self.expected):
+            self._arm_fire(t + self._window())
+        if sp is not None:
+            tracing.end(sp)
 
     def _assign(self, view: BatchView):
         """Route one batch through the policy — or, when the telemetry
@@ -412,6 +438,7 @@ class ServingEngine:
         instances = res.instances
         clamp = self.policy.budget_clamp
         mgr = getattr(self.sim, "recovery", None)
+        sp = tracing.begin("rb.dispatch", True) if tracing.ON else None
         for r_idx, req in enumerate(batch):
             inst = instances[int(choice[r_idx])]
             req.sched_compute = per_req_compute
@@ -421,10 +448,17 @@ class ServingEngine:
                                    inst.tier.price_in,
                                    inst.tier.price_out)
                   if clamp else None)
-            inst.submit(req, now, float(l_chosen[r_idx]), mt)
+            if sp is not None:
+                sub = tracing.begin("rb.submit", rid=req.rid, slot=inst.slot)
+                inst.submit(req, now, float(l_chosen[r_idx]), mt)
+                tracing.end(sub)
+            else:
+                inst.submit(req, now, float(l_chosen[r_idx]), mt)
             self.decisions += 1
             if mgr is not None:
                 mgr.watch_dispatch(req, inst, now)
+        if sp is not None:
+            tracing.end(sp)
         self.batches += 1
 
     # -- station deployments (§6.3 ladder) ------------------------------------

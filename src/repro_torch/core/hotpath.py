@@ -29,6 +29,11 @@ pad windows hold only pad rows, and pad columns stay dead.
 `shape_variants()` counts the distinct (K bucket, R bucket) shapes the
 kernel has been called at, the port's stand-in for the reference's
 `compile_count`.
+
+With `repro_torch.tracing` on, a call records the spans `rb.stage`,
+`rb.sync`, `rb.launch` and, at the fetch, `rb.fetch` around `rb.k1_wait`;
+on the card K1 also stamps its own stages (`k1.*`, the wrapper's
+`timers`) into a buffer kept per K bucket, copied back with the answer.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..estimators.gbm import pack_ensemble
 # a module import: `kernels.decision_megakernel` imports `core`, which
 # imports this module
@@ -48,9 +54,35 @@ from .decision import bucket_pow2
 
 def _new_stats() -> Dict:
     return {"calls": 0, "multi_dispatch": 0, "host_s": 0.0, "stage_s": 0.0,
-            "dispatch_s": 0.0, "device_s": 0.0, "sync_s": 0.0,
-            "full_reseed": 0, "roster_reseed": 0, "delta_sync": 0,
-            "delta_rows": 0, "carry": 0}
+            "dispatch_s": 0.0, "full_reseed": 0, "roster_reseed": 0,
+            "delta_sync": 0, "delta_rows": 0, "carry": 0}
+
+
+class _K1Stamps:
+    """One traced K1 call's `%globaltimer` stamps, copied back into a
+    pinned buffer behind the call's event: the kernel's entry, then per
+    window the end of stage 1, of the TPOT trees and of the greedy loop.
+    Stored once as device durations (`k1.stage1`, `k1.trees`, `k1.scan`
+    per window, `k1.call` from the entry to the last stamp), whichever of
+    the call's windows is fetched first."""
+
+    __slots__ = ("host", "K", "done")
+
+    def __init__(self, host: torch.Tensor, K: int):
+        self.host, self.K, self.done = host, K, False
+
+    def store(self):
+        if self.done:
+            return
+        self.done = True
+        t = self.host.tolist()
+        batch = tracing.open_id("rb.fire", "batch")
+        for w in range(self.K):
+            s1, s2, s3 = t[1 + 3 * w:4 + 3 * w]
+            tracing.add("k1.stage1", s1 - t[0], batch=batch)
+            tracing.add("k1.trees", s2 - s1, batch=batch)
+            tracing.add("k1.scan", s3 - s2, batch=batch)
+        tracing.add("k1.call", max(t[3::3]) - t[0], batch=batch)
 
 
 class LazyDecision:
@@ -58,28 +90,33 @@ class LazyDecision:
     pinned host buffers behind a CUDA event. `fetch()` waits on that
     event, slices off the pad rows and returns numpy — idempotently."""
 
-    __slots__ = ("_choice", "_l", "_R", "_event", "_stats", "_out")
+    __slots__ = ("_choice", "_l", "_R", "_event", "_stamps", "_out")
 
     def __init__(self, choice: torch.Tensor, l_chosen: torch.Tensor, R: int,
-                 event, stats: Dict):
+                 event, stamps: Optional[_K1Stamps] = None):
         self._choice = choice      # host tensors (pinned on CUDA)
         self._l = l_chosen
         self._R = R
         self._event = event
-        self._stats = stats
+        self._stamps = stamps
         self._out: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._out is None:
-            t0 = time.perf_counter()
+            sp = tracing.begin("rb.fetch", True) if tracing.ON else None
             if self._event is not None:
-                self._event.synchronize()
-            t1 = time.perf_counter()
+                if sp is not None:
+                    wait = tracing.begin("rb.k1_wait", True)
+                    self._event.synchronize()
+                    tracing.end(wait)
+                else:
+                    self._event.synchronize()
             self._out = (self._choice[:self._R].numpy().astype(np.int64),
                          self._l[:self._R].numpy().astype(np.float64))
-            t2 = time.perf_counter()
-            self._stats["device_s"] += t1 - t0
-            self._stats["sync_s"] += t2 - t1
+            if sp is not None:
+                tracing.end(sp)
+                if self._stamps is not None:
+                    self._stamps.store()
         return self._out
 
 
@@ -199,6 +236,9 @@ class FusedHotPath:
         self._dstage = [self._delta_set(), self._delta_set()]
         self._dflip = 0
         self._variants = set()
+        # K bucket -> (device, pinned host) buffers of K1's stamps, made
+        # at the first traced call of the bucket on the card
+        self._k1_timers: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.reset()                         # also installs fresh stats
 
     def _host(self, shape, dtype) -> torch.Tensor:
@@ -347,10 +387,11 @@ class FusedHotPath:
         telemetry mirror, call the kernel once, and queue the copy of
         its answer back to the host behind an event."""
         self.stats["calls"] += 1
+        sp = tracing.begin("rb.stage", True) if tracing.ON else None
         t0 = time.perf_counter()
         s = self._stage_buffers(1, bucket_pow2(len(rows)))
         self._stage_window(s, 0, cols, rows)
-        return self._dispatch(s, tel, t0, [len(rows)])[0]
+        return self._dispatch(s, tel, t0, [len(rows)], sp)[0]
 
     def decide_cols_multi(self, batches, tel) -> List[LazyDecision]:
         """K scheduler windows sharing ONE kernel call. `batches` is a list
@@ -371,6 +412,7 @@ class FusedHotPath:
         K = len(batches)
         self.stats["calls"] += K
         self.stats["multi_dispatch"] += 1
+        sp = tracing.begin("rb.stage", True) if tracing.ON else None
         t0 = time.perf_counter()
         Kb = bucket_pow2(K, lo=1)
         s = self._stage_buffers(
@@ -379,14 +421,17 @@ class FusedHotPath:
             self._stage_window(s, w, cols, rows)
         for w in range(K, Kb):
             self._stage_window(s, w, None, ())
-        return self._dispatch(s, tel, t0, [len(rows) for _, rows in batches])
+        return self._dispatch(s, tel, t0, [len(rows) for _, rows in batches],
+                              sp)
 
-    def _dispatch(self, s, tel, t0: float, sizes) -> List[LazyDecision]:
+    def _dispatch(self, s, tel, t0: float, sizes,
+                  sp: Optional[tracing.Span] = None) -> List[LazyDecision]:
         """The shared tail of a decision call on the staged set `s` (Kb
         windows of Rb rows): stage the affinity plane, sync the device
         mirror, call the kernel once, and queue the copy of its answer
         back behind an event. One `LazyDecision` per real window, of
-        `sizes[w]` rows."""
+        `sizes[w]` rows. `sp` is the call's open `rb.stage` span, ended
+        here with the traced spans after it (None: tracing off)."""
         st = self.stats
         if self._w_aff > 0.0:
             self._pflip ^= 1
@@ -396,7 +441,15 @@ class FusedHotPath:
         else:
             psig_d, plane_d = self._dummy_psig, self._dummy_plane
         t1 = time.perf_counter()
-        d, b, free, ctx, alive = self._sync_state(tel)
+        Kb = s["rv"].shape[0]
+        if sp is None:
+            d, b, free, ctx, alive = self._sync_state(tel)
+            timers = None
+        else:
+            tracing.end(sp, K=Kb, R=s["rv"].shape[1])
+            d, b, free, ctx, alive = self._traced_sync(tel)
+            sp = tracing.begin("rb.launch", True)
+            timers = self._timers(Kb)
         t2 = time.perf_counter()
         choice, est_T, l_chosen, d1, b1, f1 = k1.decision_megakernel(
             self._up(s["emb"]), self._up(s["rv"]), self._up(s["budgets"]),
@@ -407,7 +460,8 @@ class FusedHotPath:
             k=self._k, eps=self._eps, weights=self._weights,
             latency_mode=self._mode, lpt=self._lpt,
             budget_filter=self._budget_filter, w_aff=self._w_aff,
-            use_gbm=self._use_gbm, depth=self._depth, lr=self._lr)
+            use_gbm=self._use_gbm, depth=self._depth, lr=self._lr,
+            timers=None if timers is None else timers[0])
         self._variants.add(tuple(s["rv"].shape))
         # post-scan dead-reckoned view of the last real window, kept for
         # diagnostics only (windows are independent, pad windows update
@@ -415,19 +469,57 @@ class FusedHotPath:
         # backends
         last = len(sizes) - 1
         self._post_state = (d1[last], b1[last], f1[last])
-        event = None
+        event = stamps = None
         if self._cuda:
             s["choice"].copy_(choice, non_blocking=True)
             s["l"].copy_(l_chosen, non_blocking=True)
+            if timers is not None:
+                timers[1].copy_(timers[0], non_blocking=True)
+                stamps = _K1Stamps(timers[1], Kb)
             event = torch.cuda.Event()
             event.record()
             choice, l_chosen = s["choice"], s["l"]
         t3 = time.perf_counter()
+        if sp is not None:
+            tracing.end(sp)
         st["stage_s"] += t1 - t0
         st["host_s"] += t2 - t0
         st["dispatch_s"] += t3 - t2
-        return [LazyDecision(choice[w], l_chosen[w], R, event, st)
+        return [LazyDecision(choice[w], l_chosen[w], R, event, stamps)
                 for w, R in enumerate(sizes)]
+
+    def _traced_sync(self, tel):
+        """`_sync_state` inside an `rb.sync` span, its kind and the rows
+        it shipped read off the stats' counters."""
+        st = self.stats
+        before = (st["roster_reseed"], st["full_reseed"], st["delta_sync"],
+                  st["delta_rows"])
+        sp = tracing.begin("rb.sync", True)
+        out = self._sync_state(tel)
+        if st["roster_reseed"] > before[0]:
+            kind, rows = 3, self._n_real
+        elif st["full_reseed"] > before[1]:
+            kind, rows = 2, self._n_real
+        elif st["delta_sync"] > before[2]:
+            kind, rows = 1, st["delta_rows"] - before[3]
+        else:
+            kind, rows = 0, 0
+        tracing.end(sp, kind=kind, rows=rows)
+        return out
+
+    def _timers(self, Kb: int):
+        """(device, pinned host) buffers for K1's stamps of a Kb-window
+        call on the card; None on the CPU, where the plain version has no
+        stamps."""
+        if not self._cuda:
+            return None
+        bufs = self._k1_timers.get(Kb)
+        if bufs is None:
+            bufs = self._k1_timers[Kb] = (
+                torch.zeros(1 + 3 * Kb, dtype=torch.int64,
+                            device=self.device),
+                self._host(1 + 3 * Kb, torch.int64))
+        return bufs
 
     def decide(self, batch, tel) -> Tuple[np.ndarray, np.ndarray]:
         """AoS entry (direct callers, tests): derive the column slice

@@ -57,6 +57,13 @@
 // from L2 cost the scan more than stage 1's second CTA an SM gains at
 // I = 4096 for R >= 16, and less at I = 8192 (chip_smoke.py times both).
 //
+// Timers. With `timers` set (a traced call), thread 0 of block (0, 0)
+// writes %globaltimer at the kernel's entry, and the CTA that scans
+// window w writes it at the start of its scan (the end of stage 1 for w),
+// after the TPOT trees and after the greedy loop. Null (every untraced
+// call): one branch on the pointer. Nothing reads the buffer, so the
+// outputs are the same either way.
+//
 // Exactness. Everything after the distance dot product spells the
 // plain PyTorch version's operations one by one, with IEEE rounding:
 // the file is built with --fmad=false and uses __fadd_rn/__fmul_rn/
@@ -130,6 +137,7 @@ struct RtDecisionParams {
   float* d1;                 // (K, I)
   float* b1;
   float* f1;
+  long long* timers;         // (1 + 3K,) %globaltimer stamps, or null
   int K, R, E, N, M, I, k, per_split;
   int sig_w, sig_slots;
   int n_trees, n_internal, n_leaves, depth;
@@ -138,6 +146,12 @@ struct RtDecisionParams {
 };
 
 namespace {
+
+__device__ __forceinline__ long long global_timer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __device__ __forceinline__ bool lex_greater(float av, int ai, float bv,
                                             int bi) {
@@ -591,6 +605,7 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = blockDim.x >> 5;
+  if (p.timers != nullptr && tid == 0) p.timers[1 + 3 * w] = global_timer();
   ScanSmem s = carve(smem, p, w);
 
   // per-row inputs; the mixes and keys other CTAs wrote (L2, not L1)
@@ -647,6 +662,7 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
     if (lane == 0) s.tpot[i] = tp;
   }
   __syncthreads();
+  if (p.timers != nullptr && tid == 0) p.timers[2 + 3 * w] = global_timer();
 
   // LPT order: a stable descending rank of the key (pad rows at -1e30)
   for (int r = tid; r < R; r += blockDim.x) {
@@ -669,6 +685,7 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
     run_scan_block(p, s, w);
   }
   __syncthreads();
+  if (p.timers != nullptr && tid == 0) p.timers[3 + 3 * w] = global_timer();
 
   for (int r = tid; r < R; r += blockDim.x) {
     const size_t rw = (size_t)w * R + r;
@@ -688,6 +705,9 @@ __global__ void __launch_bounds__(THREADS)
 decision_fused(const __grid_constant__ RtDecisionParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_last;
+  if (p.timers != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0)
+    p.timers[0] = global_timer();
   const int KR = p.K * p.R;
   if (!knn::fused_topk<knn::XSQ_FIRST, RT, MR, MC, ES>(
           p.emb, nullptr, p.x, p.xsq, KR, p.N, p.E, p.k, p.per_split,

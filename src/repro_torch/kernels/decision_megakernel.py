@@ -45,6 +45,15 @@ are shared by the windows. GBM args may be `dummy_gbm()` when
 `use_gbm` is False; neither path reads dummies. Returns (choice (K, R)
 int32, est_T (K, R), l_chosen (K, R), d1/b1/f1 (K, I) post-scan state),
 float32.
+
+`timers`, a keyword the kernel alone reads (None by default, which is
+what every untraced call passes), is an int64 CUDA tensor of at least
+1 + 3 K elements: the kernel writes `%globaltimer` into it at its entry
+(thread 0 of block (0, 0)) and, per window w, at 1 + 3w the end of
+stage 1, at 2 + 3w the end of the TPOT trees and at 3 + 3w the end of
+the greedy loop, each by the CTA that scans the window. Nothing else
+reads the buffer, so the outputs are the same with and without it; the
+plain version has no stamps and the tap does not see the keyword.
 """
 from __future__ import annotations
 
@@ -167,7 +176,8 @@ class _Params(ctypes.Structure):
         "m_of_i", "tier_of_i", "maxb", "price_in", "price_out", "nominal",
         "sig_plane", "gfeat", "gthr", "gleaf", "gbase",
         "cand_d", "cand_i", "tickets", "wtickets", "qmix", "lmix", "plm",
-        "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1")]
+        "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1",
+        "timers")]
         + [(n, ctypes.c_int) for n in (
             "K", "R", "E", "N", "M", "I", "k", "per_split", "sig_w",
             "sig_slots",
@@ -210,7 +220,7 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
             x, xsq, qual, leng, m_of_i, tier_of_i, maxb, price_in,
             price_out, nominal, sig_plane, gfeat, gthr, gleaf, gbase, *,
             k, eps, weights, latency_mode, lpt, budget_filter, w_aff,
-            use_gbm, depth, lr):
+            use_gbm, depth, lr, timers=None):
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
     if emb.dim() != 3:
         raise ValueError(f"emb must be (K, R, E), got {tuple(emb.shape)}")
@@ -228,6 +238,11 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
     for name, t in args.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, emb on {dev}")
+    if timers is not None:
+        _check(timers, "timers", torch.int64)
+        if timers.device != dev or timers.numel() < 1 + 3 * K:
+            raise ValueError(f"timers must hold 1 + 3 K = {1 + 3 * K} "
+                             f"int64 on {dev}")
     _check(emb, "emb", f32)
     _check(row_valid, "row_valid", u8, (K, R))
     for name in ("budgets", "len_in"):
@@ -292,6 +307,7 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
         mix0 + 8 * K * R * M, None if shared else carry.data_ptr(),
         *(o.data_ptr() for o in outs),
+        None if timers is None else timers.data_ptr(),
         K, R, E, N, M, I, k, per,
         psig.shape[2] if use_aff else 0,
         sig_plane.shape[1] if use_aff else 0,
@@ -311,7 +327,8 @@ def decision_megakernel(emb, row_valid, budgets, len_in, psig,
                         m_of_i, tier_of_i, maxb, price_in, price_out,
                         nominal, sig_plane, gfeat, gthr, gleaf, gbase,
                         *, k, eps, weights, latency_mode, lpt,
-                        budget_filter, w_aff, use_gbm, depth, lr):
+                        budget_filter, w_aff, use_gbm, depth, lr,
+                        timers=None):
     """One decision call for K windows: the CUDA kernel on CUDA tensors,
     the plain version on CPU tensors (see the module docstring)."""
     args = (emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
@@ -323,7 +340,7 @@ def decision_megakernel(emb, row_valid, budgets, len_in, psig,
     if decision_megakernel.tap is not None:
         decision_megakernel.tap(args, kw)
     if emb.device.type == "cuda":
-        out = _launch(*args, **kw)
+        out = _launch(*args, **kw, timers=timers)
         decision_megakernel.launches += 1
         return out
     if emb.device.type == "cpu":

@@ -36,6 +36,11 @@ parent's version counters) and `_CellScope` (what a cell's recovery
 manager probes: the parent's telemetry, since watchdog writes address
 global slots, with the instance list narrowed to the cell). Dispatch
 needs no translation: a chosen `Instance` is the parent's object.
+
+With `repro_torch.tracing` on, the scheduler records `rb.ingest` per
+arrival with `rb.place` inside, the balancer `rb.digest` per heartbeat
+and a cell's mirror `rb.cell_refresh` whenever the parent's telemetry
+moved since its last refresh (`rows`: the telemetry rows it copied).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..distributed.compression import (DIGEST_MODES, TelemetryDigest,
                                        decode_digest, digest_fresh,
                                        digest_from_telemetry, encode_digest)
@@ -123,8 +129,9 @@ class _CellTelemetry:
     parent's float64 values, bitwise equal, which is what makes the
     1-cell hierarchy's decisions the single controller's."""
 
-    def __init__(self, parent, slots: np.ndarray):
+    def __init__(self, parent, slots: np.ndarray, cell: int = -1):
         self.parent = parent
+        self.cell = cell
         self.slots = np.asarray(slots, np.int64)
         n = len(self.slots)
         for name in _TEL_PLANES:
@@ -148,11 +155,15 @@ class _CellTelemetry:
                 and p.roster_version == self._p_roster
                 and p.prefix_version == self._p_prefix):
             return self
+        sp = (tracing.begin("rb.cell_refresh", True, cell=self.cell)
+              if tracing.ON else None)
+        n_rows = 0
         if (p.version != self._p_version
                 or p.roster_version != self._p_roster):
             pw = p.last_write[self.slots]
             changed = np.flatnonzero(pw != self._seen_writes)
-            if len(changed):
+            n_rows = len(changed)
+            if n_rows:
                 rows = self.slots[changed]
                 self.version += 1
                 for name in _TEL_PLANES:
@@ -171,6 +182,8 @@ class _CellTelemetry:
             self.prefix_hit[:] = p.prefix_hit[self.slots]
             self.prefix_version += 1
             self._p_prefix = p.prefix_version
+        if sp is not None:
+            tracing.end(sp, rows=n_rows)
         return self
 
     def dirty_rows(self, since: int) -> np.ndarray:
@@ -191,7 +204,8 @@ class CellSim:
         self.instances = list(instances)
         self.by_id = {i.iid: i for i in self.instances}
         self._tel = _CellTelemetry(parent.tel,
-                                   np.array([i.slot for i in instances]))
+                                   np.array([i.slot for i in instances]),
+                                   cell_id)
         self.recovery: Optional["CellRecovery"] = None
 
     @property
@@ -422,6 +436,8 @@ class GlobalBalancer:
 
     # -- the heartbeat ------------------------------------------------------
     def _tick(self, t: float):
+        sp = (tracing.begin("rb.digest", True, seq=self.seq)
+              if tracing.ON else None)
         self._armed = False
         placed = sum(self.assigned_since.values())
         for ci, cs in enumerate(self.cell_sims):
@@ -442,6 +458,8 @@ class GlobalBalancer:
         self._fleet_depth = depth
         self.seq += 1
         self._arm(t)
+        if sp is not None:
+            tracing.end(sp)
 
     def _arm(self, t: float):
         """Re-arm the heartbeat while real work remains. The loop is a
@@ -538,6 +556,7 @@ class HierarchicalScheduler:
             eng = _make_cell_engine(
                 dataclasses.replace(self.cfg, cell_tag=ci),
                 self.bundle, self.tiers, self)
+            eng.cell_id = ci
             eng.attach(cs)             # binds the cell's manager too
             self.engines.append(eng)
             self.cell_sims.append(cs)
@@ -553,6 +572,17 @@ class HierarchicalScheduler:
         self.balancer.attach(sim, self.cell_sims, tier_names)
 
     def enqueue(self, req: Request, t: float):
+        """One arrival: `route`, inside an `rb.ingest` span when traced
+        (the cell engine is handed it through `admit`, which opens no
+        second one)."""
+        if tracing.ON:
+            sp = tracing.begin("rb.ingest", rid=req.rid)
+            self.route(req, t)
+            tracing.end(sp)
+        else:
+            self.route(req, t)
+
+    def route(self, req: Request, t: float):
         # a guard the digests cannot give: never hand work to a cell with
         # no alive instance (its engine could not build a roster), unless
         # the whole fleet is down
@@ -560,8 +590,11 @@ class HierarchicalScheduler:
                   if any(i.alive for i in insts)]
         if not viable:
             viable = list(range(len(self.cells)))
+        sp = tracing.begin("rb.place", rid=req.rid) if tracing.ON else None
         ci = self.balancer.pick(t, viable)
-        self.engines[ci].enqueue(req, t)
+        if sp is not None:
+            tracing.end(sp, cell=ci)
+        self.engines[ci].admit(req, t)
 
     # -- the run_cell contract ----------------------------------------------
     @property

@@ -38,7 +38,7 @@ def test_port_modules_import_without_jax_or_reference():
                  "serving.faults", "distributed.checkpoint",
                  "serving.hierarchy", "distributed.elastic",
                  "distributed.compression", "distributed.shardctx",
-                 "launch.mesh", "launch.sharding", "launch.serve",
+                 "launch.mesh", "launch.sharding", "launch.serve", "tracing",
                  "launch.train", "launch.dryrun", "training.data",
                  "training.optimizer", "training.train_loop",
                  "configs.gemma3_27b", "configs.granite_moe_3b_a800m",

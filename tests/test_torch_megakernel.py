@@ -304,3 +304,56 @@ def test_kernel_calls_in_a_row_agree(cuda_device):
     again = _port(a1, gbm, depth, lr, True, device=cuda_device, **_statics())
     for g, h in zip(first, again):
         np.testing.assert_array_equal(g, h)
+
+
+def _forest(T, n_trees, depth, seed=0):
+    """A packed random forest (features 0-3, thresholds across the
+    telemetry's range): what a TPOT head costs the kernel is its walk,
+    `n_trees` trees of `depth` levels per instance, whatever the values."""
+    rng = np.random.default_rng(seed)
+    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
+    return ([rng.integers(0, 4, (T, n_trees, n_int)).astype(np.int32),
+             rng.uniform(0, 300, (T, n_trees, n_int)).astype(f32),
+             rng.uniform(-1e-3, 1e-3, (T, n_trees, n_leaf)).astype(f32),
+             np.full(T, 0.03, f32)], depth, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I, R, trees, depth", [(16, 8, 1024, 8),
+                                                (16384, 16, 60, 3)],
+                         ids=["I16", "I16384"])
+def test_kernel_timers(cuda_device, I, R, trees, depth):
+    """K1's `%globaltimer` stamps: the outputs are bitwise the same with
+    `timers` set and null; each call's stamps rise (entry, end of stage
+    1, of the trees, of the greedy loop); and over calls queued back to
+    back behind a spin, the stamps' spans sum to within 5% of the calls'
+    CUDA event time. The index is the main path's size (14,886 x 128);
+    at I = 16 a deep forest makes each call long enough for launch gaps
+    of a microsecond or two to stay inside the 5%."""
+    args = _dyadic_world(21, K=1, R=R, E=128, N=14886, M=16, I=I, T=16)
+    args["alive"] = np.arange(I) % 7 != 3
+    gbm, depth, lr = _forest(16, trees, depth)
+    ts = [torch.as_tensor(np.array(a), device=cuda_device)
+          for a in list(args.values()) + gbm]
+    kw = dict(use_gbm=True, depth=depth, lr=lr, **_statics())
+    n = 6
+    timers = torch.zeros((n, 4), dtype=torch.int64, device=cuda_device)
+    bare = mk.decision_megakernel(*ts, **kw)
+    stamped = mk.decision_megakernel(*ts, **kw, timers=timers[0])
+    for a, b in zip(bare, stamped):
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.int32),
+                                      b.cpu().numpy().view(np.int32))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)           # the launches queue behind it
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for j in range(n):
+        mk.decision_megakernel(*ts, **kw, timers=timers[j])
+    stop.record()
+    torch.cuda.synchronize()
+    t = timers.cpu().numpy()
+    assert (np.diff(t, axis=1) >= 0).all() and (t[:, 3] > t[:, 0]).all()
+    stamps_ms = float((t[:, 3] - t[:, 0]).sum()) * 1e-6
+    event_ms = start.elapsed_time(stop)
+    assert abs(stamps_ms - event_ms) <= 0.05 * event_ms, (stamps_ms,
+                                                           event_ms)

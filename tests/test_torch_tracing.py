@@ -1,0 +1,201 @@
+"""The port's tracer (`repro_torch.tracing`) on the benchmark's tiny flat
+and tiny cells stand-ins (`portbench/tinycell.py`), driven on the CPU for
+the same simulated seconds with the tracer off and on.
+
+Off, it keeps nothing and opens no profiler range; on, it changes no
+choice, its spans nest, every decided request is in one ingest and one
+fire, and its counts agree with the hot path's own counters.
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from repro_torch import tracing  # noqa: E402
+
+CELLS = {"flat": "fleet10k_flat.mix400", "cells": "fleet10k_cells16.mix400"}
+HORIZON_S = 3.0          # simulated seconds from an empty fleet
+IN_FIRE = ("rb.stage", "rb.sync", "rb.launch", "rb.fetch", "rb.dispatch")
+
+
+def _run(fleet, mix, traced: bool):
+    """One seed's stream from an empty fleet to HORIZON_S; returns each
+    request's (instance, predicted length), the tracer's records and
+    the hot paths' counters."""
+    from portbench.bench import cell as cl
+    from portbench.bench.fleet import engines_of
+    d = cl.Drive(fleet, mix, 11)
+    tracing.enable()             # an empty store, whatever ran before
+    if not traced:
+        tracing.disable()
+    try:
+        d.advance(HORIZON_S)
+    finally:
+        tracing.disable()
+    stats = [e.policy._fused.stats for e in engines_of(d.sched)
+             if e.policy._fused is not None]
+    out = {"choices": [(r.instance, r.pred_len) for r in d.reqs],
+           "decided": [r.rid for r in d.reqs if r.instance is not None],
+           "records": tracing.records(), "summary": tracing.summary(),
+           "calls": sum(s["calls"] for s in stats),
+           "delta_rows": sum(s["delta_rows"] for s in stats)}
+    d.release()
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(CELLS))
+def runs(request):
+    """The tracer off (with `record_function` made to raise) and on,
+    on one tiny cell."""
+    from portbench import tinycell
+    from portbench.bench import cell as cl
+    torch.set_num_threads(2)
+    _, _, cfg, mix = tinycell.tiny(CELLS[request.param])
+    fleet = cl.Fleet.build(cfg, "cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("a profiler range was opened, tracer off")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", refuse)
+        off = _run(fleet, mix, traced=False)
+    on = _run(fleet, mix, traced=True)
+    return request.param, off, on
+
+
+def test_off_keeps_nothing(runs):
+    _, off, _ = runs
+    assert off["decided"]
+    assert off["records"] == [] and off["summary"] == {}
+
+
+def test_choices_are_the_same_on_and_off(runs):
+    _, off, on = runs
+    assert on["choices"] == off["choices"]
+
+
+def test_spans_nest(runs):
+    _, _, on = runs
+    recs = on["records"]
+    assert recs and all(r.t1 is not None for r in recs)
+    for r in recs:
+        if r.parent >= 0:
+            p = recs[r.parent]
+            assert p.t0 <= r.t0 <= r.t1 <= p.t1, (r.name, p.name)
+        if r.name in IN_FIRE:
+            a = r
+            while a.parent >= 0 and a.name != "rb.fire":
+                a = recs[a.parent]
+            assert a.name == "rb.fire", r.name
+    for name, s in on["summary"].items():
+        assert s["self_s"] >= 0.0 and s["total_s"] >= s["self_s"], name
+
+
+def test_every_decided_request_is_in_one_ingest_and_one_fire(runs):
+    _, _, on = runs
+    recs = on["records"]
+    ingest = [r.ids["rid"] for r in recs if r.name == "rb.ingest"]
+    fired = [rid for r in recs if r.name == "rb.fire"
+             for rid in r.ids["rids"]]
+    assert len(ingest) == len(set(ingest))
+    assert len(fired) == len(set(fired))
+    assert set(on["decided"]) == set(fired)
+    assert set(fired) <= set(ingest)
+    for r in recs:
+        if r.name == "rb.fire":
+            assert r.ids["rows"] == len(r.ids["rids"])
+    submits = [r.ids["rid"] for r in recs if r.name == "rb.submit"]
+    assert sorted(submits) == sorted(fired)
+
+
+def test_place_only_in_the_cells(runs):
+    kind, _, on = runs
+    recs = on["records"]
+    place = [r for r in recs if r.name == "rb.place"]
+    n_ingest = sum(r.name == "rb.ingest" for r in recs)
+    if kind == "flat":
+        assert not place
+        assert {r.ids["cell"] for r in recs if r.name == "rb.fire"} == {-1}
+        return
+    assert len(place) == n_ingest
+    for r in place:
+        assert recs[r.parent].name == "rb.ingest"
+        assert recs[r.parent].ids["rid"] == r.ids["rid"]
+        assert r.ids["cell"] >= 0
+    assert on["summary"]["rb.digest"]["count"] > 0
+    assert on["summary"]["rb.cell_refresh"]["count"] > 0
+
+
+def test_counts_agree_with_the_hot_paths_counters(runs):
+    _, _, on = runs
+    recs = on["records"]
+    assert sum(r.name == "rb.stage" for r in recs) == on["calls"]
+    assert sum(r.name == "rb.sync" for r in recs) == on["calls"]
+    assert sum(r.ids["rows"] for r in recs
+               if r.name == "rb.sync" and r.ids["kind"] == 1) \
+        == on["delta_rows"]
+    kinds = {r.ids["kind"] for r in recs if r.name == "rb.sync"}
+    assert kinds <= {0, 1, 2, 3} and 2 in kinds      # the first call reseeds
+
+
+def test_summary_counts_self_time_and_sums_integer_ids():
+    """Self time is a span's duration less its children's; integer ids
+    are summed, others are not; `add` stores a parentless duration."""
+    tracing.enable()
+    try:
+        a = tracing.begin("a", k=2, rids=[7, 8])
+        b = tracing.begin("b", k=3)
+        assert tracing.open_id("a", "k") == 2
+        tracing.end(b)
+        tracing.end(a, extra=1)
+        tracing.add("dev", 5_000, batch=4)
+        c = tracing.begin("c")
+        tracing.begin("left_open")
+        tracing.end(c)
+        s = tracing.summary()
+        recs = tracing.records()
+    finally:
+        tracing.disable()
+    da, db = (r.t1 - r.t0 for r in recs[:2])
+    assert recs[1].parent == 0 and recs[2].parent == -1
+    assert s["a"]["sums"] == {"k": 2, "extra": 1}
+    assert s["a"]["self_s"] == pytest.approx((da - db) * 1e-9)
+    assert s["b"]["self_s"] == pytest.approx(db * 1e-9)
+    assert s["dev"] == {"count": 1, "total_s": 5e-6, "self_s": 5e-6,
+                        "sums": {"batch": 4}}
+    assert "left_open" not in s and s["c"]["count"] == 1
+    assert tracing.open_id("a", "k") == -1
+
+
+def test_the_tracer_imports_nothing_from_the_package():
+    src = (ROOT / "src" / "repro_torch" / "tracing.py").read_text()
+    assert "from ." not in src and "import repro_torch" not in src
+    assert not tracing.ON
+
+
+def test_stamps_become_device_durations():
+    """A K = 2 call's stamps: per window the three stage durations, and
+    the call from the entry to the last window's end."""
+    from repro_torch.core.hotpath import _K1Stamps
+    host = torch.tensor([100, 130, 190, 200, 120, 180, 260],
+                        dtype=torch.int64)
+    tracing.enable()
+    try:
+        fire = tracing.begin("rb.fire", batch=9)
+        st = _K1Stamps(host, 2)
+        st.store()
+        st.store()                       # once per call
+        tracing.end(fire)
+        s = tracing.summary()
+    finally:
+        tracing.disable()
+    ns = {k: round(v["total_s"] * 1e9) for k, v in s.items()}
+    assert ns["k1.stage1"] == 30 + 20 and ns["k1.trees"] == 60 + 60
+    assert ns["k1.scan"] == 10 + 80 and ns["k1.call"] == 160
+    assert s["k1.call"]["sums"] == {"batch": 9}
+    assert np.isclose(s["rb.fire"]["self_s"], s["rb.fire"]["total_s"])

@@ -1,0 +1,103 @@
+"""K1's time by stage at the main path's shapes, from its own stamps.
+
+    python3 tools/k1_stages.py [--shapes 16x8,16384x8,16384x16] [--calls 20]
+
+For each I x R: one K1 call (`decision_fused`) over a synthetic world of
+the benchmark's sizes (a 14,886 x 128 index, 16 models, 16 tiers of 60
+trees of depth 3, k = 10, one window, every instance alive), run `--calls`
+times back to back behind a spin with `timers` set. Prints one JSON line
+a shape: the calls' CUDA event ms per call beside the stamps' (entry to
+the end of the greedy loop), and the stamps' split into stage 1 (the KNN
+lookup and label mixes), the TPOT trees and the LPT scan, with the card's
+name and power limit. Needs one NVIDIA GPU.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+E, N, M, T, K_NN, TREES, DEPTH = 128, 14886, 16, 16, 10, 60, 3
+
+
+def world(I: int, R: int, dev, seed: int = 0):
+    """The positional arguments of one K1 call."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.normal(size=(N, E)).astype(f32)
+    n_int, n_leaf = 2 ** DEPTH - 1, 2 ** DEPTH
+    arrays = [
+        rng.normal(size=(1, R, E)).astype(f32), np.ones((1, R), bool),
+        np.full((1, R), np.nan, f32),
+        rng.integers(8, 400, (1, R)).astype(f32),
+        np.zeros((1, 1, 1), np.int32),
+        rng.uniform(0, 300, I).astype(f32),
+        rng.integers(1, 40, I).astype(f32),
+        rng.integers(0, 8, I).astype(f32),
+        rng.uniform(64, 900, I).astype(f32), np.ones(I, bool),
+        x, (x * x).sum(1).astype(f32),
+        rng.uniform(0, 1, (N, M)).astype(f32),
+        rng.uniform(20, 400, (N, M)).astype(f32),
+        rng.integers(0, M, I).astype(np.int32),
+        (np.arange(I) % T).astype(np.int32), np.full(I, 48.0, f32),
+        rng.uniform(1e-7, 1e-6, I).astype(f32),
+        rng.uniform(1e-6, 1e-5, I).astype(f32),
+        rng.uniform(0.01, 0.06, I).astype(f32), np.zeros((1, 1), np.int32),
+        rng.integers(0, 4, (T, TREES, n_int)).astype(np.int32),
+        rng.uniform(0, 300, (T, TREES, n_int)).astype(f32),
+        rng.uniform(-1e-3, 1e-3, (T, TREES, n_leaf)).astype(f32),
+        np.full(T, 0.03, f32)]
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def measure(I: int, R: int, calls: int, dev) -> dict:
+    from repro_torch.kernels import decision_megakernel as mk
+    args = world(I, R, dev)
+    kw = dict(k=K_NN, eps=1e-6, weights=(1 / 3, 1 / 3, 1 / 3),
+              latency_mode="full", lpt=True, budget_filter=True, w_aff=0.0,
+              use_gbm=True, depth=DEPTH, lr=0.15)
+    timers = torch.zeros((calls, 4), dtype=torch.int64, device=dev)
+    mk.decision_megakernel(*args, **kw, timers=timers[0])     # warm
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # the launches queue behind it
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for j in range(calls):
+        mk.decision_megakernel(*args, **kw, timers=timers[j])
+    stop.record()
+    torch.cuda.synchronize()
+    t = timers.cpu().numpy().astype(np.float64) * 1e-6        # ms
+    return {"I": I, "R": R, "calls": calls,
+            "event_ms_per_call": start.elapsed_time(stop) / calls,
+            "stamps_ms_per_call": float((t[:, 3] - t[:, 0]).mean()),
+            "stage1_ms": float((t[:, 1] - t[:, 0]).mean()),
+            "trees_ms": float((t[:, 2] - t[:, 1]).mean()),
+            "scan_ms": float((t[:, 3] - t[:, 2]).mean())}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shapes", default="16x8,16384x8,16384x16")
+    ap.add_argument("--calls", type=int, default=20)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("k1_stages: needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    for shape in a.shapes.split(","):
+        I, R = (int(v) for v in shape.split("x"))
+        print(json.dumps({**measure(I, R, a.calls, dev), "card": card}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
