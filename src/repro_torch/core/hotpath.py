@@ -61,10 +61,15 @@ def _new_stats() -> Dict:
 class _K1Stamps:
     """One traced K1 call's `%globaltimer` stamps, copied back into a
     pinned buffer behind the call's event: the kernel's entry, then per
-    window the end of stage 1, of the TPOT trees and of the greedy loop.
-    Stored once as device durations (`k1.stage1`, `k1.trees`, `k1.scan`
-    per window, `k1.call` from the entry to the last stamp), whichever of
-    the call's windows is fetched first."""
+    window the end of the TPOT trees (the grid's last tree slice, the
+    same in every window), the start of the window's scan and the end of
+    its greedy loop. Stored once as device durations, whichever of the
+    call's windows is fetched first: `k1.trees` once a call, from the
+    entry to the end of the trees; per window `k1.stage1`, from there to
+    the scan's start (the rest of stage 1, the KNN lookup and label
+    mixes, which ran beside the trees on the grid), and `k1.scan`, the
+    scan CTA's preamble and greedy loop; `k1.call` from the entry to the
+    last stamp."""
 
     __slots__ = ("host", "K", "done")
 
@@ -77,10 +82,10 @@ class _K1Stamps:
         self.done = True
         t = self.host.tolist()
         batch = tracing.open_id("rb.fire", "batch")
+        tracing.add("k1.trees", t[1] - t[0], batch=batch)
         for w in range(self.K):
             s1, s2, s3 = t[1 + 3 * w:4 + 3 * w]
-            tracing.add("k1.stage1", s1 - t[0], batch=batch)
-            tracing.add("k1.trees", s2 - s1, batch=batch)
+            tracing.add("k1.stage1", s2 - s1, batch=batch)
             tracing.add("k1.scan", s3 - s2, batch=batch)
         tracing.add("k1.call", max(t[3::3]) - t[0], batch=batch)
 

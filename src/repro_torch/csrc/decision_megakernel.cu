@@ -14,10 +14,26 @@
 // The scan is R dependent steps, each a handful of reductions over I: a
 // chain of latencies, not a throughput. Before it, each instance's TPOT
 // walks its tier's trees (60 of depth 3 on the main path): done one
-// tree after another, that is some 180 dependent loads.
+// tree after another, that is some 180 dependent loads, about 1.5 us an
+// instance for a warp, so 3.2 ms at I = 16,384 in one CTA of 8 warps.
 //
 // What the design does about it. One __global__ function per call,
 // `decision_fused`:
+//   0. The per-instance preamble runs on the whole grid first. CTAs take
+//      a slice of the instances each, one a warp, strided over the CTAs
+//      that hold one: as many CTAs as I needs at 8 instances a CTA, at
+//      most the grid (2 at the main path's I = 16, every CTA at I =
+//      16,384). The slices go to the last index split's CTAs first, one
+//      per row tile, then the split before it: where the index does not
+//      divide evenly the last split is the shortest (1 of 2 tiles at the
+//      main path's 14,886 rows), so a small roster's trees ride on the
+//      CTAs that finish stage 1 first. A warp walks its instance's
+//      trees, one lane per tree, the leaf values then added in tree order
+//      by shuffles, and writes the TPOT (window-invariant) to an (I,)
+//      scratch. With the global carry the slice also writes b0 and each
+//      window's initial carry rows. Then the CTA draws the trees' ticket
+//      and goes on to stage 1; the CTA that draws the trees' last ticket
+//      draws one ticket of every window for them.
 //   1. Stage 1 is the lookup's one-launch body (knn_common.cuh,
 //      `fused_topk`, shared with knn_topk.cu): (index splits x row tiles)
 //      over the K*R rows, the layout taken from the lookup's measured
@@ -27,26 +43,30 @@
 //      inverse-distance weights, the label mixes and the LPT key, to
 //      scratch; no k list is kept.
 //   2. Each window has a second ticket, drawn once by every row tile
-//      that holds rows of it. The CTA that draws a window's last ticket
-//      runs that window's scan: the TPOT heads, one warp per instance
-//      and one lane per tree, the leaf values then added in tree order
-//      by shuffles; the LPT order; and the greedy loop. With I <= 32
-//      (the main path) one warp runs the loop, lane i holding instance
-//      i's constants and its (d, b, free) carry in registers, so a step
-//      is three warp reductions; above, the block runs it, thread t
-//      owning the columns i = t (mod blockDim.x). Eq. 2 admission, the
-//      affinity hit and Eq. 1 are evaluated for one row over I on the
-//      fly: no (R, I) plane is ever written.
+//      that holds rows of it and once for the trees. The CTA that draws a
+//      window's last ticket runs that window's scan: the LPT order and
+//      the greedy loop over the TPOT the grid wrote. With I <= 32 (the
+//      main path) one warp runs the loop, lane i holding instance i's
+//      constants and its (d, b, free) carry in registers, so a step is
+//      three warp reductions; above, the block runs it, thread t owning
+//      the columns i = t (mod blockDim.x). Eq. 2 admission, the affinity
+//      hit and Eq. 1 are evaluated for one row over I on the fly: no
+//      (R, I) plane is ever written.
+// No CTA waits on another: every hand-over is a last ticket, and every
+// ticket is left at 0.
 // The block's per-instance arrays (the carry d/b/free, b0, the TPOT, and
 // a step's cost and latency: 28 B an instance) have two homes. The
 // shared carry keeps them in shared memory, up to I = 4096 (MAX_SHARED_I
-// in the wrapper) where they fit beside the R-length arrays. Past that,
-// or where they do not fit, the global carry keeps d/b/free in the
-// window's rows of the outputs d1/b1/f1 (no copy at the end) and the
-// other four in a (K, 4, I) scratch, L2-resident (458 KB at I = 16,384).
-// Only the owner of a column reads or writes it, so the two carries run
-// the same operations in the same order: the global one is bitwise the
-// shared one.
+// in the wrapper) where they fit beside the R-length arrays, and copies
+// the TPOT in. Past that, or where they do not fit, the global carry
+// keeps d/b/free in the window's rows of the outputs d1/b1/f1 (no copy
+// at the end), the TPOT in its (I,) scratch, and b0 and, per window, a
+// step's cost and latency in a ((1 + 2K), I) scratch, L2-resident (about
+// 330 KB at I = 16,384, K = 1). Only the owner of a column writes it in
+// the scan, so the two carries run the same operations in the same
+// order: the global one is bitwise the shared one. What other CTAs wrote
+// (the label mixes, the TPOT, the global carry's rows) is read through
+// L2 (__ldcg).
 // The dynamic shared memory is the larger of stage 1's need and the
 // scan's, and every CTA gets it. At the main path's I = 16 that is stage
 // 1's (43 KB at the 4-row tile), and registers (128 a thread, for the
@@ -58,11 +78,13 @@
 // I = 4096 for R >= 16, and less at I = 8192 (chip_smoke.py times both).
 //
 // Timers. With `timers` set (a traced call), thread 0 of block (0, 0)
-// writes %globaltimer at the kernel's entry, and the CTA that scans
-// window w writes it at the start of its scan (the end of stage 1 for w),
-// after the TPOT trees and after the greedy loop. Null (every untraced
-// call): one branch on the pointer. Nothing reads the buffer, so the
-// outputs are the same either way.
+// writes %globaltimer at the kernel's entry (the block dispatched first;
+// the trees end at least one tree walk after it); the CTA that draws the
+// trees' last ticket writes it into 1 + 3w for every window w (the end of
+// the last tree slice); and the CTA that scans window w writes it at
+// 2 + 3w when its scan starts and at 3 + 3w after the greedy loop. Null
+// (every untraced call): one branch on the pointer. Nothing reads the
+// buffer, so the outputs are the same either way.
 //
 // Exactness. Everything after the distance dot product spells the
 // plain PyTorch version's operations one by one, with IEEE rounding:
@@ -125,12 +147,15 @@ struct RtDecisionParams {
   float* cand_d;             // (K*R, S, k) scratch: split lists
   int* cand_i;
   int* tickets;              // (row tiles,) scratch, left 0
-  int* wtickets;             // (K,) scratch, left 0
+  int* wtickets;             // (K + 1,) scratch, left 0: a ticket per
+                             // window, then the trees'
   float* qmix;               // (K*R, M) scratch: label mixes
   float* lmix;
   float* plm;                // (K*R,) scratch: LPT key
-  float* scan_i;             // (K, 4, I) scratch of the global carry, or
-                             // null: the shared-memory carry
+  float* tpot;               // (I,) scratch: the TPOT heads
+  float* scan_i;             // (1 + 2K, I) scratch of the global carry
+                             // (b0, then per window a step's cost and
+                             // latency), or null: the shared carry
   int* choice;               // (K, R)
   float* est;                // (K, R)
   float* lchosen;            // (K, R)
@@ -221,6 +246,13 @@ struct ScanSmem {
   int* redi;     // 32
 };
 
+// Element i of d, b, fr, b0 or tpot in the scan: with the global carry
+// (GL) the grid wrote them before the scan, so they are read from L2.
+template <bool GL>
+__device__ __forceinline__ float ld(const float* a, int i) {
+  return GL ? __ldcg(a + i) : a[i];
+}
+
 // Shared-memory words of the scan: with the shared carry the seven
 // I-length arrays too, with the global carry the R-length ones and the
 // reduction words only.
@@ -233,7 +265,9 @@ __host__ __device__ inline size_t scan_smem_words(int R, int M, int I,
 // The scan's arrays for window w: the R-length ones and the reduction
 // words from shared memory; the I-length ones from shared memory too
 // (shared carry), or (global carry) the carry d/b/free in the window's
-// rows of the outputs d1/b1/f1 and the other four in its scratch rows.
+// rows of the outputs d1/b1/f1, the TPOT in its scratch, b0 in the
+// carry's first scratch row and a step's cost and latency in the
+// window's two.
 __device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w) {
   const int R = prm.R, M = prm.M, I = prm.I;
   ScanSmem s;
@@ -260,11 +294,10 @@ __device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w) {
     s.d = prm.d1 + o;
     s.b = prm.b1 + o;
     s.fr = prm.f1 + o;
-    float* g = prm.scan_i + 4 * o;
-    s.b0 = g;
-    s.tpot = g + I;
-    s.tc = g + 2 * (size_t)I;
-    s.tt = g + 3 * (size_t)I;
+    s.tpot = prm.tpot;
+    s.b0 = prm.scan_i;
+    s.tc = prm.scan_i + (1 + 2 * (size_t)w) * I;
+    s.tt = s.tc + I;
   }
   s.redf = p; p += 64;
   s.redi = reinterpret_cast<int*>(p);
@@ -396,6 +429,7 @@ __device__ __forceinline__ float score(const RtDecisionParams& p, float wl,
 
 // The R-step greedy loop for I <= 32, in one warp: lane i holds instance
 // i's constants and carry in registers and writes d1/b1/f1 at the end.
+template <bool GL>
 __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
                               int lane) {
   const int I = p.I, M = p.M;
@@ -408,9 +442,9 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
   float d = 0.f, b = 1.f, fr = 0.f, maxb = 0.f;
   if (mine) {
     m_i = p.m_of_i[i];
-    in = Inst{p.price_in[i], p.price_out[i], p.nominal[i], s.tpot[i],
-              s.b0[i], p.alive[i] != 0};
-    d = s.d[i]; b = s.b[i]; fr = s.fr[i];
+    in = Inst{p.price_in[i], p.price_out[i], p.nominal[i],
+              ld<GL>(s.tpot, i), ld<GL>(s.b0, i), p.alive[i] != 0};
+    d = ld<GL>(s.d, i); b = ld<GL>(s.b, i); fr = ld<GL>(s.fr, i);
     maxb = p.maxb[i];
   }
   const bool al = in.al;
@@ -488,10 +522,11 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
 
 // The R-step greedy loop for I > 32, by the whole block: thread `tid`
 // owns the instances i = tid (mod blockDim.x). Every I-length array is
-// read and written by the owner of the column only (tpot was written
-// before a barrier), so the carry may sit in shared memory or in global
-// memory (the outputs themselves) with the same operations in the same
-// order.
+// written by the owner of the column only (tpot, b0 and the initial
+// carry before the scan began), so the carry may sit in shared memory or
+// in global memory (the outputs themselves) with the same operations in
+// the same order.
+template <bool GL>
 __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   const int I = p.I, M = p.M, tid = threadIdx.x, nthr = blockDim.x;
   const bool off = p.mode == OFF_REACTIVE || p.mode == OFF_PREDICTIVE;
@@ -510,10 +545,11 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
     for (int i = tid; i < I; i += nthr) {
       const float l = s.lmix[rr * M + p.m_of_i[i]];
       const bool al = p.alive[i] != 0;
-      const Inst in{p.price_in[i], p.price_out[i], p.nominal[i], s.tpot[i],
-                    s.b0[i], al};
+      const Inst in{p.price_in[i], p.price_out[i], p.nominal[i],
+                    ld<GL>(s.tpot, i), ld<GL>(s.b0, i), al};
       float c, T;
-      cost_latency(p, rw, i, in, lin, l, s.d[i], s.b[i], s.fr[i], c, T);
+      cost_latency(p, rw, i, in, lin, l, ld<GL>(s.d, i), ld<GL>(s.b, i),
+                   ld<GL>(s.fr, i), c, T);
       s.tc[i] = c;
       s.tt[i] = T;
       any_c = any_c || (al && (!has_budget || c <= bud));
@@ -552,8 +588,8 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
       if (off) {
         s.tc[i] = sc;
         best_v = fmaxf(best_v, sc);
-        const float tie = (p.mode == OFF_REACTIVE) ? __fadd_rn(s.d[i], s.b[i])
-                                                   : T;
+        const float tie = (p.mode == OFF_REACTIVE)
+                              ? __fadd_rn(ld<GL>(s.d, i), ld<GL>(s.b, i)) : T;
         tie_max = fmaxf(tie_max, tie);
       } else if (lex_greater(sc, i, best_v, best_i)) {
         best_v = sc; best_i = i;
@@ -566,8 +602,9 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
       float v = INFINITY;
       int vi = INT_MAX;
       for (int i = tid; i < I; i += nthr) {
-        const float tie = (p.mode == OFF_REACTIVE) ? __fadd_rn(s.d[i], s.b[i])
-                                                   : s.tt[i];
+        const float tie = (p.mode == OFF_REACTIVE)
+                              ? __fadd_rn(ld<GL>(s.d, i), ld<GL>(s.b, i))
+                              : s.tt[i];
         const float cand = (s.tc[i] >= best_v) ? __fdiv_rn(tie, den)
                                                : INFINITY;
         if (lex_less(cand, i, v, vi)) { v = cand; vi = i; }
@@ -585,14 +622,16 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
       s.est[rr] = s.tt[win];
       const bool v = s.rv[rr] != 0;
       const float l = s.lmix[rr * M + p.m_of_i[win]];
-      s.d[win] = __fadd_rn(s.d[win], v ? l : 0.f);
-      const bool has_free = (s.fr[win] > 0.f) && v;
-      s.fr[win] = __fadd_rn(s.fr[win], has_free ? -1.f : -0.f);
-      if (has_free) s.b[win] = fminf(__fadd_rn(s.b[win], 1.f), p.maxb[win]);
+      s.d[win] = __fadd_rn(ld<GL>(s.d, win), v ? l : 0.f);
+      const float fr = ld<GL>(s.fr, win);
+      const bool has_free = (fr > 0.f) && v;
+      s.fr[win] = __fadd_rn(fr, has_free ? -1.f : -0.f);
+      if (has_free)
+        s.b[win] = fminf(__fadd_rn(ld<GL>(s.b, win), 1.f), p.maxb[win]);
     }
     __syncthreads();
   }
-  if (p.scan_i != nullptr) return;          // the carry is the output
+  if (GL) return;                           // the carry is the output
   for (int i = tid; i < I; i += nthr) {
     const size_t o = (size_t)w * I + i;
     p.d1[o] = s.d[i];
@@ -601,11 +640,66 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   }
 }
 
+// Instance i's TPOT (window-invariant), by one warp: a lane per tree,
+// the leaf values summed in tree order by shuffles. Every lane returns it.
+__device__ float tpot_of(const RtDecisionParams& p, int i, int lane) {
+  if (!p.use_gbm) return p.nominal[i];
+  const int leaf0 = (1 << p.depth) - 1;
+  const float beff = fmaxf(p.b[i], 1.f);
+  const float f0 = beff, f1 = p.d[i], f2 = fmaxf(p.ctx[i], 64.f);
+  const float f3 = __fmul_rn(beff, f2);
+  const int tier = p.tier_of_i[i];
+  float out = __fadd_rn(0.f, p.gbase[tier]);
+  for (int t0 = 0; t0 < p.n_trees; t0 += 32) {
+    const int t = t0 + lane;
+    float v = 0.f;
+    if (t < p.n_trees) {
+      const size_t tr = (size_t)tier * p.n_trees + t;
+      const int* f = p.gfeat + tr * p.n_internal;
+      const float* th = p.gthr + tr * p.n_internal;
+      int node = 0;
+      for (int lv = 0; lv < p.depth; ++lv) {
+        const int fi = f[node];
+        const float fv = fi == 0 ? f0 : fi == 1 ? f1 : fi == 2 ? f2 : f3;
+        node = 2 * node + 1 + (fv > th[node] ? 1 : 0);
+      }
+      v = __fmul_rn(p.lr, p.gleaf[tr * p.n_leaves + (node - leaf0)]);
+    }
+    const int n = min(32, p.n_trees - t0);
+    for (int j = 0; j < n; ++j) out = __fadd_rn(out, __shfl_sync(FULL, v, j));
+  }
+  return fmaxf(out, 1e-4f);
+}
+
+// Slice q of the per-instance preamble, of `n_slices` over the grid: the
+// TPOT of one instance a warp, and with the global carry b0 and each
+// window's initial carry rows, one instance a thread. Pad instances
+// (dead) are computed too: the off modes read every column.
+__device__ void instance_slice(const RtDecisionParams& p, int q,
+                               int n_slices) {
+  const int I = p.I, tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+  for (int i = q * nwarps + warp; i < I; i += n_slices * nwarps) {
+    const float tp = tpot_of(p, i, lane);
+    if (lane == 0) p.tpot[i] = tp;
+  }
+  if (p.scan_i == nullptr) return;
+  for (int i = q * nthr + tid; i < I; i += n_slices * nthr) {
+    const float beff = fmaxf(p.b[i], 1.f), d = p.d[i], fr = p.free_[i];
+    p.scan_i[i] = fmaxf(beff, 1.f);
+    for (int w = 0; w < p.K; ++w) {
+      const size_t o = (size_t)w * I + i;
+      p.d1[o] = d;
+      p.b1[o] = beff;
+      p.f1[o] = fr;
+    }
+  }
+}
+
 __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = blockDim.x >> 5;
-  if (p.timers != nullptr && tid == 0) p.timers[1 + 3 * w] = global_timer();
+  if (p.timers != nullptr && tid == 0) p.timers[2 + 3 * w] = global_timer();
   ScanSmem s = carve(smem, p, w);
 
   // per-row inputs; the mixes and keys other CTAs wrote (L2, not L1)
@@ -620,49 +714,19 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
     s.qmix[t] = __ldcg(p.qmix + (size_t)w * R * M + t);
     s.lmix[t] = __ldcg(p.lmix + (size_t)w * R * M + t);
   }
-  // per-instance carry
-  for (int i = tid; i < I; i += blockDim.x) {
-    const float beff = fmaxf(p.b[i], 1.f);
-    s.d[i] = p.d[i];
-    s.b[i] = beff;
-    s.fr[i] = p.free_[i];
-    s.b0[i] = fmaxf(beff, 1.f);
-  }
-  // the state-dependent TPOT (window-invariant): a warp per instance, a
-  // lane per tree, the leaf values summed in tree order
-  const int leaf0 = (1 << p.depth) - 1;
-  for (int i = warp; i < I; i += nwarps) {
-    float tp = p.nominal[i];
-    if (p.use_gbm) {
+  // the shared carry's per-instance arrays and the TPOT the grid wrote
+  // (the global carry's are in place)
+  const bool gl = p.scan_i != nullptr;
+  if (!gl)
+    for (int i = tid; i < I; i += blockDim.x) {
       const float beff = fmaxf(p.b[i], 1.f);
-      const float f0 = beff, f1 = p.d[i], f2 = fmaxf(p.ctx[i], 64.f);
-      const float f3 = __fmul_rn(beff, f2);
-      const int tier = p.tier_of_i[i];
-      float out = __fadd_rn(0.f, p.gbase[tier]);
-      for (int t0 = 0; t0 < p.n_trees; t0 += 32) {
-        const int t = t0 + lane;
-        float v = 0.f;
-        if (t < p.n_trees) {
-          const size_t tr = (size_t)tier * p.n_trees + t;
-          const int* f = p.gfeat + tr * p.n_internal;
-          const float* th = p.gthr + tr * p.n_internal;
-          int node = 0;
-          for (int lv = 0; lv < p.depth; ++lv) {
-            const int fi = f[node];
-            const float fv = fi == 0 ? f0 : fi == 1 ? f1 : fi == 2 ? f2 : f3;
-            node = 2 * node + 1 + (fv > th[node] ? 1 : 0);
-          }
-          v = __fmul_rn(p.lr, p.gleaf[tr * p.n_leaves + (node - leaf0)]);
-        }
-        const int n = min(32, p.n_trees - t0);
-        for (int j = 0; j < n; ++j) out = __fadd_rn(out, __shfl_sync(FULL, v, j));
-      }
-      tp = fmaxf(out, 1e-4f);
+      s.d[i] = p.d[i];
+      s.b[i] = beff;
+      s.fr[i] = p.free_[i];
+      s.b0[i] = fmaxf(beff, 1.f);
+      s.tpot[i] = __ldcg(p.tpot + i);
     }
-    if (lane == 0) s.tpot[i] = tp;
-  }
   __syncthreads();
-  if (p.timers != nullptr && tid == 0) p.timers[2 + 3 * w] = global_timer();
 
   // LPT order: a stable descending rank of the key (pad rows at -1e30)
   for (int r = tid; r < R; r += blockDim.x) {
@@ -680,9 +744,14 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   __syncthreads();
 
   if (I <= 32) {
-    if (warp == 0) run_scan_warp(p, s, w, lane);
+    if (warp == 0) {
+      if (gl) run_scan_warp<true>(p, s, w, lane);
+      else run_scan_warp<false>(p, s, w, lane);
+    }
+  } else if (gl) {
+    run_scan_block<true>(p, s, w);
   } else {
-    run_scan_block(p, s, w);
+    run_scan_block<false>(p, s, w);
   }
   __syncthreads();
   if (p.timers != nullptr && tid == 0) p.timers[3 + 3 * w] = global_timer();
@@ -697,8 +766,28 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// The whole decision: stage 1 on a grid of (index splits x row tiles of
-// RT rows), then each window's scan in the CTA that completes it.
+// One of window w's tickets: one for each row tile of RT rows that holds
+// rows of w, and one for the trees. The CTA that draws the last scans w.
+template <int RT>
+__device__ void window_ticket(const RtDecisionParams& p, float* smem, int w,
+                              int* s_last) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int tiles = ((w + 1) * p.R - 1) / RT - (w * p.R) / RT + 1;
+    *s_last = atomicAdd(&p.wtickets[w], 1) == tiles;
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  scan_window(p, smem, w);
+  if (threadIdx.x == 0) p.wtickets[w] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// The whole decision: the per-instance preamble in slices over the grid,
+// stage 1 on the grid of (index splits x row tiles of RT rows), then each
+// window's scan in the CTA that completes it.
 
 template <int RT, int MR, int MC, int ES>
 __global__ void __launch_bounds__(THREADS)
@@ -708,6 +797,32 @@ decision_fused(const __grid_constant__ RtDecisionParams p) {
   if (p.timers != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
       threadIdx.x == 0)
     p.timers[0] = global_timer();
+  // the CTAs that hold a slice: 8 instances each, at most the grid, the
+  // last split's first (slice q: split S - 1 - q / T of row tile q % T)
+  const int nwarps = THREADS / 32;
+  const int q = (gridDim.x - 1 - blockIdx.x) * gridDim.y + blockIdx.y;
+  const int n_slices = min((int)(gridDim.x * gridDim.y),
+                           max(1, (p.I + nwarps - 1) / nwarps));
+  if (q < n_slices) {
+    instance_slice(p, q, n_slices);
+    __threadfence();
+    __syncthreads();
+    int* tt = p.wtickets + p.K;                 // the trees' ticket
+    if (threadIdx.x == 0) s_last = atomicAdd(tt, 1) == n_slices - 1;
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      if (threadIdx.x == 0) {
+        *tt = 0;
+        if (p.timers != nullptr) {
+          const long long t = global_timer();
+          for (int w = 0; w < p.K; ++w) p.timers[1 + 3 * w] = t;
+        }
+      }
+      for (int w = 0; w < p.K; ++w) window_ticket<RT>(p, smem, w, &s_last);
+      __syncthreads();                          // smem is stage 1's again
+    }
+  }
   const int KR = p.K * p.R;
   if (!knn::fused_topk<knn::XSQ_FIRST, RT, MR, MC, ES>(
           p.emb, nullptr, p.x, p.xsq, KR, p.N, p.E, p.k, p.per_split,
@@ -716,19 +831,8 @@ decision_fused(const __grid_constant__ RtDecisionParams p) {
   // this CTA merged row tile blockIdx.y: its rows' mixes are in scratch;
   // one ticket for each window that holds some of them
   const int row0 = blockIdx.y * RT, row1 = min(KR, row0 + RT);
-  for (int w = row0 / p.R; w <= (row1 - 1) / p.R; ++w) {
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int tiles = ((w + 1) * p.R - 1) / RT - (w * p.R) / RT + 1;
-      s_last = atomicAdd(&p.wtickets[w], 1) == tiles - 1;
-    }
-    __syncthreads();
-    if (!s_last) continue;
-    __threadfence();
-    scan_window(p, smem, w);
-    if (threadIdx.x == 0) p.wtickets[w] = 0;
-  }
+  for (int w = row0 / p.R; w <= (row1 - 1) / p.R; ++w)
+    window_ticket<RT>(p, smem, w, &s_last);
 }
 
 template <int RT, int MR, int MC, int ES>

@@ -25,9 +25,12 @@ check can record the arguments the serving path passes and hold the
 kernel against its plain version on them afterwards. Stage 1 takes its
 layout (row tile and index splits) for the K * R rows from the KNN
 lookup's measured table (`layout`); the kernel's scratch (split lists,
-tickets, the rows' label mixes, the global carry's per-instance arrays)
-lives per (device, stream), allocated once and grown on demand, so a
-call allocates only its outputs and launches nothing else.
+tickets, the rows' label mixes, the TPOT heads and the global carry's
+per-instance arrays) lives per (device, stream), allocated once and
+grown on demand, so a call allocates only its outputs and launches
+nothing else. The TPOT heads are walked by the whole grid before stage 1,
+as many CTAs as the roster needs at 8 instances a CTA (csrc header); the
+CTA that scans a window reads them from scratch.
 
 Any roster size I is taken. The scan keeps its per-instance arrays in
 shared memory up to `MAX_SHARED_I` instances where they fit there (the
@@ -49,11 +52,13 @@ float32.
 `timers`, a keyword the kernel alone reads (None by default, which is
 what every untraced call passes), is an int64 CUDA tensor of at least
 1 + 3 K elements: the kernel writes `%globaltimer` into it at its entry
-(thread 0 of block (0, 0)) and, per window w, at 1 + 3w the end of
-stage 1, at 2 + 3w the end of the TPOT trees and at 3 + 3w the end of
-the greedy loop, each by the CTA that scans the window. Nothing else
-reads the buffer, so the outputs are the same with and without it; the
-plain version has no stamps and the tap does not see the keyword.
+(thread 0 of block (0, 0)); at 1 + 3w, for every window w, the end of
+the last slice of TPOT trees over the grid (the same stamp in each); at
+2 + 3w the start of window w's scan, the end of stage 1 for it; and at
+3 + 3w the end of its greedy loop, by the CTA that scans the window.
+Nothing else reads the buffer, so the outputs are the same with and
+without it; the plain version has no stamps and the tap does not see
+the keyword.
 """
 from __future__ import annotations
 
@@ -88,15 +93,16 @@ def layout(rows: int, n_index: int) -> Tuple[int, int, int]:
 
 def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int, I: int,
                   shared_carry: bool) -> Tuple[int, int, int, int]:
-    """(split-list entries, tickets, label-mix floats, carry floats) of
-    the kernel's scratch for K windows of R rows over I instances: k
-    candidates per row and split, one ticket per row tile and per
-    window, each row's two label mixes (M each) and LPT key, and with
-    the global carry four I-length arrays per window (b0, TPOT, a
-    step's cost and latency; the carry itself lives in the outputs)."""
+    """(split-list entries, tickets, label-mix floats, per-instance
+    floats) of the kernel's scratch for K windows of R rows over I
+    instances: k candidates per row and split, one ticket per row tile,
+    per window and for the trees, each row's two label mixes (M each)
+    and LPT key, and the TPOT heads (I), with the global carry also b0
+    (I) and per window a step's cost and latency (2 I; the carry itself
+    lives in the outputs)."""
     rt, S, _ = layout(K * R, n_index)
-    return (K * R * S * k, -(-K * R // rt) + K, K * R * (2 * M + 1),
-            0 if shared_carry else 4 * K * I)
+    return (K * R * S * k, -(-K * R // rt) + K + 1, K * R * (2 * M + 1),
+            I if shared_carry else (2 + 2 * K) * I)
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -176,7 +182,7 @@ class _Params(ctypes.Structure):
         "m_of_i", "tier_of_i", "maxb", "price_in", "price_out", "nominal",
         "sig_plane", "gfeat", "gthr", "gleaf", "gbase",
         "cand_d", "cand_i", "tickets", "wtickets", "qmix", "lmix", "plm",
-        "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1",
+        "tpot", "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1",
         "timers")]
         + [(n, ctypes.c_int) for n in (
             "K", "R", "E", "N", "M", "I", "k", "per_split", "sig_w",
@@ -188,7 +194,7 @@ class _Params(ctypes.Structure):
 
 
 _lib = None
-_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes, carry)
+_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes, inst)
 
 
 def _library():
@@ -289,13 +295,13 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
                          f"memory than a block has ({limit} B)")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_cand, n_tickets, n_mix, n_carry = scratch_sizes(K, R, M, k, N, I,
-                                                      shared)
-    cand_d, cand_i, tickets, mix, carry = scratch(
+    n_cand, n_tickets, n_mix, n_inst = scratch_sizes(K, R, M, k, N, I,
+                                                     shared)
+    cand_d, cand_i, tickets, mix, inst = scratch(
         _scratch, dev, stream, ((n_cand, f32, False), (n_cand, i32, False),
                                 (n_tickets, i32, True), (n_mix, f32, False),
-                                (n_carry, f32, False)))
-    n_tiles = n_tickets - K
+                                (n_inst, f32, False)))
+    n_tiles = n_tickets - K - 1
     outs = (torch.empty((K, R), dtype=i32, device=dev),
             *(torch.empty((K, R), dtype=f32, device=dev) for _ in range(2)),
             *(torch.empty((K, I), dtype=f32, device=dev) for _ in range(3)))
@@ -305,7 +311,8 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         *(t.data_ptr() for t in args.values()), cand_d.data_ptr(),
         cand_i.data_ptr(), tickets.data_ptr(),
         tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
-        mix0 + 8 * K * R * M, None if shared else carry.data_ptr(),
+        mix0 + 8 * K * R * M, inst.data_ptr(),
+        None if shared else inst.data_ptr() + 4 * I,
         *(o.data_ptr() for o in outs),
         None if timers is None else timers.data_ptr(),
         K, R, E, N, M, I, k, per,

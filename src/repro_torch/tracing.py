@@ -37,8 +37,9 @@ The spans and where they are recorded:
                  (`cell`; `rows`, the telemetry rows it copied)
   rb.digest      one balancer heartbeat (`seq`)
   k1.stage1, k1.trees, k1.scan, k1.call
-                 K1's own stamps per window and per call (`batch`), device
-                 durations read at fetch
+                 K1's own stamps (`batch`), device durations read at
+                 fetch: the trees over the grid and the call once a call,
+                 the rest of stage 1 and the scan per window
 
 A span left open by an exception is dropped from `summary`. The tracer
 imports nothing from the package, so every layer can import it.

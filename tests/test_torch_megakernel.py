@@ -189,17 +189,18 @@ def test_layout_follows_the_lookup_table(rows, want):
 
 
 def test_scratch_is_split_lists_tickets_and_mixes():
-    # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10
+    # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10:
+    # a ticket per row tile, per window and the trees'; the TPOT heads
     assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, True) == (
-        128 * 30 * 10, 16 + 2, 128 * 9, 0)
+        128 * 30 * 10, 16 + 2 + 1, 128 * 9, 16)
     # the main path's bucket: one window of 8 rows in 4-row tiles
     assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, True) == (
-        8 * 117 * 10, 2 + 1, 8 * 9, 0)
-    # the global carry: four I-length arrays per window (32 rows take
-    # 8-row tiles and 59 splits)
+        8 * 117 * 10, 2 + 1 + 1, 8 * 9, 16)
+    # the global carry: the TPOT and b0, then a step's cost and latency
+    # per window (32 rows take 8-row tiles and 59 splits)
     assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, False) == (
-        32 * 59 * 10, 4 + 2, 32 * 9, 2 * 4 * 16384)
-    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True)[3] == 0
+        32 * 59 * 10, 4 + 2 + 1, 32 * 9, (2 + 2 * 2) * 16384)
+    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True)[3] == 4096
 
 
 @pytest.fixture
@@ -292,17 +293,29 @@ def test_kernel_matches_plain_on_card_shapes(cuda_device, case):
     _compare(got, want)
 
 
+def _tickets(dev):
+    """The K1 scratch's tickets on the current stream of `dev`."""
+    torch.cuda.synchronize(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return mk._scratch[(torch.cuda.current_device(), stream)][2]
+
+
 @pytest.mark.cuda
 def test_kernel_calls_in_a_row_agree(cuda_device):
-    """The tickets reset themselves: a second call on the same stream,
-    after a call at another shape, repeats the first exactly."""
+    """The tickets reset themselves: every ticket (row tiles, windows,
+    the trees') is 0 after each call, and a call on the same stream after
+    calls at other shapes (the global carry's among them) repeats the
+    first exactly."""
     gbm, depth, lr = _gbm(True)
     a1 = _dyadic_world(12, K=2, R=8)
     a2 = _dyadic_world(13, K=1, R=64)
-    first = _port(a1, gbm, depth, lr, True, device=cuda_device, **_statics())
-    _port(a2, gbm, depth, lr, True, device=cuda_device, **_statics())
-    again = _port(a1, gbm, depth, lr, True, device=cuda_device, **_statics())
-    for g, h in zip(first, again):
+    a3 = _dyadic_world(14, K=2, R=16, I=16384)
+    outs = []
+    for a in (a1, a2, a3, a1):
+        outs.append(_port(a, gbm, depth, lr, True, device=cuda_device,
+                          **_statics()))
+        assert not _tickets(cuda_device).any()
+    for g, h in zip(outs[0], outs[3]):
         np.testing.assert_array_equal(g, h)
 
 
@@ -318,14 +331,61 @@ def _forest(T, n_trees, depth, seed=0):
              np.full(T, 0.03, f32)], depth, 0.1)
 
 
+def _bitwise(got, want):
+    """Every output bit for bit: choice, and the float outputs through an
+    int32 view."""
+    for g, h in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g).view(np.int32),
+                                      np.asarray(h).view(np.int32))
+
+
+# (world, mode, use_gbm) of the card cases of the TPOT over the grid
+GRID_CASES = {
+    "I16_R8": (dict(K=1, R=8, I=16), "full", True),
+    **{f"I1024_{m}": (dict(K=1, R=16, I=1024), m, True) for m in MODES},
+    "I16384_K2": (dict(K=2, R=16, I=16384), "full", True),
+    "I4097_nogbm": (dict(K=1, R=16, I=4097), "full", False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_kernel_tpot_over_the_grid_is_bitwise(cuda_device, case):
+    """The TPOT heads walked by the grid's slices before stage 1: 60 trees
+    of depth 3 over 4 tiers, every output bitwise the plain version's. At
+    I = 16, R = 8 the grid has far more CTAs than instances; at I = 1,024
+    (the shared carry) the last 24 instances are dead pads, which the off
+    modes still read; at I = 16,384 two windows read one TPOT array on
+    the global carry; at I = 4,097 the slices write the nominal TPOT."""
+    world, mode, use_gbm = GRID_CASES[case]
+    args = _dyadic_world(31, T=4, **world)
+    I = world["I"]
+    args["alive"] = (np.arange(I) < 1000) if I == 1024 else (
+        np.arange(I) % 7 != 3)
+    gbm, depth, lr = _forest(4, 60, 3, seed=2) if use_gbm else _gbm(False)
+    statics = _statics(mode=mode)
+    launches = mk.decision_megakernel.launches
+    got = _port(args, gbm, depth, lr, use_gbm, device=cuda_device,
+                **statics)
+    assert mk.decision_megakernel.launches == launches + 1
+    ts = [torch.as_tensor(np.array(a), device=cuda_device)
+          for a in list(args.values()) + list(gbm)]
+    want = [o.cpu().numpy() for o in mk.decision_megakernel_plain(
+        *ts, use_gbm=use_gbm, depth=depth, lr=lr, **statics)]
+    _bitwise(got, want)
+    assert args["alive"][got[0]].all()             # dead never chosen
+    assert not _tickets(cuda_device).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("I, R, trees, depth", [(16, 8, 1024, 8),
                                                 (16384, 16, 60, 3)],
                          ids=["I16", "I16384"])
 def test_kernel_timers(cuda_device, I, R, trees, depth):
     """K1's `%globaltimer` stamps: the outputs are bitwise the same with
-    `timers` set and null; each call's stamps rise (entry, end of stage
-    1, of the trees, of the greedy loop); and over calls queued back to
+    `timers` set and null; each call's stamps rise (entry, the end of the
+    grid's last tree slice, the start of the scan, the end of the greedy
+    loop); and over calls queued back to
     back behind a spin, the stamps' spans sum to within 5% of the calls'
     CUDA event time. The index is the main path's size (14,886 x 128);
     at I = 16 a deep forest makes each call long enough for launch gaps

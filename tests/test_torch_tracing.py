@@ -179,10 +179,11 @@ def test_the_tracer_imports_nothing_from_the_package():
 
 
 def test_stamps_become_device_durations():
-    """A K = 2 call's stamps: per window the three stage durations, and
-    the call from the entry to the last window's end."""
+    """A K = 2 call's stamps: the trees once, from the entry to their end
+    (stamped into every window); per window the rest of stage 1 and the
+    scan; the call from the entry to the last window's end."""
     from repro_torch.core.hotpath import _K1Stamps
-    host = torch.tensor([100, 130, 190, 200, 120, 180, 260],
+    host = torch.tensor([100, 130, 190, 200, 130, 180, 260],
                         dtype=torch.int64)
     tracing.enable()
     try:
@@ -195,7 +196,8 @@ def test_stamps_become_device_durations():
     finally:
         tracing.disable()
     ns = {k: round(v["total_s"] * 1e9) for k, v in s.items()}
-    assert ns["k1.stage1"] == 30 + 20 and ns["k1.trees"] == 60 + 60
-    assert ns["k1.scan"] == 10 + 80 and ns["k1.call"] == 160
+    assert ns["k1.trees"] == 30 and s["k1.trees"]["count"] == 1
+    assert ns["k1.stage1"] == 60 + 50 and ns["k1.scan"] == 10 + 80
+    assert ns["k1.call"] == 160
     assert s["k1.call"]["sums"] == {"batch": 9}
     assert np.isclose(s["rb.fire"]["self_s"], s["rb.fire"]["total_s"])

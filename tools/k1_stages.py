@@ -1,15 +1,17 @@
 """K1's time by stage at the main path's shapes, from its own stamps.
 
-    python3 tools/k1_stages.py [--shapes 16x8,16384x8,16384x16] [--calls 20]
+    python3 tools/k1_stages.py [--shapes 16x8,1024x16,16384x16] [--calls 20]
 
-For each I x R: one K1 call (`decision_fused`) over a synthetic world of
-the benchmark's sizes (a 14,886 x 128 index, 16 models, 16 tiers of 60
-trees of depth 3, k = 10, one window, every instance alive), run `--calls`
+For each I x R (by default I = 16, 1,024 and 16,384, each at R = 8, 16
+and 64): one K1 call (`decision_fused`) over a synthetic world of the
+benchmark's sizes (a 14,886 x 128 index, 16 models, 16 tiers of 60 trees
+of depth 3, k = 10, one window, every instance alive), run `--calls`
 times back to back behind a spin with `timers` set. Prints one JSON line
 a shape: the calls' CUDA event ms per call beside the stamps' (entry to
-the end of the greedy loop), and the stamps' split into stage 1 (the KNN
-lookup and label mixes), the TPOT trees and the LPT scan, with the card's
-name and power limit. Needs one NVIDIA GPU.
+the end of the greedy loop), and the stamps' split: the TPOT trees (the
+entry to the end of the grid's last tree slice), the rest of stage 1 (the
+KNN lookup and label mixes, from there to the scan's start) and the LPT
+scan, with the card's name and power limit. Needs one NVIDIA GPU.
 """
 import argparse
 import json
@@ -76,14 +78,15 @@ def measure(I: int, R: int, calls: int, dev) -> dict:
     return {"I": I, "R": R, "calls": calls,
             "event_ms_per_call": start.elapsed_time(stop) / calls,
             "stamps_ms_per_call": float((t[:, 3] - t[:, 0]).mean()),
-            "stage1_ms": float((t[:, 1] - t[:, 0]).mean()),
-            "trees_ms": float((t[:, 2] - t[:, 1]).mean()),
+            "trees_ms": float((t[:, 1] - t[:, 0]).mean()),
+            "stage1_ms": float((t[:, 2] - t[:, 1]).mean()),
             "scan_ms": float((t[:, 3] - t[:, 2]).mean())}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shapes", default="16x8,16384x8,16384x16")
+    ap.add_argument("--shapes", default=",".join(
+        f"{I}x{R}" for I in (16, 1024, 16384) for R in (8, 16, 64)))
     ap.add_argument("--calls", type=int, default=20)
     a = ap.parse_args()
     if not torch.cuda.is_available():
