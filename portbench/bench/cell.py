@@ -51,6 +51,19 @@ def find_cell(name: str, root: Path = ROOT):
     return bench, cell, cfg, mix
 
 
+def cell_files(workload=None, config=None, traffic=None, root: Path = ROOT):
+    """(name, configuration, traffic mix) of a cell of BENCHMARK.json by
+    its name, or of a configuration file under a mix file that no cell
+    names yet (`<config>.<mix>`)."""
+    if workload is not None:
+        _, _, cfg, mix = find_cell(workload, root)
+        return workload, cfg, mix
+    if config is None or traffic is None:
+        raise ValueError("give a workload, or a configuration and a mix")
+    cfg, mix = load_json(Path(config)), load_json(Path(traffic))
+    return f"{cfg['name']}.{mix['name']}", cfg, mix
+
+
 @dataclasses.dataclass
 class Fleet:
     """The configuration's fixed part, built once per process: the
@@ -82,8 +95,9 @@ class Drive:
         cfg = fleet.cfg
         w = fleet.world
         self.fleet, self.mix = fleet, mix
-        self.stream = stream_for_mix(w.topic[w.test_idx],
-                                     w.len_in[w.test_idx], mix, seed)
+        te = w.test_idx
+        self.stream = stream_for_mix(w.topic[te], w.len_in[te], mix, seed,
+                                     tokens=[w.tokens[i] for i in te])
         self.reqs = fl.make_requests(self.stream, fleet.prompts, w)
         self.sched = fl.make_scheduler(cfg, fleet.bundle, fleet.tiers)
         self.hier = hasattr(self.sched, "balancer")
@@ -193,12 +207,13 @@ def readings(drive: Drive, ref, ctl=None) -> Dict:
     ck = cfg["check"]
     roster, cells = roster_views(cfg)
     weights = tuple(cfg["check"]["weights"])
-    gaps, lerr, cgaps, clerr = [], [], [], []
+    gaps, lerr, cgaps, clerr, moved = [], [], [], [], []
     for bt in drive.probe.checked:
         ros = ref_mod.sub_roster(roster, cells[bt.cell]) if cells else roster
         out = ref_mod.check_batch(ref, ros, bt, weights, ctl)
         gaps.append(out["gap"])
         lerr.append(out["l_err"])
+        moved.append(out["aff_moved"])
         if ctl is not None:
             cgaps.append(out["ctl_gap"])
             clerr.append(out["ctl_l_err"])
@@ -215,6 +230,9 @@ def readings(drive: Drive, ref, ctl=None) -> Dict:
     out = {"rows_checked": n, "batches_checked": len(gaps)}
     if n:
         out.update(shares(gaps, lerr))
+        # rows whose reference best the affinity term moves: it is
+        # exercised (not a limit; 0 where the weight is 0)
+        out["aff_rows_pct"] = 100.0 * float(np.mean(np.concatenate(moved)))
         if ctl is not None:
             out["control"] = shares(cgaps, clerr)
     if drive.hier:

@@ -4,6 +4,7 @@ own estimator classes from the inputs the benchmark makes), the request
 stream and the scheduler under test."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
@@ -61,15 +62,21 @@ def make_bundle(cfg: Dict, world, prompts, tiers, device):
 
 def make_requests(stream, prompts, world) -> List:
     """The program's `Request` objects for a stream drawn from the test
-    split, with the stream's ingest columns."""
+    split, with the stream's ingest columns. A session turn gets a fresh
+    `Prompt`: its base prompt with the turn's tokens and length."""
     from repro_torch.serving.request import Request, RequestColumns
     te = world.test_idx
+    toks = stream.tokens or [None] * stream.n
     reqs = []
     for i in range(stream.n):
         j = int(te[stream.prompt[i]])
         b = stream.budget[i]
+        p = prompts[j]
+        if toks[i] is not None:
+            p = dataclasses.replace(p, tokens=toks[i],
+                                    len_in=int(toks[i].size))
         reqs.append(Request(
-            rid=i, prompt=prompts[j], arrival=float(stream.arrival[i]),
+            rid=i, prompt=p, arrival=float(stream.arrival[i]),
             true_quality=world.quality[j], true_length=world.lengths[j],
             budget=None if np.isnan(b) else float(b),
             tenant=stream.names[int(stream.tenant[i])],

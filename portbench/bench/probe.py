@@ -19,7 +19,9 @@ the host clock from outside the program.
 
 Spans are kept in memory. Recording for the output check (telemetry
 snapshots, the program's answers, the balancer's events) happens outside
-the timed spans.
+the timed spans. A checked batch's snapshot also holds its session
+turns' tokens where the stream has sessions, and the prefix plane
+(`tel.prefix_sig`) where the engine's affinity weight is above 0.
 """
 from __future__ import annotations
 
@@ -138,6 +140,8 @@ class Probe:
         fire = eng._fire
         probe = self
         slot_of = {inst.iid: k for k, inst in enumerate(eng.sim.instances)}
+        affinity = eng.policy.cfg.affinity_weight > 0.0
+        tokens = self.stream.tokens
 
         def timed_fire(t):
             rows = [r.rid for r in eng.waiting]
@@ -150,6 +154,9 @@ class Probe:
                     tel = eng.sim.tel
                     snap = [a.copy() for a in (tel.pending, tel.batch,
                                                tel.free, tel.ctx, tel.alive)]
+                    snap.append(None if tokens is None
+                                else [tokens[r] for r in rows])
+                    snap.append(tel.prefix_sig.copy() if affinity else None)
             probe.cur_rows = len(rows)
             f0 = probe.fleet_s
             t0 = time.perf_counter()
@@ -170,7 +177,7 @@ class Probe:
                     ctx=snap[3], alive=snap[4],
                     choice=np.array([slot_of[r.instance] for r in reqs]),
                     l_chosen=np.array([r.pred_len for r in reqs]),
-                    cell=cell))
+                    cell=cell, tokens=snap[5], prefix_sig=snap[6]))
         return timed_fire
 
     # -- the window's numbers -----------------------------------------------

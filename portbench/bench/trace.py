@@ -9,7 +9,9 @@ the fleet ranges. From it: the device's busy time (the union
 of kernels, copies and sets), K1's device time and launches, the part
 of the controller's spans with no device activity, the device
 operations that took most time, and what the host was doing while the
-device was idle.
+device was idle: by the benchmark's spans, and inside its `decide` and
+`digest` spans by the program's own `rb.*` ranges, which its tracer
+(`repro_torch.tracing`) opens while it is on.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Dict, List, Tuple
 
 SPANS = ("ingest", "decide", "digest")
 FLEET = "fleet"
+IDLE_SPANS = ("decide", "digest")
+NONE = "(none)"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -140,7 +144,69 @@ def read_profile(prof, kernel: str) -> Dict:
         "device_ops": [[n, v * 1e-6] for n, v in top],
         "idle_gaps": [[n, v * 1e-6] for n, v in sorted(
             idle_by.items(), key=lambda kv: -kv[1])],
+        "idle_by_program_span": idle_by_program_span(events),
     }
+
+
+def innermost(ranges: List[Tuple[float, float, str]]):
+    """Disjoint (start, end, name) pieces of nested ranges, each piece
+    named after the innermost range open over it; a range that crosses
+    its parent's end is cut there."""
+    out, stack, t = [], [], None
+    for a, b, name in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        while stack and stack[-1][0] <= a:
+            end, top = stack.pop()
+            if end > t:
+                out.append((t, end, top))
+                t = end
+        if stack and a > t:
+            out.append((t, a, stack[-1][1]))
+        t = a
+        stack.append((min(b, stack[-1][0]) if stack else b, name))
+    while stack:
+        end, top = stack.pop()
+        if end > t:
+            out.append((t, end, top))
+            t = end
+    return out
+
+
+def idle_by_program_span(events: List[Dict]) -> List[List]:
+    """The device's idle time (s) inside the benchmark's `decide` and
+    `digest` spans less the `fleet` ranges, as `read_profile` takes
+    them, by the innermost `rb.*` range open over it; `(none)` for the
+    rest. Sums to those spans' entries of `idle_gaps`."""
+    win = [e for e in events if e.get("name") == "window"
+           and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    w0 = float(win[0]["ts"])
+    w1 = w0 + float(win[0]["dur"])
+    dev, spans, prog = [], [], []
+    fleet = []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        a, d = float(e["ts"]), float(e["dur"])
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat in _DEVICE_CATS:
+            dev.append((a, a + d))
+        elif cat == "user_annotation":
+            if name in IDLE_SPANS:
+                spans.append((a, a + d))
+            elif name == FLEET:
+                fleet.append((a, a + d))
+            elif name.startswith("rb."):
+                prog.append((a, a + d, name))
+    idle = _gaps(_union(_clip(dev, w0, w1)), w0, w1)
+    region = _minus(_union(_clip(spans, w0, w1)),
+                    _union(_clip(fleet, w0, w1)))
+    target = _minus(idle, _minus(idle, region))       # idle inside them
+    pieces: Dict[str, List] = {}
+    for a, b, name in innermost(prog):
+        pieces.setdefault(name, []).append((a, b))
+    out = {n: _overlap(target, iv) for n, iv in pieces.items()}
+    out[NONE] = _length(target) - sum(out.values())
+    return [[n, v * 1e-6] for n, v in sorted(out.items(),
+                                             key=lambda kv: -kv[1])]
 
 
 def _gaps(busy, lo, hi) -> List[Tuple[float, float]]:

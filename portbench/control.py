@@ -3,6 +3,9 @@ seeds, and the control's on the same batches, in one process.
 
     python3 portbench/control.py --workload <cell> --first-seed <n> \
         --seeds <count> --seconds <window s>
+    python3 portbench/control.py --config <file> --traffic <file> ...
+
+(the second form: a configuration under a mix that no cell names yet).
 
 For each seed the cell's stream runs through a fresh simulator and
 scheduler as in a benchmark run (warm prefix, then a window of the given
@@ -26,7 +29,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--workload", required=True)
+    p.add_argument("--workload")
+    p.add_argument("--config")
+    p.add_argument("--traffic")
     p.add_argument("--first-seed", type=int, required=True)
     p.add_argument("--seeds", type=int, default=12)
     p.add_argument("--seconds", type=float, default=10.0)
@@ -38,7 +43,8 @@ def main(argv=None):
     from portbench.yard.training import encoder_params
     if not torch.cuda.is_available():
         sys.exit("portbench control: CUDA is not available")
-    _, _, cfg, mix = cl.find_cell(args.workload, ROOT)
+    workload, cfg, mix = cl.cell_files(args.workload, args.config,
+                                       args.traffic, ROOT)
     fleet = cl.Fleet.build(cfg, "cuda")
     e = cfg["estimators"]["encoder"]
     params = encoder_params(e, e["seed"])
@@ -53,7 +59,7 @@ def main(argv=None):
         d.release()
         read = cl.readings(d, ref, ctl)
         read.update(seed=s, seconds=time.perf_counter() - t0,
-                    workload=args.workload)
+                    workload=workload)
         print(json.dumps(read), flush=True)
 
 

@@ -3,6 +3,9 @@ to come out not correct on, and their readings at a cell's own size.
 
     python3 portbench/faults.py --workload <cell> --first-seed <n> \
         --seeds <count> --seconds <window s> [--faults a,b]
+    python3 portbench/faults.py --config <file> --traffic <file> ...
+
+(the second form: a configuration under a mix that no cell names yet).
 
 For each fault and seed the cell's stream runs through a fresh simulator
 and scheduler with the fault planted, as in a benchmark run (warm
@@ -40,12 +43,15 @@ def stale_mirror(mp):
     mp.setattr(hotpath.FusedHotPath, "_sync_state", frozen)
 
 
-def _wrap_k1(mp, before=None, after=None):
+def _wrap_k1(mp, before=None, after=None, **fixed):
+    """K1 called with its arguments changed by `before`, its outputs by
+    `after`, and the keywords in `fixed` set."""
     from repro_torch.core import hotpath
     k1 = hotpath.k1.decision_megakernel
 
     def broken(*args, **kw):
         args = list(args)
+        kw.update(fixed)
         if before is not None:
             before(args)
         out = list(k1(*args, **kw))
@@ -95,8 +101,42 @@ def moved_placement(mp):
     mp.setattr(hierarchy.GlobalBalancer, "pick", moved)
 
 
+def affinity_dropped(mp):
+    """A step left out: K1 launched with the affinity weight 0, so the
+    prefix-affinity discount is never applied."""
+    _wrap_k1(mp, w_aff=0.0)
+
+
+SIG_PLANE = 20       # K1's positional argument: the (I, 64) prefix plane
+
+
+def stale_prefix_plane(mp):
+    """A state returned unchanged: from the window's first decision on,
+    K1 is handed the prefix plane as the hot path staged it then (the
+    warm prefix's sketches), not as the window's dispatches change it."""
+    from portbench.bench import cell
+    window = cell.Drive.window
+    kept = []          # [None] once the window opens, then its plane
+
+    def opened(self, seconds, on_start=None):
+        def start():
+            kept.append(None)
+            if on_start is not None:
+                on_start()
+        return window(self, seconds, on_start=start)
+
+    def keep(args):
+        if kept:
+            if kept[0] is None:
+                kept[0] = args[SIG_PLANE].clone()
+            args[SIG_PLANE] = kept[0]
+    mp.setattr(cell.Drive, "window", opened)
+    _wrap_k1(mp, before=keep)
+
+
 FAULTS = {f.__name__: f for f in (stale_mirror, half_batch, altered_answer,
-                                  moved_placement)}
+                                  moved_placement, affinity_dropped,
+                                  stale_prefix_plane)}
 
 
 def for_config(cfg) -> list:
@@ -104,6 +144,8 @@ def for_config(cfg) -> list:
     names = ["stale_mirror", "half_batch", "altered_answer"]
     if cfg["scheduler"].get("hierarchy"):
         names.append("moved_placement")
+    if cfg["scheduler"]["rbconfig"].get("affinity_weight", 0.0) > 0.0:
+        names += ["affinity_dropped", "stale_prefix_plane"]
     return names
 
 
@@ -125,7 +167,9 @@ class Patch:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--workload", required=True)
+    p.add_argument("--workload")
+    p.add_argument("--config")
+    p.add_argument("--traffic")
     p.add_argument("--first-seed", type=int, required=True)
     p.add_argument("--seeds", type=int, default=3)
     p.add_argument("--seconds", type=float, default=10.0)
@@ -138,7 +182,8 @@ def main(argv=None):
     from portbench.yard.training import encoder_params
     if not torch.cuda.is_available():
         sys.exit("portbench faults: CUDA is not available")
-    _, _, cfg, mix = cl.find_cell(args.workload, ROOT)
+    workload, cfg, mix = cl.cell_files(args.workload, args.config,
+                                       args.traffic, ROOT)
     names = args.faults.split(",") if args.faults else for_config(cfg)
     fleet = cl.Fleet.build(cfg, "cuda")
     e = cfg["estimators"]["encoder"]
@@ -155,7 +200,7 @@ def main(argv=None):
                 d.warm()
                 d.window(args.seconds)
             except Exception as e:  # a run that crashes is not correct
-                print(json.dumps({"workload": args.workload, "fault": name,
+                print(json.dumps({"workload": workload, "fault": name,
                                   "seed": s, "correct": False,
                                   "error": repr(e)}), flush=True)
                 continue
@@ -165,7 +210,7 @@ def main(argv=None):
             read = cl.readings(d, ref)
             correct, _ = cl.judge(read, limits)
             print(json.dumps({
-                "workload": args.workload, "fault": name, "seed": s,
+                "workload": workload, "fault": name, "seed": s,
                 "correct": correct, "seconds": time.perf_counter() - t0,
                 **{k: read[k] for k in read if not isinstance(read[k],
                                                               dict)}}),

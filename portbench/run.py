@@ -1,7 +1,7 @@
 """Run one cell of the benchmark of `repro_torch` once, on one card.
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
-        --trace <0|1>
+        --trace <0|1> [--tracer <0|1>]
 
 from the root of a checkout. The cell, its configuration and its traffic
 mix are found by name through BENCHMARK.json. Set-up (`setup_s`) builds
@@ -10,7 +10,11 @@ drives the program for `--seconds` of wall time; the decisions it made
 are checked against the plain reference; the last line of standard
 output is the result as one JSON object. With `--trace 0` the metrics
 are the cell's end-to-end ones, with `--trace 1` its per-layer ones,
-read under `torch.profiler`.
+read under `torch.profiler` with the program's own tracer
+(`repro_torch.tracing`) on for the window; the result's `info.spans`
+then holds the tracer's summary (count, total and self seconds of each
+span). `--tracer 0` keeps the tracer off in a traced run, so that the
+per-layer metrics that do not read it show what the tracer costs them.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ def parse(argv=None):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    p.add_argument("--tracer", type=int, choices=(0, 1), default=1)
     return p.parse_args(argv)
 
 
@@ -76,7 +81,7 @@ def main(argv=None):
         fail(f"the cell asks for {cell['chips']} cards, "
              f"{torch.cuda.device_count()} present")
     res = run_cell(bench, cell, cfg, mix, args.seed, args.seconds,
-                   bool(args.trace), "cuda")
+                   bool(args.trace), "cuda", tracer=bool(args.tracer))
     bad = forbidden_modules()
     if bad:
         fail(f"the run loaded {bad}")
@@ -86,9 +91,12 @@ def main(argv=None):
 
 
 def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
-             device: str, t_start: float = None) -> dict:
+             device: str, t_start: float = None, tracer: bool = True
+             ) -> dict:
     """One run; returns the result object (with `check_lines`, the
-    compared numbers beside their limits, for standard error)."""
+    compared numbers beside their limits, for standard error). A traced
+    run turns the program's tracer on for the window unless `tracer` is
+    false."""
     import torch
     from portbench.bench import cell as cl
     from portbench.bench.trace import power_limit_w, read_profile
@@ -125,8 +133,10 @@ def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
     setup_s = time.perf_counter() - t_start
     k1_before = (k1mod.decision_megakernel.launches,
                  k1mod.decision_megakernel.plain_calls)
-    prof = None
+    prof = tracing = None
     if trace:
+        if tracer:
+            from repro_torch import tracing
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if cuda else [])
@@ -134,7 +144,12 @@ def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
         prof.__enter__()
         rf = torch.profiler.record_function("window")
         rf.__enter__()
-    wall = drive.window(seconds)
+    wall = drive.window(seconds, on_start=None if tracing is None
+                        else tracing.enable)
+    spans = None
+    if tracing is not None:
+        tracing.disable()
+        spans = tracing.summary()
     if trace:
         rf.__exit__(None, None, None)
         if cuda:
@@ -154,7 +169,7 @@ def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
                 controller_s=ctrl_s, place_s=probe.place_s,
                 digest_s=probe.digest_s, hier=drive.hier, hot=drive.hot,
                 per_request_ms=per_req, k1_calls=k1_launches,
-                window_s=wall, trace=None, k1_bound_s=None,
+                window_s=wall, trace=None, k1_bound_s=None, spans=spans,
                 power_limit_w=power_limit_w() if cuda else float("nan"))
     if trace:
         tr = read_profile(prof, cl.K1_KERNEL) if cuda else None
@@ -199,13 +214,16 @@ def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
         device_rec["busy_s"] = tr["busy_s"]
         device_rec["window_s"] = tr["window_s"]
         out["breakdown"] = {"device_ops": tr["device_ops"],
-                            "idle_gaps": tr["idle_gaps"]}
+                            "idle_gaps": idle_gaps(tr)}
     out["info"] = {"setup_marks_s": marks, "window_s": wall,
                    "window_sim_s": drive.window_sim,
                    "controller_s": ctrl_s, "batches": len(probe.batches),
                    "fires": probe.n_fires, "k1_calls": k1_launches,
                    "hot": drive.hot, "power_limit_w": view["power_limit_w"],
                    "reference_s": time.perf_counter() - t_ref,
+                   "spans": spans and {k: [v["count"], v["total_s"],
+                                           v["self_s"]]
+                                       for k, v in spans.items()},
                    "readings": {k: v for k, v in read.items()
                                 if not isinstance(v, dict)}}
     out["checks"] = {k: {"value": read[k],
@@ -213,6 +231,18 @@ def run_cell(bench, cell, cfg, mix, seed: int, seconds: float, trace: bool,
                      for k in cfg["check"]["limits"] if k in read}
     out["check_lines"] = lines
     return out
+
+
+def idle_gaps(tr) -> list:
+    """The device's idle time by what the host was doing, at most ten
+    entries: the idle inside the benchmark's `decide` and `digest` spans
+    split by the innermost program span (`rb.*`) open over it, beside
+    the ingest spans, the instances' `submit` and the simulator."""
+    from portbench.bench.trace import IDLE_SPANS, NONE
+    gaps = [g for g in tr["idle_gaps"] if g[0] not in IDLE_SPANS]
+    gaps += [["decide/digest, no rb span" if n == NONE else n, v]
+             for n, v in tr["idle_by_program_span"]]
+    return sorted(gaps, key=lambda g: -g[1])[:10]
 
 
 def _k1_bound_s(taps) -> float:

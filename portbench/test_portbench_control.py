@@ -24,3 +24,21 @@ def test_control_is_not_correct(workload):
                          {k: limits[k] for k in ("rows_off_pct",
                                                  "batches_off_pct")})
     assert not ok, lines
+
+
+def test_control_is_not_correct_on_sessions():
+    """The same on a tiny cell of the session deployment: the control
+    reads the affinity term alike, so only its precision departs."""
+    from portbench.bench.cell import Drive, Fleet
+    _, _, cfg, mix = tinycell.tiny_sessions(rate=0.4)
+    cfg["dataset"]["n"] = 600
+    fleet = Fleet.build(cfg, "cpu")
+    d = Drive(fleet, mix, 29)
+    d.warm()
+    d.window(1.0)
+    read = cl.readings(d, tinycell.reference(cfg, fleet),
+                       tinycell.reference(cfg, fleet, tf32=True))
+    limits = cfg["check"]["limits"]
+    assert read["aff_rows_pct"] > 0
+    assert all(read[k] <= limits[k] for k in limits)
+    assert any(read["control"][k] > limits[k] for k in limits)

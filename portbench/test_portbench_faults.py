@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 
 from portbench import run, tinycell
-from portbench.faults import (altered_answer, half_batch, moved_placement,
-                              stale_mirror)
+from portbench.faults import (affinity_dropped, altered_answer, half_batch,
+                              moved_placement, stale_mirror,
+                              stale_prefix_plane)
 
 CASES = [("fleet10k_flat.surge1600", stale_mirror),
          ("fleet10k_flat.surge1600", half_batch),
@@ -24,6 +25,20 @@ def test_fault_is_not_correct(monkeypatch, workload, fault):
     bench, cell, cfg, mix = tinycell.tiny(workload, rate=0.1)
     fault(monkeypatch)
     res = run.run_cell(bench, cell, cfg, mix, 2 ** 33 + 17, 1.0, False,
+                       "cpu", t_start=0.0)
+    assert res["attempted"] > 0
+    assert res["correct"] is False, res["checks"]
+
+
+@pytest.mark.parametrize("fault", [affinity_dropped, stale_prefix_plane],
+                         ids=lambda f: f.__name__)
+def test_session_fault_is_not_correct(monkeypatch, fault):
+    """The faults of the affinity path, on a tiny cell of the session
+    deployment (the term on, two tenants in sessions), with a window
+    longer than the gap between a conversation's turns."""
+    bench, cell, cfg, mix = tinycell.tiny_sessions()
+    fault(monkeypatch)
+    res = run.run_cell(bench, cell, cfg, mix, 2 ** 33 + 17, 2.0, False,
                        "cpu", t_start=0.0)
     assert res["attempted"] > 0
     assert res["correct"] is False, res["checks"]

@@ -1,11 +1,13 @@
 """The readers of the program's spans, the device's idle time by program
-span, and `spans.py`'s traced run on a tiny cell on the CPU."""
+span, and the traced run with the program's tracer on and off on a tiny
+cell on the CPU."""
 import json
 
 import pytest
 
-from portbench import spans as sp
-from portbench.bench.trace import read_profile
+from portbench.bench import cell as cl
+from portbench.bench.trace import (NONE, idle_by_program_span, innermost,
+                                   read_profile)
 
 SUMMARY = {
     "rb.fire": {"count": 10, "total_s": 0.050, "self_s": 0.004, "sums": {}},
@@ -24,6 +26,11 @@ SUMMARY = {
     "k1.trees": {"count": 8, "total_s": 0.018, "self_s": 0.018, "sums": {}},
     "k1.call": {"count": 8, "total_s": 0.024, "self_s": 0.024, "sums": {}},
 }
+# the per-layer metrics that read the tracer's summary
+SPAN_METRICS = ("hotpath_stage_ms_per_call", "hotpath_sync_ms_per_call",
+                "hotpath_launch_ms_per_call", "mirror_rows_per_call",
+                "k1_wait_ms_per_call", "decide_outside_ms_per_batch",
+                "place_us_per_req", "k1_trees_share_pct")
 
 
 def view(**kw):
@@ -48,7 +55,8 @@ def test_reader_gives_its_ratio_and_nothing_without_spans(name, want):
     mod = importlib.import_module(f"portbench.metrics.{name}")
     assert mod.read(view()) == pytest.approx(want, rel=1e-12)
     assert mod.read(view(spans=None)) is None
-    assert name in sp.SPAN_METRICS
+    assert name in {m["name"] for m in cl.load_json(
+        cl.ROOT / "BENCHMARK.json")["per_layer"]}
 
 
 def test_placement_reads_nothing_without_a_hierarchy():
@@ -85,7 +93,11 @@ class _Stub:
 def test_program_ranges_leave_the_profile_readings_as_they_were():
     plain = read_profile(_Stub(BASE), "decision_fused")
     traced = read_profile(_Stub(BASE + PROGRAM), "decision_fused")
+    split = traced.pop("idle_by_program_span")
+    assert dict(plain.pop("idle_by_program_span")) == pytest.approx(
+        {NONE: 320e-6})
     assert traced == plain
+    assert split == idle_by_program_span(BASE + PROGRAM)
     gaps = dict(plain["idle_gaps"])
     assert gaps["decide"] == pytest.approx(270e-6)
     assert gaps["digest"] == pytest.approx(50e-6)
@@ -94,15 +106,15 @@ def test_program_ranges_leave_the_profile_readings_as_they_were():
 def test_idle_by_program_span_sums_to_the_decide_and_digest_idle():
     gaps = dict(read_profile(_Stub(BASE + PROGRAM),
                              "decision_fused")["idle_gaps"])
-    got = dict(sp.idle_by_program_span(BASE + PROGRAM))
+    got = dict(idle_by_program_span(BASE + PROGRAM))
     assert sum(got.values()) == pytest.approx(gaps["decide"]
                                               + gaps["digest"])
     want = {"rb.fire": 161, "rb.stage": 20, "rb.launch": 20,
             "rb.fetch": 10, "rb.k1_wait": 30, "rb.dispatch": 29,
-            "rb.submit": 0, "rb.digest": 50, sp.NONE: 0}
+            "rb.submit": 0, "rb.digest": 50, NONE: 0}
     assert got == pytest.approx({k: v * 1e-6 for k, v in want.items()})
-    alone = dict(sp.idle_by_program_span(BASE))
-    assert alone == pytest.approx({sp.NONE: 320e-6})
+    alone = dict(idle_by_program_span(BASE))
+    assert alone == pytest.approx({NONE: 320e-6})
 
 
 @pytest.mark.parametrize("ranges, want", [
@@ -116,36 +128,48 @@ def test_idle_by_program_span_sums_to_the_decide_and_digest_idle():
     ([(0, 10, "a"), (8, 12, "b")], [(0, 8, "a"), (8, 10, "b")]),
 ])
 def test_innermost_pieces(ranges, want):
-    assert sp.innermost(ranges) == want
+    assert innermost(ranges) == want
 
 
 @pytest.mark.parametrize("name", ["fleet10k_flat.mix400",
                                   "fleet10k_cells16.mix400"])
 def test_a_traced_run_with_the_tracer_on(name):
-    """`run_cell` under `tracer_on_window` on a tiny cell, on the CPU (no
-    device trace and no event, so no K1 stamps, wait or idle split): the
-    hot path's three spans sum to its host clock within the tracer's own
-    cost, and the wrappers are restored."""
+    """`run_cell` traced on a tiny cell, on the CPU (no device trace and
+    no event, so no K1 stamps, wait or idle split): every span metric
+    the cell can read is in the result, the hot path's three spans sum
+    to its host clock within the tracer's own cost, and the tracer's
+    summary is in `info.spans`."""
     from portbench import run as pr
     from portbench import tinycell
-    from portbench.bench import cell as cl
     bench, cell, cfg, mix = tinycell.tiny(name)
-    window, run_cell = cl.Drive.window, pr.run_cell
-    with sp.tracer_on_window(True) as got:
-        res = pr.run_cell(bench, cell, cfg, mix, 7, 1.0, True, "cpu")
-    assert cl.Drive.window is window and pr.run_cell is run_cell
+    res = pr.run_cell(bench, cell, cfg, mix, 7, 1.0, True, "cpu")
     assert res["correct"]
-    line = sp.span_line(got)
-    m = line["metrics"]
-    want = set(sp.SPAN_METRICS) - {"k1_trees_share_pct",
-                                   "k1_wait_ms_per_call"}
+    m = {k: v["value"] for k, v in res["metrics"].items()}
+    want = set(SPAN_METRICS) - {"k1_trees_share_pct", "k1_wait_ms_per_call"}
     if "cells" not in name:
         want.discard("place_us_per_req")
-    assert set(m) == want
-    host = res["metrics"]["hotpath_host_ms_per_call"]["value"]
+    assert set(m) & set(SPAN_METRICS) == want
     parts = (m["hotpath_stage_ms_per_call"] + m["hotpath_sync_ms_per_call"]
              + m["hotpath_launch_ms_per_call"])
-    assert parts == pytest.approx(host, rel=0.1)
+    assert parts == pytest.approx(m["hotpath_host_ms_per_call"], rel=0.1)
     assert m["decide_outside_ms_per_batch"] > 0
-    assert line["idle_by_program_span"] is None and "k1.call" not in \
-        line["spans"]
+    spans = res["info"]["spans"]
+    assert "rb.fire" in spans and "k1.call" not in spans
+    assert spans["rb.stage"][0] == res["info"]["hot"]["calls"]
+
+
+def test_a_traced_run_with_the_tracer_off():
+    """`tracer=False` (`run.py --tracer 0`): the traced run's other
+    per-layer metrics are read, the span metrics are left out, and the
+    tracer stays off."""
+    from portbench import run as pr
+    from portbench import tinycell
+    from repro_torch import tracing
+    bench, cell, cfg, mix = tinycell.tiny("fleet10k_cells16.mix400")
+    res = pr.run_cell(bench, cell, cfg, mix, 7, 1.0, True, "cpu",
+                      tracer=False)
+    assert res["correct"]
+    assert not set(res["metrics"]) & set(SPAN_METRICS)
+    assert {"batch_rows_mean", "balancer_share_pct",
+            "hotpath_host_ms_per_call"} <= set(res["metrics"])
+    assert res["info"]["spans"] is None and not tracing.ON

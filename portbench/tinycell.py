@@ -17,6 +17,17 @@ for p in (str(ROOT / "src"), str(ROOT)):
 from portbench.bench import cell as cl  # noqa: E402
 
 
+SESSION = {"turns": 5, "base_len": 48, "extend": [12, 28]}
+
+
+def with_sessions(mix: dict, tenants=("interactive", "agents")) -> dict:
+    """The mix with the named tenants in multi-turn sessions of
+    `SESSION` (the session deployment's turns)."""
+    return dict(mix, tenants=[dict(t, session=SESSION)
+                              if t["name"] in tenants else t
+                              for t in mix["tenants"]])
+
+
 def tiny(name: str, n_tiers: int = 4, n_instances: int = 24,
          n_cells: int = 2, prompts: int = 400, rate: float = 0.05,
          **rbconfig):
@@ -47,6 +58,20 @@ def tiny(name: str, n_tiers: int = 4, n_instances: int = 24,
     cfg["check"].update(batch_share=1.0, max_batches=40)
     mix = dict(mix, stream_s=100.0, warm_s=1.0, warm_buckets=[8, 16],
                lam_scale=mix["lam_scale"] * rate)
+    return bench, cell, cfg, mix
+
+
+def tiny_sessions(rate: float = 0.1):
+    """A tiny flat cell of the session deployment: the affinity weight
+    0.35 and `mix400` with two tenants in sessions. A 40 s stream puts a
+    conversation's turns 8 s apart; the warm prefix passes the first
+    turns, and every batch is checked, so that a window of two CPU
+    seconds (about 18 simulated ones) checks follow-ups whose earlier
+    turns were dispatched inside it."""
+    bench, cell, cfg, mix = tiny("fleet10k_flat.mix400", rate=rate,
+                                 affinity_weight=0.35)
+    cfg["check"].update(max_batches=400)
+    mix = dict(with_sessions(mix), stream_s=40.0, warm_s=9.0)
     return bench, cell, cfg, mix
 
 

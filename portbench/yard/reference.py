@@ -6,7 +6,9 @@ the sentence encoder over the benchmark's weights, the KNN quality and
 length estimate over an index built from its own embeddings, one
 gradient-boosted TPOT head per tier fitted on the benchmark's training
 pairs, Eq. 2 admission, the Eq. 1 score on its 2^-13 grid and the
-LPT-ordered greedy scan with dead reckoning. It takes nothing the
+LPT-ordered greedy scan with dead reckoning, with the prefix-affinity
+discount (`yard.affinity`) where the configuration's
+`scheduler.rbconfig.affinity_weight` is above 0. It takes nothing the
 program made: the embeddings, the index, the trees and the telemetry
 mirror are worked out again here from the inputs the benchmark handed
 to both sides.
@@ -22,6 +24,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from . import affinity as aff_mod
 
 SCORE_QUANTUM = 2.0 ** -13
 
@@ -229,27 +233,38 @@ class Reference:
         self.x = torch.as_tensor(self.embed(tr), device=device)
         self.quality = world.quality[tr].astype(np.float32)
         self.lengths = world.lengths[tr].astype(np.float32)
+        self.w_aff = float(cfg["scheduler"]["rbconfig"].get(
+            "affinity_weight", 0.0))
         g = est["gbm"]
         self.trees = [fit_trees(X, y, g["n_trees"], g["depth"],
                                 g["learning_rate"], g["n_bins"],
                                 g["min_child"], g["lam"])
                       for X, y in pairs]
 
-    def embed(self, prompt_ids: np.ndarray, tf32: Optional[bool] = None
-              ) -> np.ndarray:
-        """Embeddings of prompts (rows of the world) as float32."""
+    def row_tokens(self, prompt_ids: np.ndarray,
+                   tokens: Optional[Sequence] = None) -> List[np.ndarray]:
+        """Each row's tokens: its own where `tokens` gives them (a
+        session turn), else its world row's."""
+        return [self.world.tokens[i] if tokens is None or tokens[r] is None
+                else tokens[r] for r, i in enumerate(prompt_ids)]
+
+    def embed(self, prompt_ids: np.ndarray, tf32: Optional[bool] = None,
+              tokens: Optional[Sequence] = None) -> np.ndarray:
+        """Embeddings of prompts (rows of the world, or the rows' own
+        `tokens` where given) as float32."""
         from .world import pad_tokens
-        toks = pad_tokens([self.world.tokens[i] for i in prompt_ids],
-                          self.max_len)
-        lens = np.array([min(len(self.world.tokens[i]), self.max_len)
-                         for i in prompt_ids])
+        rows = self.row_tokens(prompt_ids, tokens)
+        toks = pad_tokens(rows, self.max_len)
+        lens = np.array([min(len(t), self.max_len) for t in rows])
         return self.encoder.encode(toks, lens,
                                    self.tf32 if tf32 is None else tf32)
 
-    def estimates(self, prompt_ids: np.ndarray):
+    def estimates(self, prompt_ids: np.ndarray,
+                  tokens: Optional[Sequence] = None):
         """(quality (R, M), length (R, M)) of the prompts."""
-        return knn_estimate(self.embed(prompt_ids), self.x, self.quality,
-                            self.lengths, self.k, self.eps, self.tf32)
+        return knn_estimate(self.embed(prompt_ids, tokens=tokens), self.x,
+                            self.quality, self.lengths, self.k, self.eps,
+                            self.tf32)
 
     def tpot(self, roster, b, d, ctx) -> np.ndarray:
         """(I,) predicted TPOT of every instance from its telemetry."""
@@ -317,7 +332,11 @@ def masked_score(q, c, t, weights, allowed):
 class Batch:
     """One decided batch as the check sees it: the stream rows' prompts,
     budgets and prompt lengths, the telemetry snapshot the decision read,
-    and the program's answer (instance row, predicted length)."""
+    and the program's answer (instance row, predicted length). `tokens`
+    holds each row's own tokens where it is a session turn (None for the
+    rest, or for a batch without sessions); `prefix_sig` the (I, 64)
+    prefix plane the decision read, where the affinity weight is above
+    0."""
     prompts: np.ndarray
     budget: np.ndarray
     len_in: np.ndarray
@@ -329,6 +348,8 @@ class Batch:
     choice: np.ndarray
     l_chosen: np.ndarray
     cell: int = 0
+    tokens: Optional[List] = None
+    prefix_sig: Optional[np.ndarray] = None
 
 
 def check_batch(ref: Reference, roster: Roster, bt: Batch, weights,
@@ -338,9 +359,11 @@ def check_batch(ref: Reference, roster: Roster, bt: Batch, weights,
     reference's best (inf where Eq. 2 does not admit it), and `l_err`,
     the relative error of the program's predicted length at its
     instance. With `ctl`, the same two readings for the instance that
-    the control puts first at each row, on the same state."""
+    the control puts first at each row, on the same state. `aff_moved`
+    marks the rows whose best instance the affinity term moves (all
+    False where its weight is 0)."""
     f32 = np.float32
-    qmix, lmix = ref.estimates(bt.prompts)
+    qmix, lmix = ref.estimates(bt.prompts, bt.tokens)
     q_i, l_i = qmix[:, roster.model], lmix[:, roster.model]
     tpot = ref.tpot(roster, bt.batch, bt.pending, bt.ctx)
     alive = bt.alive.astype(bool)
@@ -359,9 +382,16 @@ def check_batch(ref: Reference, roster: Roster, bt: Batch, weights,
     allowed, c_hat = admit(l_i)
     order = np.argsort(-lmix.max(1), kind="stable")
     R = len(order)
-    out = {"gap": np.zeros(R), "l_err": np.zeros(R)}
+    out = {"gap": np.zeros(R), "l_err": np.zeros(R),
+           "aff_moved": np.zeros(R, bool)}
+    aff = None
+    if ref.w_aff > 0.0:
+        hit = aff_mod.hit_fraction(
+            aff_mod.signatures(ref.row_tokens(bt.prompts, bt.tokens)),
+            len_in, bt.prefix_sig)
+        aff = f32(ref.w_aff) * np.where(alive[None, :], hit, f32(0.0))
     if ctl is not None:
-        cq, cl = ctl.estimates(bt.prompts)
+        cq, cl = ctl.estimates(bt.prompts, bt.tokens)
         cq_i, cl_i = cq[:, roster.model], cl[:, roster.model]
         c_tpot = ctl.tpot(roster, bt.batch, bt.pending, bt.ctx)
         c_allowed, c_c = admit(cl_i)
@@ -372,10 +402,11 @@ def check_batch(ref: Reference, roster: Roster, bt: Batch, weights,
     if ctl is not None:
         states.append([s.copy() for s in states[0]])
 
-    def latency(st, tp, l_row):
+    def latency(st, tp, l_row, a_row=None):
         d, b, free = st
         wait = np.where(free > 0, f32(0.0), d / np.maximum(b, f32(1.0)))
-        return tp * np.maximum(b / b0, f32(1.0)) * (wait + l_row)
+        t = tp * np.maximum(b / b0, f32(1.0)) * (wait + l_row)
+        return t if a_row is None else t * (f32(1.0) - a_row)
 
     def step(st, i, l_val):
         d, b, free = st
@@ -385,15 +416,22 @@ def check_batch(ref: Reference, roster: Roster, bt: Batch, weights,
             b[i] = min(b[i] + 1, roster.max_batch[i])
     for r in order:
         p = int(bt.choice[r])
-        s = masked_score(q_i[r], c_hat[r], latency(states[0], tpot, l_i[r]),
-                         weights, allowed[r])
+        a_r = None if aff is None else aff[r]
+        s = masked_score(q_i[r], c_hat[r],
+                         latency(states[0], tpot, l_i[r], a_r), weights,
+                         allowed[r])
         out["gap"][r] = s.max() - s[p]
+        if aff is not None:
+            s0 = masked_score(q_i[r], c_hat[r],
+                              latency(states[0], tpot, l_i[r]), weights,
+                              allowed[r])
+            out["aff_moved"][r] = np.argmax(s) != np.argmax(s0)
         out["l_err"][r] = abs(float(bt.l_chosen[r]) - float(l_i[r, p])) \
             / max(abs(float(l_i[r, p])), 1e-30)
         if ctl is not None:
             sc = masked_score(cq_i[r], c_c[r],
-                              latency(states[1], c_tpot, cl_i[r]), weights,
-                              c_allowed[r])
+                              latency(states[1], c_tpot, cl_i[r], a_r),
+                              weights, c_allowed[r])
             c = int(np.argmax(sc))
             out["ctl_gap"][r] = s.max() - s[c]
             out["ctl_l_err"][r] = abs(float(cl_i[r, c]) - float(l_i[r, c])) \

@@ -14,6 +14,7 @@ from typing import List
 
 import numpy as np
 
+VOCAB = 4096              # token ids lie in [0, VOCAB)
 TOPICS = ("instruct", "code", "safety", "chat", "math", "reading", "reward")
 _TOPIC_LEN_IN = (90, 160, 60, 120, 110, 260, 140)
 _TOPIC_LEN_OUT = (220, 340, 90, 180, 260, 120, 160)
