@@ -30,8 +30,9 @@ pad windows hold only pad rows, and pad columns stay dead.
 kernel has been called at, the port's stand-in for the reference's
 `compile_count`.
 
-With `repro_torch.tracing` on, a call records the spans `rb.stage`,
-`rb.sync`, `rb.launch` and, at the fetch, `rb.fetch` around `rb.k1_wait`;
+With `repro_torch.tracing` on, a call records the spans `rb.stage`
+(with `rb.plane` inside it where the affinity term is on), `rb.sync`,
+`rb.launch` and, at the fetch, `rb.fetch` around `rb.k1_wait`;
 on the card K1 also stamps its own stages (`k1.*`, the wrapper's
 `timers`) into a buffer kept per K bucket, copied back with the answer.
 """
@@ -60,16 +61,18 @@ def _new_stats() -> Dict:
 
 class _K1Stamps:
     """One traced K1 call's `%globaltimer` stamps, copied back into a
-    pinned buffer behind the call's event: the kernel's entry, then per
-    window the end of the TPOT trees (the grid's last tree slice, the
-    same in every window), the start of the window's scan and the end of
-    its greedy loop. Stored once as device durations, whichever of the
-    call's windows is fetched first: `k1.trees` once a call, from the
-    entry to the end of the trees; per window `k1.stage1`, from there to
-    the scan's start (the rest of stage 1, the KNN lookup and label
-    mixes, which ran beside the trees on the grid), and `k1.scan`, the
-    scan CTA's preamble and greedy loop; `k1.call` from the entry to the
-    last stamp."""
+    pinned buffer of 1 + 4K behind the call's event: the kernel's entry,
+    then per window the end of the TPOT trees (the grid's last tree
+    slice, the same in every window), the start of the window's scan,
+    the end of its greedy loop and the summed time of the loop's pass A
+    (each step's cost, latency, affinity hit and admission). Stored once
+    as device durations, whichever of the call's windows is fetched
+    first: `k1.trees` once a call, from the entry to the end of the
+    trees; per window `k1.stage1`, from there to the scan's start (the
+    rest of stage 1, the KNN lookup and label mixes, which ran beside the
+    trees on the grid), `k1.scan`, the scan CTA's preamble and greedy
+    loop, and `k1.scan_a`, pass A's part of that loop; `k1.call` from the
+    entry to the last window's end."""
 
     __slots__ = ("host", "K", "done")
 
@@ -84,10 +87,11 @@ class _K1Stamps:
         batch = tracing.open_id("rb.fire", "batch")
         tracing.add("k1.trees", t[1] - t[0], batch=batch)
         for w in range(self.K):
-            s1, s2, s3 = t[1 + 3 * w:4 + 3 * w]
+            s1, s2, s3, scan_a = t[1 + 4 * w:5 + 4 * w]
             tracing.add("k1.stage1", s2 - s1, batch=batch)
             tracing.add("k1.scan", s3 - s2, batch=batch)
-        tracing.add("k1.call", max(t[3::3]) - t[0], batch=batch)
+            tracing.add("k1.scan_a", scan_a, batch=batch)
+        tracing.add("k1.call", max(t[3::4]) - t[0], batch=batch)
 
 
 class LazyDecision:
@@ -439,10 +443,14 @@ class FusedHotPath:
         here with the traced spans after it (None: tracing off)."""
         st = self.stats
         if self._w_aff > 0.0:
+            psp = tracing.begin("rb.plane", True) if sp is not None else None
             self._pflip ^= 1
             plane = self._pstage[self._pflip]
             plane.numpy()[:self._n_real] = tel.prefix_sig
             psig_d, plane_d = self._up(s["psig"]), self._up(plane)
+            if psp is not None:
+                tracing.end(psp, rows=self._n_real,
+                            bytes=plane.nbytes + s["psig"].nbytes)
         else:
             psig_d, plane_d = self._dummy_psig, self._dummy_plane
         t1 = time.perf_counter()
@@ -521,9 +529,9 @@ class FusedHotPath:
         bufs = self._k1_timers.get(Kb)
         if bufs is None:
             bufs = self._k1_timers[Kb] = (
-                torch.zeros(1 + 3 * Kb, dtype=torch.int64,
+                torch.zeros(1 + 4 * Kb, dtype=torch.int64,
                             device=self.device),
-                self._host(1 + 3 * Kb, torch.int64))
+                self._host(1 + 4 * Kb, torch.int64))
         return bufs
 
     def decide(self, batch, tel) -> Tuple[np.ndarray, np.ndarray]:

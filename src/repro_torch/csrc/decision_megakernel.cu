@@ -80,11 +80,16 @@
 // Timers. With `timers` set (a traced call), thread 0 of block (0, 0)
 // writes %globaltimer at the kernel's entry (the block dispatched first;
 // the trees end at least one tree walk after it); the CTA that draws the
-// trees' last ticket writes it into 1 + 3w for every window w (the end of
+// trees' last ticket writes it into 1 + 4w for every window w (the end of
 // the last tree slice); and the CTA that scans window w writes it at
-// 2 + 3w when its scan starts and at 3 + 3w after the greedy loop. Null
-// (every untraced call): one branch on the pointer. Nothing reads the
-// buffer, so the outputs are the same either way.
+// 2 + 4w when its scan starts and at 3 + 4w after the greedy loop, and
+// at 4 + 4w the loop's pass A time: over the steps, the sum of each
+// step's start to the end of pass A's admission reduction (cost, latency,
+// the affinity hit and Eq. 2 over every instance), read by the scan's
+// thread 0. Where no reduction closes pass A (no budget filter) a traced
+// call adds a barrier there. Null (every untraced call): one branch on
+// the pointer a step. Nothing reads the buffer and a barrier changes no
+// value, so the outputs are the same either way.
 //
 // Exactness. Everything after the distance dot product spells the
 // plain PyTorch version's operations one by one, with IEEE rounding:
@@ -162,7 +167,7 @@ struct RtDecisionParams {
   float* d1;                 // (K, I)
   float* b1;
   float* f1;
-  long long* timers;         // (1 + 3K,) %globaltimer stamps, or null
+  long long* timers;         // (1 + 4K,) %globaltimer stamps, or null
   int K, R, E, N, M, I, k, per_split;
   int sig_w, sig_slots;
   int n_trees, n_internal, n_leaves, depth;
@@ -448,7 +453,10 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
     maxb = p.maxb[i];
   }
   const bool al = in.al;
+  const bool timed = p.timers != nullptr;
+  long long pass_a = 0;                     // traced: pass A's time
   for (int t = 0; t < p.R; ++t) {
+    const long long ta = (timed && lane == 0) ? global_timer() : 0;
     const int rr = s.order[t];
     const float lin = s.lin[rr];
     const float bud = s.bud[rr];
@@ -472,7 +480,10 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
       const bool any_c = __any_sync(FULL, ok);
       warp_argmin(cs_v, cs_i);
       allowed = mine && (any_c ? ok : (i == cs_i));
+    } else if (timed) {
+      __syncwarp();
     }
+    if (timed && lane == 0) pass_a += global_timer() - ta;
     float cmax = allowed ? c : -INFINITY, tmax = allowed ? T : -INFINITY;
     warp_max2(cmax, tmax);
     cmax = fmaxf(cmax, 1e-12f);
@@ -518,6 +529,7 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
     p.b1[o] = b;
     p.f1[o] = fr;
   }
+  if (timed && lane == 0) p.timers[4 + 4 * w] = pass_a;
 }
 
 // The R-step greedy loop for I > 32, by the whole block: thread `tid`
@@ -531,7 +543,10 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   const int I = p.I, M = p.M, tid = threadIdx.x, nthr = blockDim.x;
   const bool off = p.mode == OFF_REACTIVE || p.mode == OFF_PREDICTIVE;
   const float wl = off ? 0.f : p.wl;
+  const bool timed = p.timers != nullptr;
+  long long pass_a = 0;                     // traced: pass A's time
   for (int t = 0; t < p.R; ++t) {
+    const long long ta = (timed && tid == 0) ? global_timer() : 0;
     const int rr = s.order[t];
     const float lin = s.lin[rr];
     const float bud = s.bud[rr];
@@ -557,6 +572,8 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
       if (lex_less(csel, i, cs_v, cs_i)) { cs_v = csel; cs_i = i; }
     }
     if (p.budget_filter) red_any_argmin(any_c, cs_v, cs_i, s);
+    else if (timed) __syncthreads();
+    if (timed && tid == 0) pass_a += global_timer() - ta;
 
     // pass B: normalizers over the allowed candidates
     float cmax = -INFINITY, tmax = -INFINITY;
@@ -631,6 +648,7 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
     }
     __syncthreads();
   }
+  if (timed && tid == 0) p.timers[4 + 4 * w] = pass_a;
   if (GL) return;                           // the carry is the output
   for (int i = tid; i < I; i += nthr) {
     const size_t o = (size_t)w * I + i;
@@ -699,7 +717,7 @@ __device__ void instance_slice(const RtDecisionParams& p, int q,
 __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (p.timers != nullptr && tid == 0) p.timers[2 + 3 * w] = global_timer();
+  if (p.timers != nullptr && tid == 0) p.timers[2 + 4 * w] = global_timer();
   ScanSmem s = carve(smem, p, w);
 
   // per-row inputs; the mixes and keys other CTAs wrote (L2, not L1)
@@ -754,7 +772,7 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
     run_scan_block<false>(p, s, w);
   }
   __syncthreads();
-  if (p.timers != nullptr && tid == 0) p.timers[3 + 3 * w] = global_timer();
+  if (p.timers != nullptr && tid == 0) p.timers[3 + 4 * w] = global_timer();
 
   for (int r = tid; r < R; r += blockDim.x) {
     const size_t rw = (size_t)w * R + r;
@@ -816,7 +834,7 @@ decision_fused(const __grid_constant__ RtDecisionParams p) {
         *tt = 0;
         if (p.timers != nullptr) {
           const long long t = global_timer();
-          for (int w = 0; w < p.K; ++w) p.timers[1 + 3 * w] = t;
+          for (int w = 0; w < p.K; ++w) p.timers[1 + 4 * w] = t;
         }
       }
       for (int w = 0; w < p.K; ++w) window_ticket<RT>(p, smem, w, &s_last);

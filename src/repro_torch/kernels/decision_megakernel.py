@@ -51,14 +51,16 @@ float32.
 
 `timers`, a keyword the kernel alone reads (None by default, which is
 what every untraced call passes), is an int64 CUDA tensor of at least
-1 + 3 K elements: the kernel writes `%globaltimer` into it at its entry
-(thread 0 of block (0, 0)); at 1 + 3w, for every window w, the end of
+1 + 4 K elements: the kernel writes `%globaltimer` into it at its entry
+(thread 0 of block (0, 0)); at 1 + 4w, for every window w, the end of
 the last slice of TPOT trees over the grid (the same stamp in each); at
-2 + 3w the start of window w's scan, the end of stage 1 for it; and at
-3 + 3w the end of its greedy loop, by the CTA that scans the window.
-Nothing else reads the buffer, so the outputs are the same with and
-without it; the plain version has no stamps and the tap does not see
-the keyword.
+2 + 4w the start of window w's scan, the end of stage 1 for it; at
+3 + 4w the end of its greedy loop, by the CTA that scans the window;
+and at 4 + 4w a duration, not a stamp: the sum over the loop's steps of
+pass A (each step's start to the end of its admission reduction: cost,
+latency, the affinity hit and Eq. 2 over every instance). Nothing else
+reads the buffer, so the outputs are the same with and without it; the
+plain version has no stamps and the tap does not see the keyword.
 """
 from __future__ import annotations
 
@@ -246,8 +248,8 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
             raise ValueError(f"{name} is on {t.device}, emb on {dev}")
     if timers is not None:
         _check(timers, "timers", torch.int64)
-        if timers.device != dev or timers.numel() < 1 + 3 * K:
-            raise ValueError(f"timers must hold 1 + 3 K = {1 + 3 * K} "
+        if timers.device != dev or timers.numel() < 1 + 4 * K:
+            raise ValueError(f"timers must hold 1 + 4 K = {1 + 4 * K} "
                              f"int64 on {dev}")
     _check(emb, "emb", f32)
     _check(row_valid, "row_valid", u8, (K, R))

@@ -27,6 +27,10 @@ The spans and where they are recorded:
                  the batch's `rids`)
   rb.window      the adaptive window over the telemetry
   rb.stage       the hot path's staging pass and affinity plane (`K`, `R`)
+  rb.plane       inside `rb.stage`, where the affinity term is on: the
+                 fleet's prefix sketches copied into the pinned plane and
+                 the plane and the rows' signatures uploaded (`rows`, the
+                 sketch rows copied; `bytes`, the bytes uploaded)
   rb.sync        the telemetry mirror's sync (`kind`: 0 carry, 1 delta,
                  2 full reseed, 3 roster reseed; `rows` shipped)
   rb.launch      K1's wrapper call up to the answer's event
@@ -36,10 +40,11 @@ The spans and where they are recorded:
   rb.cell_refresh  a cell's telemetry mirror catching up with the fleet's
                  (`cell`; `rows`, the telemetry rows it copied)
   rb.digest      one balancer heartbeat (`seq`)
-  k1.stage1, k1.trees, k1.scan, k1.call
+  k1.stage1, k1.trees, k1.scan, k1.scan_a, k1.call
                  K1's own stamps (`batch`), device durations read at
                  fetch: the trees over the grid and the call once a call,
-                 the rest of stage 1 and the scan per window
+                 the rest of stage 1, the scan and its steps' pass A
+                 (cost, latency, affinity hit, admission) per window
 
 A span left open by an exception is dropped from `summary`. The tracer
 imports nothing from the package, so every layer can import it.

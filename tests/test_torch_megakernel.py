@@ -378,26 +378,34 @@ def test_kernel_tpot_over_the_grid_is_bitwise(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("I, R, trees, depth", [(16, 8, 1024, 8),
-                                                (16384, 16, 60, 3)],
-                         ids=["I16", "I16384"])
-def test_kernel_timers(cuda_device, I, R, trees, depth):
+@pytest.mark.parametrize("I, R, trees, depth, aff, budget_filter", [
+    (16, 8, 1024, 8, False, True), (16384, 16, 60, 3, False, True),
+    (16, 8, 1024, 8, True, False), (1024, 16, 60, 3, True, True),
+    (16384, 16, 60, 3, True, False)],
+    ids=["I16", "I16384", "I16-aff-nofilter", "I1024-aff",
+         "I16384-aff-nofilter"])
+def test_kernel_timers(cuda_device, I, R, trees, depth, aff, budget_filter):
     """K1's `%globaltimer` stamps: the outputs are bitwise the same with
-    `timers` set and null; each call's stamps rise (entry, the end of the
-    grid's last tree slice, the start of the scan, the end of the greedy
-    loop); and over calls queued back to
+    `timers` set and null, also with the affinity term on and without the
+    budget filter (where a traced call adds a barrier after pass A); each
+    call's stamps rise (entry, the end of the grid's last tree slice, the
+    start of the scan, the end of the greedy loop) and its pass A time
+    lies inside its scan; and over calls queued back to
     back behind a spin, the stamps' spans sum to within 5% of the calls'
     CUDA event time. The index is the main path's size (14,886 x 128);
     at I = 16 a deep forest makes each call long enough for launch gaps
     of a microsecond or two to stay inside the 5%."""
-    args = _dyadic_world(21, K=1, R=R, E=128, N=14886, M=16, I=I, T=16)
+    args = _dyadic_world(21, K=1, R=R, E=128, N=14886, M=16, I=I, T=16,
+                         aff=aff)
     args["alive"] = np.arange(I) % 7 != 3
     gbm, depth, lr = _forest(16, trees, depth)
     ts = [torch.as_tensor(np.array(a), device=cuda_device)
           for a in list(args.values()) + gbm]
-    kw = dict(use_gbm=True, depth=depth, lr=lr, **_statics())
+    kw = dict(use_gbm=True, depth=depth, lr=lr,
+              **_statics(budget_filter=budget_filter,
+                         w_aff=0.35 if aff else 0.0))
     n = 6
-    timers = torch.zeros((n, 4), dtype=torch.int64, device=cuda_device)
+    timers = torch.zeros((n, 5), dtype=torch.int64, device=cuda_device)
     bare = mk.decision_megakernel(*ts, **kw)
     stamped = mk.decision_megakernel(*ts, **kw, timers=timers[0])
     for a, b in zip(bare, stamped):
@@ -412,7 +420,9 @@ def test_kernel_timers(cuda_device, I, R, trees, depth):
     stop.record()
     torch.cuda.synchronize()
     t = timers.cpu().numpy()
-    assert (np.diff(t, axis=1) >= 0).all() and (t[:, 3] > t[:, 0]).all()
+    assert (np.diff(t[:, :4], axis=1) >= 0).all() and (t[:, 3] > t[:, 0]).all()
+    assert ((t[:, 4] >= 0) & (t[:, 4] <= t[:, 3] - t[:, 2])).all(), t
+    assert I <= 32 or (t[:, 4] > 0).all()    # the block scan's steps
     stamps_ms = float((t[:, 3] - t[:, 0]).sum()) * 1e-6
     event_ms = start.elapsed_time(stop)
     assert abs(stamps_ms - event_ms) <= 0.05 * event_ms, (stamps_ms,

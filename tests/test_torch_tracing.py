@@ -19,7 +19,8 @@ if str(ROOT) not in sys.path:
 
 from repro_torch import tracing  # noqa: E402
 
-CELLS = {"flat": "fleet10k_flat.mix400", "cells": "fleet10k_cells16.mix400"}
+CELLS = {"flat": "fleet10k_flat.mix400", "cells": "fleet10k_cells16.mix400",
+         "sessions": "fleet10k_sessions.sessions400"}
 HORIZON_S = 3.0          # simulated seconds from an empty fleet
 IN_FIRE = ("rb.stage", "rb.sync", "rb.launch", "rb.fetch", "rb.dispatch")
 
@@ -118,7 +119,7 @@ def test_place_only_in_the_cells(runs):
     recs = on["records"]
     place = [r for r in recs if r.name == "rb.place"]
     n_ingest = sum(r.name == "rb.ingest" for r in recs)
-    if kind == "flat":
+    if kind != "cells":
         assert not place
         assert {r.ids["cell"] for r in recs if r.name == "rb.fire"} == {-1}
         return
@@ -141,6 +142,28 @@ def test_counts_agree_with_the_hot_paths_counters(runs):
         == on["delta_rows"]
     kinds = {r.ids["kind"] for r in recs if r.name == "rb.sync"}
     assert kinds <= {0, 1, 2, 3} and 2 in kinds      # the first call reseeds
+
+
+def test_plane_inside_stage_only_with_the_term(runs):
+    """With the affinity term on, each call's `rb.stage` holds one
+    `rb.plane`: the whole roster's sketch rows, and the bytes of the
+    staged plane (the roster's pow2 bucket x 64 int32 slots) and of the
+    rows' signatures (K x R buckets x 8 int32); with the term off, none."""
+    kind, _, on = runs
+    recs = on["records"]
+    plane = [r for r in recs if r.name == "rb.plane"]
+    if kind != "sessions":
+        assert not plane
+        return
+    stages = [r for r in recs if r.name == "rb.stage"]
+    assert len(plane) == len(stages) == on["calls"]
+    n_inst = 24                               # the tiny cell's roster
+    for r in plane:
+        st = recs[r.parent]
+        assert st.name == "rb.stage"
+        assert r.ids["rows"] == n_inst
+        assert r.ids["bytes"] == 4 * (32 * 64 + st.ids["K"] * st.ids["R"] * 8)
+    assert on["summary"]["rb.plane"]["sums"]["rows"] == n_inst * on["calls"]
 
 
 def test_summary_counts_self_time_and_sums_integer_ids():
@@ -179,11 +202,12 @@ def test_the_tracer_imports_nothing_from_the_package():
 
 
 def test_stamps_become_device_durations():
-    """A K = 2 call's stamps: the trees once, from the entry to their end
-    (stamped into every window); per window the rest of stage 1 and the
-    scan; the call from the entry to the last window's end."""
+    """A K = 2 call's stamps (1 + 4K): the trees once, from the entry to
+    their end (stamped into every window); per window the rest of stage
+    1, the scan and its pass A (a duration, not a stamp); the call from
+    the entry to the last window's end."""
     from repro_torch.core.hotpath import _K1Stamps
-    host = torch.tensor([100, 130, 190, 200, 130, 180, 260],
+    host = torch.tensor([100, 130, 190, 200, 4, 130, 180, 260, 55],
                         dtype=torch.int64)
     tracing.enable()
     try:
@@ -198,6 +222,7 @@ def test_stamps_become_device_durations():
     ns = {k: round(v["total_s"] * 1e9) for k, v in s.items()}
     assert ns["k1.trees"] == 30 and s["k1.trees"]["count"] == 1
     assert ns["k1.stage1"] == 60 + 50 and ns["k1.scan"] == 10 + 80
+    assert ns["k1.scan_a"] == 4 + 55 and s["k1.scan_a"]["count"] == 2
     assert ns["k1.call"] == 160
     assert s["k1.call"]["sums"] == {"batch": 9}
     assert np.isclose(s["rb.fire"]["self_s"], s["rb.fire"]["total_s"])

@@ -1,6 +1,7 @@
 """K1's time by stage at the main path's shapes, from its own stamps.
 
-    python3 tools/k1_stages.py [--shapes 16x8,1024x16,16384x16] [--calls 20]
+    python3 tools/k1_stages.py [--shapes 16x8,1024x16,16384x16] [--calls 20] \
+        [--w-aff 0.35]
 
 For each I x R (by default I = 16, 1,024 and 16,384, each at R = 8, 16
 and 64): one K1 call (`decision_fused`) over a synthetic world of the
@@ -10,8 +11,12 @@ times back to back behind a spin with `timers` set. Prints one JSON line
 a shape: the calls' CUDA event ms per call beside the stamps' (entry to
 the end of the greedy loop), and the stamps' split: the TPOT trees (the
 entry to the end of the grid's last tree slice), the rest of stage 1 (the
-KNN lookup and label mixes, from there to the scan's start) and the LPT
-scan, with the card's name and power limit. Needs one NVIDIA GPU.
+KNN lookup and label mixes, from there to the scan's start), the LPT
+scan and, inside it, the steps' pass A (cost, latency, the affinity hit
+and admission), with the card's name and power limit. With `--w-aff` >
+0 the prefix-affinity term is on: each row carries 8 signature columns
+and each instance a plane of 64 sketch slots, a quarter of the instances
+holding a row's leading columns. Needs one NVIDIA GPU.
 """
 import argparse
 import json
@@ -26,19 +31,29 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 E, N, M, T, K_NN, TREES, DEPTH = 128, 14886, 16, 16, 10, 60, 3
+SIG_W, SLOTS = 8, 64          # signature columns, sketch slots
 
 
-def world(I: int, R: int, dev, seed: int = 0):
-    """The positional arguments of one K1 call."""
+def world(I: int, R: int, dev, seed: int = 0, aff: bool = False):
+    """The positional arguments of one K1 call; with `aff`, rows'
+    signatures and instances' sketch planes for the affinity term."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     x = rng.normal(size=(N, E)).astype(f32)
     n_int, n_leaf = 2 ** DEPTH - 1, 2 ** DEPTH
+    psig = np.zeros((1, 1, 1), np.int32)
+    plane = np.zeros((1, 1), np.int32)
+    if aff:
+        psig = rng.integers(1, 2 ** 31, (1, R, SIG_W)).astype(np.int32)
+        plane = rng.integers(1, 2 ** 31, (I, SLOTS)).astype(np.int32)
+        for i in np.flatnonzero(rng.uniform(size=I) < 0.25):
+            n = int(rng.integers(1, SIG_W + 1))
+            plane[i, :n] = psig[0, rng.integers(R), :n]
     arrays = [
         rng.normal(size=(1, R, E)).astype(f32), np.ones((1, R), bool),
         np.full((1, R), np.nan, f32),
         rng.integers(8, 400, (1, R)).astype(f32),
-        np.zeros((1, 1, 1), np.int32),
+        psig,
         rng.uniform(0, 300, I).astype(f32),
         rng.integers(1, 40, I).astype(f32),
         rng.integers(0, 8, I).astype(f32),
@@ -50,7 +65,7 @@ def world(I: int, R: int, dev, seed: int = 0):
         (np.arange(I) % T).astype(np.int32), np.full(I, 48.0, f32),
         rng.uniform(1e-7, 1e-6, I).astype(f32),
         rng.uniform(1e-6, 1e-5, I).astype(f32),
-        rng.uniform(0.01, 0.06, I).astype(f32), np.zeros((1, 1), np.int32),
+        rng.uniform(0.01, 0.06, I).astype(f32), plane,
         rng.integers(0, 4, (T, TREES, n_int)).astype(np.int32),
         rng.uniform(0, 300, (T, TREES, n_int)).astype(f32),
         rng.uniform(-1e-3, 1e-3, (T, TREES, n_leaf)).astype(f32),
@@ -58,13 +73,13 @@ def world(I: int, R: int, dev, seed: int = 0):
     return [torch.as_tensor(a, device=dev) for a in arrays]
 
 
-def measure(I: int, R: int, calls: int, dev) -> dict:
+def measure(I: int, R: int, calls: int, dev, w_aff: float = 0.0) -> dict:
     from repro_torch.kernels import decision_megakernel as mk
-    args = world(I, R, dev)
+    args = world(I, R, dev, aff=w_aff > 0.0)
     kw = dict(k=K_NN, eps=1e-6, weights=(1 / 3, 1 / 3, 1 / 3),
-              latency_mode="full", lpt=True, budget_filter=True, w_aff=0.0,
-              use_gbm=True, depth=DEPTH, lr=0.15)
-    timers = torch.zeros((calls, 4), dtype=torch.int64, device=dev)
+              latency_mode="full", lpt=True, budget_filter=True,
+              w_aff=w_aff, use_gbm=True, depth=DEPTH, lr=0.15)
+    timers = torch.zeros((calls, 5), dtype=torch.int64, device=dev)
     mk.decision_megakernel(*args, **kw, timers=timers[0])     # warm
     torch.cuda.synchronize()
     torch.cuda._sleep(200_000_000)          # the launches queue behind it
@@ -75,12 +90,13 @@ def measure(I: int, R: int, calls: int, dev) -> dict:
     stop.record()
     torch.cuda.synchronize()
     t = timers.cpu().numpy().astype(np.float64) * 1e-6        # ms
-    return {"I": I, "R": R, "calls": calls,
+    return {"I": I, "R": R, "calls": calls, "w_aff": w_aff,
             "event_ms_per_call": start.elapsed_time(stop) / calls,
             "stamps_ms_per_call": float((t[:, 3] - t[:, 0]).mean()),
             "trees_ms": float((t[:, 1] - t[:, 0]).mean()),
             "stage1_ms": float((t[:, 2] - t[:, 1]).mean()),
-            "scan_ms": float((t[:, 3] - t[:, 2]).mean())}
+            "scan_ms": float((t[:, 3] - t[:, 2]).mean()),
+            "scan_a_ms": float(t[:, 4].mean())}
 
 
 def main():
@@ -88,6 +104,7 @@ def main():
     ap.add_argument("--shapes", default=",".join(
         f"{I}x{R}" for I in (16, 1024, 16384) for R in (8, 16, 64)))
     ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--w-aff", type=float, default=0.0)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k1_stages: needs an NVIDIA GPU")
@@ -98,7 +115,8 @@ def main():
     ).stdout.strip().splitlines()[0]
     for shape in a.shapes.split(","):
         I, R = (int(v) for v in shape.split("x"))
-        print(json.dumps({**measure(I, R, a.calls, dev), "card": card}),
+        print(json.dumps({**measure(I, R, a.calls, dev, a.w_aff),
+                          "card": card}),
               flush=True)
 
 
