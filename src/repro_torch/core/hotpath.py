@@ -62,22 +62,24 @@ def _new_stats() -> Dict:
 class _K1Stamps:
     """One traced K1 call's `%globaltimer` stamps, copied back into a
     pinned buffer of 1 + 4K behind the call's event: the kernel's entry,
-    then per window the end of the TPOT trees (the grid's last tree
-    slice, the same in every window), the start of the window's scan,
-    the end of its greedy loop and the summed time of the loop's pass A
-    (each step's cost, latency, affinity hit and admission). Stored once
-    as device durations, whichever of the call's windows is fetched
-    first: `k1.trees` once a call, from the entry to the end of the
-    trees; per window `k1.stage1`, from there to the scan's start (the
-    rest of stage 1, the KNN lookup and label mixes, which ran beside the
-    trees on the grid), `k1.scan`, the scan CTA's preamble and greedy
-    loop, and `k1.scan_a`, pass A's part of that loop; `k1.call` from the
-    entry to the last window's end."""
+    then per window the end of the per-instance preamble (the grid's last
+    slice of TPOT trees and, with the affinity term on, affinity factors;
+    the same in every window), the start of the window's scan, the end of
+    its greedy loop and the summed time of the loop's pass A (each step's
+    cost, latency with its affinity factor read, and admission). Stored
+    once as device durations, whichever of the call's windows is fetched
+    first: `k1.trees` once a call, from the entry to the end of the trees
+    and factors, with `aff_rows`, the rows whose factors the grid wrote
+    (K R with the term on, 0 off); per window `k1.stage1`, from there to
+    the scan's start (the rest of stage 1, the KNN lookup and label
+    mixes, which ran beside the preamble on the grid), `k1.scan`, the
+    scan CTA's preamble and greedy loop, and `k1.scan_a`, pass A's part
+    of that loop; `k1.call` from the entry to the last window's end."""
 
-    __slots__ = ("host", "K", "done")
+    __slots__ = ("host", "K", "aff_rows", "done")
 
-    def __init__(self, host: torch.Tensor, K: int):
-        self.host, self.K, self.done = host, K, False
+    def __init__(self, host: torch.Tensor, K: int, aff_rows: int):
+        self.host, self.K, self.aff_rows, self.done = host, K, aff_rows, False
 
     def store(self):
         if self.done:
@@ -85,7 +87,8 @@ class _K1Stamps:
         self.done = True
         t = self.host.tolist()
         batch = tracing.open_id("rb.fire", "batch")
-        tracing.add("k1.trees", t[1] - t[0], batch=batch)
+        tracing.add("k1.trees", t[1] - t[0], batch=batch,
+                    aff_rows=self.aff_rows)
         for w in range(self.K):
             s1, s2, s3, scan_a = t[1 + 4 * w:5 + 4 * w]
             tracing.add("k1.stage1", s2 - s1, batch=batch)
@@ -488,7 +491,8 @@ class FusedHotPath:
             s["l"].copy_(l_chosen, non_blocking=True)
             if timers is not None:
                 timers[1].copy_(timers[0], non_blocking=True)
-                stamps = _K1Stamps(timers[1], Kb)
+                stamps = _K1Stamps(timers[1], Kb, Kb * s["rv"].shape[1]
+                                   if self._w_aff > 0.0 else 0)
             event = torch.cuda.Event()
             event.record()
             choice, l_chosen = s["choice"], s["l"]

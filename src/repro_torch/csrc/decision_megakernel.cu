@@ -30,7 +30,13 @@
 //      CTAs that finish stage 1 first. A warp walks its instance's
 //      trees, one lane per tree, the leaf values then added in tree order
 //      by shuffles, and writes the TPOT (window-invariant) to an (I,)
-//      scratch. With the global carry the slice also writes b0 and each
+//      scratch. With the prefix-affinity term on, the same warp then
+//      writes its instance's discount factor 1 - w_aff * hit for every
+//      row of every window, pad rows included, to a (K*R, I) scratch: the
+//      hit depends on the row and the instance, never on the carry, so
+//      the plane is read once a call (a warp per instance, its sketch
+//      slots across the lanes, one vote a signature column), not once a
+//      scan step. With the global carry the slice also writes b0 and each
 //      window's initial carry rows. Then the CTA draws the trees' ticket
 //      and goes on to stage 1; the CTA that draws the trees' last ticket
 //      draws one ticket of every window for them.
@@ -49,9 +55,9 @@
 //      main path) one warp runs the loop, lane i holding instance i's
 //      constants and its (d, b, free) carry in registers, so a step is
 //      three warp reductions; above, the block runs it, thread t owning
-//      the columns i = t (mod blockDim.x). Eq. 2 admission, the affinity
-//      hit and Eq. 1 are evaluated for one row over I on the fly: no
-//      (R, I) plane is ever written.
+//      the columns i = t (mod blockDim.x). Eq. 2 admission and Eq. 1 are
+//      evaluated for one row over I on the fly; with the affinity term a
+//      step reads the row's factors the grid wrote, one float a column.
 // No CTA waits on another: every hand-over is a last ticket, and every
 // ticket is left at 0.
 // The block's per-instance arrays (the carry d/b/free, b0, the TPOT, and
@@ -81,14 +87,15 @@
 // writes %globaltimer at the kernel's entry (the block dispatched first;
 // the trees end at least one tree walk after it); the CTA that draws the
 // trees' last ticket writes it into 1 + 4w for every window w (the end of
-// the last tree slice); and the CTA that scans window w writes it at
-// 2 + 4w when its scan starts and at 3 + 4w after the greedy loop, and
-// at 4 + 4w the loop's pass A time: over the steps, the sum of each
-// step's start to the end of pass A's admission reduction (cost, latency,
-// the affinity hit and Eq. 2 over every instance), read by the scan's
-// thread 0. Where no reduction closes pass A (no budget filter) a traced
-// call adds a barrier there. Null (every untraced call): one branch on
-// the pointer a step. Nothing reads the buffer and a barrier changes no
+// the last slice: the trees and, with the term on, the affinity factors);
+// and the CTA that scans window w writes it at 2 + 4w when its scan
+// starts and at 3 + 4w after the greedy loop, and at 4 + 4w the loop's
+// pass A time: over the steps, the sum of each step's start to the end
+// of pass A's admission reduction (cost, latency with its affinity factor
+// read, and Eq. 2 over every instance), read by the scan's thread 0.
+// Where no reduction closes pass A (no budget filter) a traced call adds
+// a barrier there. Null (every untraced call): one branch on the pointer
+// a step. Nothing reads the buffer and a barrier changes no
 // value, so the outputs are the same either way.
 //
 // Exactness. Everything after the distance dot product spells the
@@ -161,6 +168,8 @@ struct RtDecisionParams {
   float* scan_i;             // (1 + 2K, I) scratch of the global carry
                              // (b0, then per window a step's cost and
                              // latency), or null: the shared carry
+  float* aff;                // (K*R, I) scratch: the affinity factors,
+                             // or null: the term is off
   int* choice;               // (K, R)
   float* est;                // (K, R)
   float* lchosen;            // (K, R)
@@ -376,25 +385,6 @@ __device__ void red_any_argmin(bool& any, float& v, int& i, ScanSmem& s) {
   __syncthreads();
 }
 
-// matched-prefix fraction of request row `rw` against instance i
-__device__ float hit_fraction(const RtDecisionParams& p, size_t rw, int i,
-                              float lin) {
-  const int* rs = p.psig + rw * p.sig_w;
-  const int* pl = p.sig_plane + (size_t)i * p.sig_slots;
-  int run = 0;
-  for (int c = 0; c < p.sig_w; ++c) {
-    int sig = rs[c];
-    bool present = false;
-    if (sig != 0)
-      for (int j = 0; j < p.sig_slots; ++j) present |= (pl[j] == sig);
-    if (!present) break;
-    ++run;
-  }
-  float lenf = fmaxf(lin, 1.f);
-  float matched = fminf(__fmul_rn((float)run, 16.f), lenf);
-  return __fdiv_rn(matched, lenf);
-}
-
 __device__ __forceinline__ float quantize(float v) {
   return __fmul_rn(rintf(__fmul_rn(v, INV_QUANTUM)), QUANTUM);
 }
@@ -402,24 +392,23 @@ __device__ __forceinline__ float quantize(float v) {
 // Instance i's constants, as the scan reads them
 struct Inst {
   float pin, pout, nom, tp, b0;
-  bool al;
 };
 
-// Row rw's cost c and latency T on instance i (carry d, b, free), as the
-// plain version forms them.
+// A row's cost c and latency T on instance i (carry d, b, free), as the
+// plain version forms them; with the affinity term (AFF), T times the
+// factor the grid wrote for the row on instance i (`arow`, the row's
+// factors).
+template <bool AFF>
 __device__ __forceinline__ void cost_latency(
-    const RtDecisionParams& p, size_t rw, int i, const Inst& in, float lin,
-    float l, float d, float b, float fr, float& c, float& T) {
+    const RtDecisionParams& p, const float* arow, int i, const Inst& in,
+    float lin, float l, float d, float b, float fr, float& c, float& T) {
   c = __fmul_rn(__fadd_rn(__fmul_rn(lin, in.pin), __fmul_rn(l, in.pout)),
                 1e-6f);
   const float wait = (fr > 0.f) ? 0.f : __fdiv_rn(d, fmaxf(b, 1.f));
   const float tpe = __fmul_rn(in.tp, fmaxf(__fdiv_rn(b, in.b0), 1.f));
   T = (p.mode == STATIC_PRIOR) ? __fmul_rn(in.nom, l)
                                : __fmul_rn(tpe, __fadd_rn(wait, l));
-  if (p.use_aff) {
-    const float hit = in.al ? hit_fraction(p, rw, i, lin) : 0.f;
-    T = __fmul_rn(T, __fsub_rn(1.f, __fmul_rn(p.w_aff, hit)));
-  }
+  if (AFF) T = __fmul_rn(T, __ldcg(arow + i));
 }
 
 // Eq. 1, quantized: the row's score of one allowed instance
@@ -434,7 +423,7 @@ __device__ __forceinline__ float score(const RtDecisionParams& p, float wl,
 
 // The R-step greedy loop for I <= 32, in one warp: lane i holds instance
 // i's constants and carry in registers and writes d1/b1/f1 at the end.
-template <bool GL>
+template <bool GL, bool AFF>
 __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
                               int lane) {
   const int I = p.I, M = p.M;
@@ -443,16 +432,17 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
   const bool mine = lane < I;
   const int i = lane;
   int m_i = 0;
-  Inst in{0.f, 0.f, 0.f, 0.f, 1.f, false};
+  Inst in{0.f, 0.f, 0.f, 0.f, 1.f};
   float d = 0.f, b = 1.f, fr = 0.f, maxb = 0.f;
+  bool al = false;
   if (mine) {
     m_i = p.m_of_i[i];
     in = Inst{p.price_in[i], p.price_out[i], p.nominal[i],
-              ld<GL>(s.tpot, i), ld<GL>(s.b0, i), p.alive[i] != 0};
+              ld<GL>(s.tpot, i), ld<GL>(s.b0, i)};
     d = ld<GL>(s.d, i); b = ld<GL>(s.b, i); fr = ld<GL>(s.fr, i);
     maxb = p.maxb[i];
+    al = p.alive[i] != 0;
   }
-  const bool al = in.al;
   const bool timed = p.timers != nullptr;
   long long pass_a = 0;                     // traced: pass A's time
   for (int t = 0; t < p.R; ++t) {
@@ -461,7 +451,7 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
     const float lin = s.lin[rr];
     const float bud = s.bud[rr];
     const bool has_budget = !isnan(bud);
-    const size_t rw = (size_t)w * p.R + rr;
+    const float* arow = AFF ? p.aff + ((size_t)w * p.R + rr) * I : nullptr;
 
     float c = 0.f, T = 0.f, l = 0.f, q = 0.f;
     bool ok = false;
@@ -470,7 +460,7 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
     if (mine) {
       l = s.lmix[rr * M + m_i];
       q = s.qmix[rr * M + m_i];
-      cost_latency(p, rw, i, in, lin, l, d, b, fr, c, T);
+      cost_latency<AFF>(p, arow, i, in, lin, l, d, b, fr, c, T);
       ok = al && (!has_budget || c <= bud);
       cs_v = al ? c : INFINITY;
       cs_i = i;
@@ -538,7 +528,7 @@ __device__ void run_scan_warp(const RtDecisionParams& p, ScanSmem& s, int w,
 // carry before the scan began), so the carry may sit in shared memory or
 // in global memory (the outputs themselves) with the same operations in
 // the same order.
-template <bool GL>
+template <bool GL, bool AFF>
 __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   const int I = p.I, M = p.M, tid = threadIdx.x, nthr = blockDim.x;
   const bool off = p.mode == OFF_REACTIVE || p.mode == OFF_PREDICTIVE;
@@ -551,7 +541,7 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
     const float lin = s.lin[rr];
     const float bud = s.bud[rr];
     const bool has_budget = !isnan(bud);
-    const size_t rw = (size_t)w * p.R + rr;
+    const float* arow = AFF ? p.aff + ((size_t)w * p.R + rr) * I : nullptr;
 
     // pass A: cost and latency per instance; admission reductions
     bool any_c = false;
@@ -561,10 +551,10 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
       const float l = s.lmix[rr * M + p.m_of_i[i]];
       const bool al = p.alive[i] != 0;
       const Inst in{p.price_in[i], p.price_out[i], p.nominal[i],
-                    ld<GL>(s.tpot, i), ld<GL>(s.b0, i), al};
+                    ld<GL>(s.tpot, i), ld<GL>(s.b0, i)};
       float c, T;
-      cost_latency(p, rw, i, in, lin, l, ld<GL>(s.d, i), ld<GL>(s.b, i),
-                   ld<GL>(s.fr, i), c, T);
+      cost_latency<AFF>(p, arow, i, in, lin, l, ld<GL>(s.d, i),
+                        ld<GL>(s.b, i), ld<GL>(s.fr, i), c, T);
       s.tc[i] = c;
       s.tt[i] = T;
       any_c = any_c || (al && (!has_budget || c <= bud));
@@ -689,18 +679,106 @@ __device__ float tpot_of(const RtDecisionParams& p, int i, int lane) {
   return fmaxf(out, 1e-4f);
 }
 
+// Instance i's sketch as a warp holds it: lane l has slots l and l + 32,
+// 0 past the plane's width (a signature is never 0) and on a dead
+// instance, whose factors are those of no hit.
+struct Sketch {
+  const int* pl;
+  int s0, s1;
+  bool al;
+};
+
+__device__ __forceinline__ Sketch load_sketch(const RtDecisionParams& p,
+                                              int i, int lane) {
+  const int S = p.sig_slots;
+  const int* pl = p.sig_plane + (size_t)i * S;
+  const bool al = p.alive[i] != 0;
+  return Sketch{pl, (al && lane < S) ? pl[lane] : 0,
+                (al && lane + 32 < S) ? pl[lane + 32] : 0, al};
+}
+
+// Whether the warp's sketch holds `sig`, on every lane (slots past 64 are
+// read again from the plane).
+__device__ __forceinline__ bool holds(const Sketch& k, int S, int lane,
+                                      int sig) {
+  bool m = k.s0 == sig || k.s1 == sig;
+  for (int j = 64 + lane; j < S; j += 32) m |= k.pl[j] == sig;
+  return __any_sync(FULL, m) != 0;
+}
+
+// Instance i's prefix-affinity factor 1 - w_aff * hit for each of the
+// K*R rows, by one warp. The hit is the plain version's: the run of a
+// row's leading signature columns (a 0 ends it) found among the sketch's
+// slots, times 16 tokens, over the row's input length, and 0 on a dead
+// instance. In each 32 rows, lane r reads row r's first signature and
+// the rows' first columns are voted on one after another (independent
+// votes, unrolled); only the rows that matched go on column by column.
+// A run of 0 gives a hit of +0 whatever the length, so its factor is f0,
+// the dead instance's. Lane r keeps row r's factor and the 32 are stored
+// at once.
+__device__ void affinity_factors(const RtDecisionParams& p, int i, int lane,
+                                 const Sketch& k) {
+  const int KR = p.K * p.R, S = p.sig_slots, W = p.sig_w;
+  const float f0 = __fsub_rn(1.f, __fmul_rn(p.w_aff, 0.f));
+  for (int rw0 = 0; rw0 < KR; rw0 += 32) {
+    const int n = min(32, KR - rw0);
+    const int first = (k.al && W > 0 && lane < n)
+                          ? p.psig[(size_t)(rw0 + lane) * W] : 0;
+    unsigned todo = 0;                      // rows whose column 0 matched
+    if (k.al) {
+#pragma unroll 4
+      for (int r = 0; r < n; ++r) {
+        const int sig = __shfl_sync(FULL, first, r);
+        todo |= (sig != 0 && holds(k, S, lane, sig) ? 1u : 0u) << r;
+      }
+    }
+    float mine = f0;
+    while (todo != 0) {
+      const int r = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const size_t rw = rw0 + r;
+      int run = 1;
+      for (; run < W; ++run) {
+        const int sig = p.psig[rw * W + run];
+        if (sig == 0 || !holds(k, S, lane, sig)) break;
+      }
+      if (lane == r) {
+        const float lenf = fmaxf(p.len_in[rw], 1.f);
+        const float matched = fminf(__fmul_rn((float)run, 16.f), lenf);
+        mine = __fsub_rn(1.f, __fmul_rn(p.w_aff, __fdiv_rn(matched, lenf)));
+      }
+    }
+    if (lane < n) p.aff[(size_t)(rw0 + lane) * p.I + i] = mine;
+  }
+}
+
+// Slice q's instances, one a warp: the TPOT and, with the affinity term
+// (AFF), the factors for every row, the sketch's load in flight during
+// the trees' walk.
+template <bool AFF>
+__device__ void instance_warps(const RtDecisionParams& p, int q,
+                               int n_slices) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int i = q * nwarps + warp; i < p.I; i += n_slices * nwarps) {
+    Sketch k{nullptr, 0, 0, false};
+    if (AFF) k = load_sketch(p, i, lane);
+    const float tp = tpot_of(p, i, lane);
+    if (lane == 0) p.tpot[i] = tp;
+    if (AFF) affinity_factors(p, i, lane, k);
+  }
+}
+
 // Slice q of the per-instance preamble, of `n_slices` over the grid: the
-// TPOT of one instance a warp, and with the global carry b0 and each
-// window's initial carry rows, one instance a thread. Pad instances
-// (dead) are computed too: the off modes read every column.
+// TPOT of one instance a warp and, with the affinity term, its factors
+// for every row; with the global carry b0 and each window's initial carry
+// rows, one instance a thread. Pad instances (dead) are computed too: the
+// off modes read every column.
 __device__ void instance_slice(const RtDecisionParams& p, int q,
                                int n_slices) {
   const int I = p.I, tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
-  for (int i = q * nwarps + warp; i < I; i += n_slices * nwarps) {
-    const float tp = tpot_of(p, i, lane);
-    if (lane == 0) p.tpot[i] = tp;
-  }
+  if (p.use_aff) instance_warps<true>(p, q, n_slices);
+  else instance_warps<false>(p, q, n_slices);
   if (p.scan_i == nullptr) return;
   for (int i = q * nthr + tid; i < I; i += n_slices * nthr) {
     const float beff = fmaxf(p.b[i], 1.f), d = p.d[i], fr = p.free_[i];
@@ -714,9 +792,24 @@ __device__ void instance_slice(const RtDecisionParams& p, int q,
   }
 }
 
+// Window w's greedy loop on the carry GL: one warp for I <= 32, else the
+// block; the affinity term's factor read compiled in only where it is on.
+template <bool GL>
+__device__ void run_scan(const RtDecisionParams& p, ScanSmem& s, int w) {
+  if (p.I <= 32) {
+    if (threadIdx.x >= 32) return;
+    if (p.use_aff) run_scan_warp<GL, true>(p, s, w, threadIdx.x);
+    else run_scan_warp<GL, false>(p, s, w, threadIdx.x);
+  } else if (p.use_aff) {
+    run_scan_block<GL, true>(p, s, w);
+  } else {
+    run_scan_block<GL, false>(p, s, w);
+  }
+}
+
 __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   if (p.timers != nullptr && tid == 0) p.timers[2 + 4 * w] = global_timer();
   ScanSmem s = carve(smem, p, w);
 
@@ -761,16 +854,8 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   }
   __syncthreads();
 
-  if (I <= 32) {
-    if (warp == 0) {
-      if (gl) run_scan_warp<true>(p, s, w, lane);
-      else run_scan_warp<false>(p, s, w, lane);
-    }
-  } else if (gl) {
-    run_scan_block<true>(p, s, w);
-  } else {
-    run_scan_block<false>(p, s, w);
-  }
+  if (gl) run_scan<true>(p, s, w);
+  else run_scan<false>(p, s, w);
   __syncthreads();
   if (p.timers != nullptr && tid == 0) p.timers[3 + 4 * w] = global_timer();
 

@@ -29,8 +29,11 @@ tickets, the rows' label mixes, the TPOT heads and the global carry's
 per-instance arrays) lives per (device, stream), allocated once and
 grown on demand, so a call allocates only its outputs and launches
 nothing else. The TPOT heads are walked by the whole grid before stage 1,
-as many CTAs as the roster needs at 8 instances a CTA (csrc header); the
-CTA that scans a window reads them from scratch.
+as many CTAs as the roster needs at 8 instances a CTA (csrc header), and
+with the affinity term on (`w_aff > 0`) the same warps write each
+instance's discount factor for every row; the CTA that scans a window
+reads both from scratch. With the term off the factors' scratch is not
+allocated.
 
 Any roster size I is taken. The scan keeps its per-instance arrays in
 shared memory up to `MAX_SHARED_I` instances where they fit there (the
@@ -53,14 +56,15 @@ float32.
 what every untraced call passes), is an int64 CUDA tensor of at least
 1 + 4 K elements: the kernel writes `%globaltimer` into it at its entry
 (thread 0 of block (0, 0)); at 1 + 4w, for every window w, the end of
-the last slice of TPOT trees over the grid (the same stamp in each); at
-2 + 4w the start of window w's scan, the end of stage 1 for it; at
-3 + 4w the end of its greedy loop, by the CTA that scans the window;
-and at 4 + 4w a duration, not a stamp: the sum over the loop's steps of
-pass A (each step's start to the end of its admission reduction: cost,
-latency, the affinity hit and Eq. 2 over every instance). Nothing else
-reads the buffer, so the outputs are the same with and without it; the
-plain version has no stamps and the tap does not see the keyword.
+the last slice of TPOT trees and affinity factors over the grid (the
+same stamp in each); at 2 + 4w the start of window w's scan, the end of
+stage 1 for it; at 3 + 4w the end of its greedy loop, by the CTA that
+scans the window; and at 4 + 4w a duration, not a stamp: the sum over
+the loop's steps of pass A (each step's start to the end of its
+admission reduction: cost, latency with its affinity factor read, and
+Eq. 2 over every instance). Nothing else reads the buffer, so the
+outputs are the same with and without it; the plain version has no
+stamps and the tap does not see the keyword.
 """
 from __future__ import annotations
 
@@ -94,17 +98,20 @@ def layout(rows: int, n_index: int) -> Tuple[int, int, int]:
 
 
 def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int, I: int,
-                  shared_carry: bool) -> Tuple[int, int, int, int]:
+                  shared_carry: bool, use_aff: bool
+                  ) -> Tuple[int, int, int, int, int]:
     """(split-list entries, tickets, label-mix floats, per-instance
-    floats) of the kernel's scratch for K windows of R rows over I
-    instances: k candidates per row and split, one ticket per row tile,
-    per window and for the trees, each row's two label mixes (M each)
-    and LPT key, and the TPOT heads (I), with the global carry also b0
-    (I) and per window a step's cost and latency (2 I; the carry itself
-    lives in the outputs)."""
+    floats, affinity factors) of the kernel's scratch for K windows of R
+    rows over I instances: k candidates per row and split, one ticket per
+    row tile, per window and for the trees, each row's two label mixes (M
+    each) and LPT key, and the TPOT heads (I), with the global carry also
+    b0 (I) and per window a step's cost and latency (2 I; the carry
+    itself lives in the outputs); with the affinity term on, each row's
+    factor on each instance (K R I), else none."""
     rt, S, _ = layout(K * R, n_index)
     return (K * R * S * k, -(-K * R // rt) + K + 1, K * R * (2 * M + 1),
-            I if shared_carry else (2 + 2 * K) * I)
+            I if shared_carry else (2 + 2 * K) * I,
+            K * R * I if use_aff else 0)
 
 
 def dummy_gbm() -> Tuple[torch.Tensor, ...]:
@@ -184,8 +191,8 @@ class _Params(ctypes.Structure):
         "m_of_i", "tier_of_i", "maxb", "price_in", "price_out", "nominal",
         "sig_plane", "gfeat", "gthr", "gleaf", "gbase",
         "cand_d", "cand_i", "tickets", "wtickets", "qmix", "lmix", "plm",
-        "tpot", "scan_i", "choice", "est", "lchosen", "d1", "b1", "f1",
-        "timers")]
+        "tpot", "scan_i", "aff", "choice", "est", "lchosen", "d1", "b1",
+        "f1", "timers")]
         + [(n, ctypes.c_int) for n in (
             "K", "R", "E", "N", "M", "I", "k", "per_split", "sig_w",
             "sig_slots",
@@ -196,7 +203,8 @@ class _Params(ctypes.Structure):
 
 
 _lib = None
-_scratch = {}   # (device, stream) -> (cand_d, cand_i, tickets, mixes, inst)
+# (device, stream) -> (cand_d, cand_i, tickets, mixes, inst, aff)
+_scratch = {}
 
 
 def _library():
@@ -297,12 +305,12 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
                          f"memory than a block has ({limit} B)")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    n_cand, n_tickets, n_mix, n_inst = scratch_sizes(K, R, M, k, N, I,
-                                                     shared)
-    cand_d, cand_i, tickets, mix, inst = scratch(
+    n_cand, n_tickets, n_mix, n_inst, n_aff = scratch_sizes(
+        K, R, M, k, N, I, shared, use_aff)
+    cand_d, cand_i, tickets, mix, inst, aff = scratch(
         _scratch, dev, stream, ((n_cand, f32, False), (n_cand, i32, False),
                                 (n_tickets, i32, True), (n_mix, f32, False),
-                                (n_inst, f32, False)))
+                                (n_inst, f32, False), (n_aff, f32, False)))
     n_tiles = n_tickets - K - 1
     outs = (torch.empty((K, R), dtype=i32, device=dev),
             *(torch.empty((K, R), dtype=f32, device=dev) for _ in range(2)),
@@ -315,6 +323,7 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
         mix0 + 8 * K * R * M, inst.data_ptr(),
         None if shared else inst.data_ptr() + 4 * I,
+        aff.data_ptr() if use_aff else None,
         *(o.data_ptr() for o in outs),
         None if timers is None else timers.data_ptr(),
         K, R, E, N, M, I, k, per,

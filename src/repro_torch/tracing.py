@@ -42,9 +42,12 @@ The spans and where they are recorded:
   rb.digest      one balancer heartbeat (`seq`)
   k1.stage1, k1.trees, k1.scan, k1.scan_a, k1.call
                  K1's own stamps (`batch`), device durations read at
-                 fetch: the trees over the grid and the call once a call,
+                 fetch: once a call the per-instance preamble over the
+                 grid (`k1.trees`: the TPOT trees and, with the affinity
+                 term on, the rows' affinity factors; `aff_rows`, the
+                 rows whose factors it wrote) and the call; per window
                  the rest of stage 1, the scan and its steps' pass A
-                 (cost, latency, affinity hit, admission) per window
+                 (cost, latency with its affinity factor read, admission)
 
 A span left open by an exception is dropped from `summary`. The tracer
 imports nothing from the package, so every layer can import it.

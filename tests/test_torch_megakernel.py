@@ -191,16 +191,24 @@ def test_layout_follows_the_lookup_table(rows, want):
 def test_scratch_is_split_lists_tickets_and_mixes():
     # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10:
     # a ticket per row tile, per window and the trees'; the TPOT heads
-    assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, True) == (
-        128 * 30 * 10, 16 + 2 + 1, 128 * 9, 16)
+    assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, True, False) == (
+        128 * 30 * 10, 16 + 2 + 1, 128 * 9, 16, 0)
     # the main path's bucket: one window of 8 rows in 4-row tiles
-    assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, True) == (
-        8 * 117 * 10, 2 + 1 + 1, 8 * 9, 16)
+    assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, True, False) == (
+        8 * 117 * 10, 2 + 1 + 1, 8 * 9, 16, 0)
     # the global carry: the TPOT and b0, then a step's cost and latency
     # per window (32 rows take 8-row tiles and 59 splits)
-    assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, False) == (
-        32 * 59 * 10, 4 + 2 + 1, 32 * 9, (2 + 2 * 2) * 16384)
-    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True)[3] == 4096
+    assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, False, False) == (
+        32 * 59 * 10, 4 + 2 + 1, 32 * 9, (2 + 2 * 2) * 16384, 0)
+    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True, False)[3] == 4096
+    # the affinity term: a factor per row of every window and instance,
+    # on both carries, and nothing else moves
+    for K, R, I, shared in ((2, 64, 16, True), (1, 16, 1024, True),
+                            (2, 16, 16384, False), (1, 16, 4097, False)):
+        off = mk.scratch_sizes(K, R, 4, 10, 14886, I, shared, False)
+        on = mk.scratch_sizes(K, R, 4, 10, 14886, I, shared, True)
+        assert off[4] == 0 and on[4] == K * R * I
+        assert on[:4] == off[:4]
 
 
 @pytest.fixture
@@ -372,6 +380,65 @@ def test_kernel_tpot_over_the_grid_is_bitwise(cuda_device, case):
           for a in list(args.values()) + list(gbm)]
     want = [o.cpu().numpy() for o in mk.decision_megakernel_plain(
         *ts, use_gbm=use_gbm, depth=depth, lr=lr, **statics)]
+    _bitwise(got, want)
+    assert args["alive"][got[0]].all()             # dead never chosen
+    assert not _tickets(cuda_device).any()
+
+
+# (world, mode, budget filter) of the card cases of the affinity factors
+# over the grid
+AFF_GRID_CASES = {
+    "I16_R8": (dict(K=1, R=8, I=16), "full", True),
+    **{f"I1024_{m}": (dict(K=1, R=16, I=1024), m, True)
+       for m in ("full", "off_reactive")},
+    "I16384_K2": (dict(K=2, R=16, I=16384), "full", True),
+    "I4097_nofilter": (dict(K=1, R=16, I=4097), "full", False),
+}
+
+
+def _aff_world(world, seed=41):
+    """`_dyadic_world` with the term's inputs made to reach every branch
+    of the hit: every third instance's plane fully filled and holding a
+    row's eight signatures (a full run), a row with no signature, rows
+    whose signatures end early in a 0, and signatures in no plane."""
+    rng = np.random.default_rng(seed)
+    args = _dyadic_world(seed, T=4, aff=True, **world)
+    K, R, I = world["K"], world["R"], world["I"]
+    psig, plane = args["psig"], args["sig_plane"]
+    psig[:, 0, :] = 0                            # no signature at all
+    psig[:, 1, 3:] = 0                           # a short prompt
+    psig[:, 2, 0] = 2 ** 31 - 1                  # in no plane
+    for i in range(0, I, 3):
+        w, r = rng.integers(K), rng.integers(3, R)
+        plane[i] = rng.integers(1, 2 ** 31 - 1, plane.shape[1])
+        plane[i, rng.permutation(plane.shape[1])[:8]] = psig[w, r]
+        plane[i][plane[i] == 0] = 1              # a 0 of psig ends a run
+    args["alive"] = (np.arange(I) < I - 24) if I == 1024 else (
+        np.arange(I) % 7 != 3)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(AFF_GRID_CASES))
+def test_kernel_affinity_over_the_grid_is_bitwise(cuda_device, case):
+    """The prefix-affinity factors written by the grid's slices before
+    stage 1 (w_aff 0.35) and read by the scan, one float a column: every
+    output bitwise the plain version's. At I = 16, R = 8 the warp scan
+    reads them and the grid has more CTAs than instances; at I = 1,024
+    (the shared carry) the last 24 instances are dead pads, in `full` and
+    an off mode; at I = 16,384 two windows read their own factor rows on
+    the global carry; at I = 4,097 the budget filter is off."""
+    world, mode, budget_filter = AFF_GRID_CASES[case]
+    args = _aff_world(world)
+    gbm, depth, lr = _forest(4, 60, 3, seed=2)
+    statics = _statics(mode=mode, budget_filter=budget_filter, w_aff=0.35)
+    launches = mk.decision_megakernel.launches
+    got = _port(args, gbm, depth, lr, True, device=cuda_device, **statics)
+    assert mk.decision_megakernel.launches == launches + 1
+    ts = [torch.as_tensor(np.array(a), device=cuda_device)
+          for a in list(args.values()) + list(gbm)]
+    want = [o.cpu().numpy() for o in mk.decision_megakernel_plain(
+        *ts, use_gbm=True, depth=depth, lr=lr, **statics)]
     _bitwise(got, want)
     assert args["alive"][got[0]].all()             # dead never chosen
     assert not _tickets(cuda_device).any()

@@ -201,18 +201,21 @@ def test_the_tracer_imports_nothing_from_the_package():
     assert not tracing.ON
 
 
-def test_stamps_become_device_durations():
-    """A K = 2 call's stamps (1 + 4K): the trees once, from the entry to
-    their end (stamped into every window); per window the rest of stage
-    1, the scan and its pass A (a duration, not a stamp); the call from
-    the entry to the last window's end."""
+@pytest.mark.parametrize("aff_rows", [0, 2 * 16], ids=["noaff", "aff"])
+def test_stamps_become_device_durations(aff_rows):
+    """A K = 2 call's stamps (1 + 4K): the trees (and the affinity
+    factors) once, from the entry to their end (stamped into every
+    window), with the rows whose factors the grid wrote (K R = 32 with the
+    term on, 0 off); per window the rest of stage 1, the scan and its
+    pass A (a duration, not a stamp); the call from the entry to the last
+    window's end."""
     from repro_torch.core.hotpath import _K1Stamps
     host = torch.tensor([100, 130, 190, 200, 4, 130, 180, 260, 55],
                         dtype=torch.int64)
     tracing.enable()
     try:
         fire = tracing.begin("rb.fire", batch=9)
-        st = _K1Stamps(host, 2)
+        st = _K1Stamps(host, 2, aff_rows)
         st.store()
         st.store()                       # once per call
         tracing.end(fire)
@@ -221,6 +224,7 @@ def test_stamps_become_device_durations():
         tracing.disable()
     ns = {k: round(v["total_s"] * 1e9) for k, v in s.items()}
     assert ns["k1.trees"] == 30 and s["k1.trees"]["count"] == 1
+    assert s["k1.trees"]["sums"] == {"batch": 9, "aff_rows": aff_rows}
     assert ns["k1.stage1"] == 60 + 50 and ns["k1.scan"] == 10 + 80
     assert ns["k1.scan_a"] == 4 + 55 and s["k1.scan_a"]["count"] == 2
     assert ns["k1.call"] == 160

@@ -9,14 +9,16 @@ benchmark's sizes (a 14,886 x 128 index, 16 models, 16 tiers of 60 trees
 of depth 3, k = 10, one window, every instance alive), run `--calls`
 times back to back behind a spin with `timers` set. Prints one JSON line
 a shape: the calls' CUDA event ms per call beside the stamps' (entry to
-the end of the greedy loop), and the stamps' split: the TPOT trees (the
-entry to the end of the grid's last tree slice), the rest of stage 1 (the
-KNN lookup and label mixes, from there to the scan's start), the LPT
-scan and, inside it, the steps' pass A (cost, latency, the affinity hit
-and admission), with the card's name and power limit. With `--w-aff` >
-0 the prefix-affinity term is on: each row carries 8 signature columns
-and each instance a plane of 64 sketch slots, a quarter of the instances
-holding a row's leading columns. Needs one NVIDIA GPU.
+the end of the greedy loop), and the stamps' split: the per-instance
+preamble (`trees_ms`: the entry to the end of the grid's last slice of
+TPOT trees and, with the term on, affinity factors), the rest of stage 1
+(the KNN lookup and label mixes, from there to the scan's start), the
+LPT scan and, inside it, the steps' pass A (cost, latency with its
+affinity factor, and admission), with the card's name and power limit.
+With `--w-aff` > 0 the prefix-affinity term is on: each row carries 8
+signature columns and each instance a plane of 64 sketch slots, a
+quarter of the instances holding a row's leading columns. Needs one
+NVIDIA GPU.
 """
 import argparse
 import json
