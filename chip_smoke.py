@@ -1348,8 +1348,6 @@ def phase_scenarios(mk, kt):
 
         def one(tap):
             reqs = run.requests(n, lam_scale=scale, seed=0)
-            from repro_torch.core.hotpath import FusedHotPath
-            FusedHotPath.clear_cache(run.bundle())  # fresh hot path
             rb = RouteBalance(RBConfig(charge_compute=False, **rb_kw),
                               run.bundle(), run.tiers)
             mk.reset_counts()
@@ -1520,8 +1518,6 @@ def phase_soak(mk):
 
             def one(tap, backend="megakernel"):
                 reqs = run.requests(SOAK_N, seed=seed)
-                from repro_torch.core.hotpath import FusedHotPath
-                FusedHotPath.clear_cache(run.bundle())
                 rb = RouteBalance(RBConfig(decision_backend=backend,
                                            affinity_weight=w,
                                            charge_compute=False),
@@ -1687,8 +1683,6 @@ def phase_hyperfleet(mk, kt):
     # one controller through K1
     def flat(tap):
         reqs = run.requests(HYPERFLEET_N, seed=0)
-        from repro_torch.core.hotpath import FusedHotPath
-        FusedHotPath.clear_cache(run.bundle())   # fresh hot path
         rb = RouteBalance(RBConfig(charge_compute=False), run.bundle(),
                           run.tiers)
         mk.reset_counts()
@@ -1760,13 +1754,11 @@ LAUNCHER_N = 100        # each launcher run (cut from 200: time)
 
 
 def hier_run(mk, kt, run, make, reqs, tap=None):
-    """One counted cell: a fresh scheduler from `make()` (hot-path cache
-    dropped, so each cell engine's shape count is this run's), the K1 and
-    K2 counts set to 0 just before and read just after. Returns
+    """One counted cell: a fresh scheduler from `make()` (each cell
+    engine's hot path, and so its shape count, is this run's), the K1
+    and K2 counts set to 0 just before and read just after. Returns
     (scheduler, metrics, wall s, (K1 launches, K1 plain), (K2 launches,
     K2 plain))."""
-    from repro_torch.core.hotpath import FusedHotPath
-    FusedHotPath.clear_cache(run.bundle())
     sched = make()
     mk.reset_counts()
     kt.reset_counts()

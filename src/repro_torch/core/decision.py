@@ -7,14 +7,15 @@ cell-sharded scan of the hierarchy's span routing (`cell_greedy_step`,
 `cell_greedy_scan`, `sharded_greedy_scan`), and the staged tensor core
 that `RBConfig(decision_backend="torch")` runs (the reference's
 `decision_backend="jax"`): `greedy_core` (the scan over a precomputed
-order and admission mask), `decide_batch` (LPT order + Eq. 2 admission
-+ scan) and `decide`, its numpy-in / numpy-out wrapper. The reference
-runs the scan as a `lax.scan` under `jit`; here it is a Python loop over
-the R rows on torch tensors. It is also the stage-4 body of the decision
-kernel's plain version
-(`repro_torch.kernels.decision_megakernel.decision_megakernel_plain`),
-and it never reads a value back to the host, so on a CUDA tensor the
-loop only enqueues work.
+order and admission mask), `lpt_admission` (the LPT order and Eq. 2
+admission), `decide_batch` (the two in turn) and `decide`, its numpy-in
+/ numpy-out wrapper. The reference runs the scan as a `lax.scan` under
+`jit`; here it is a Python loop over the R rows on torch tensors, one
+loop (`_scan`) for the flat and the cell-sharded step. `lpt_admission`
+and the scan are also the last stages of the decision kernel's plain
+version (`repro_torch.kernels.decision_megakernel.
+decision_megakernel_plain`), and the scan never reads a value back to
+the host, so on a CUDA tensor the loop only enqueues work.
 
 The sharded scan splits the instance axis into `n_cells` contiguous
 blocks. Every step still needs the global cost and latency maxima, the
@@ -90,12 +91,15 @@ def greedy_step(d, b, free, *, q, c, l, tpot, nominal_tpot, b0,
     return d, b, free, i, est
 
 
-def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
-                free, max_batch, weights, allowed, latency_mode: str,
-                row_valid=None, affinity=None):
-    """The R-step scan in `order` (LPT or arrival). (R, I) planes, (I,)
-    state; d/b/free are copied, not modified. Returns (choice (R,)
-    int64, est_T (R,) float32, (d, b, free) post-scan)."""
+def _scan(step, order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
+          free, max_batch, weights, allowed, latency_mode, row_valid,
+          affinity, **step_kw):
+    """The R-step loop both scans run: gather the request planes into
+    scan order, take one `step` (`greedy_step` or `cell_greedy_step`,
+    with its extra keywords `step_kw`) per row, and scatter the picks
+    and latencies back to request order. d/b/free are copied, not
+    modified. Returns (choice (R,) int64, est_T (R,) float32,
+    (d, b, free) post-scan)."""
     R = q_inst.shape[0]
     b0 = torch.clamp_min(b, 1.0)          # snapshot batch (TPOT reference)
     d, b, free = d.clone(), b.clone(), free.clone()
@@ -108,11 +112,12 @@ def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
     aff_o = None if affinity is None else affinity[order]
     picks, ests = [], []
     for t in range(R):
-        d, b, free, i, est = greedy_step(
+        d, b, free, i, est = step(
             d, b, free, q=q_o[t], c=c_o[t], l=l_o[t], tpot=tpot,
             nominal_tpot=nominal_tpot, b0=b0, max_batch=max_batch,
             weights=weights, allowed=a_o[t], latency_mode=latency_mode,
-            valid=v_o[t], affinity=None if aff_o is None else aff_o[t])
+            valid=v_o[t], affinity=None if aff_o is None else aff_o[t],
+            **step_kw)
         picks.append(i)
         ests.append(est)
     # the scan emits in scan order; scatter back to request order
@@ -122,6 +127,17 @@ def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
         choice.index_copy_(0, order, torch.cat(picks))
         est_T.index_copy_(0, order, torch.cat(ests))
     return choice, est_T, (d, b, free)
+
+
+def greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
+                free, max_batch, weights, allowed, latency_mode: str,
+                row_valid=None, affinity=None):
+    """The R-step scan in `order` (LPT or arrival). (R, I) planes, (I,)
+    state; d/b/free are copied, not modified. Returns (choice (R,)
+    int64, est_T (R,) float32, (d, b, free) post-scan)."""
+    return _scan(greedy_step, order, q_inst, c_hat, l_inst, tpot,
+                 nominal_tpot, d, b, free, max_batch, weights, allowed,
+                 latency_mode, row_valid, affinity)
 
 
 def cell_greedy_step(d, b, free, *, q, c, l, tpot, nominal_tpot, b0,
@@ -202,30 +218,10 @@ def cell_greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d,
     370-394): (R, C, Ic) request planes, (C, Ic) state. Returns (choice
     (R,) int64 GLOBAL columns, est_T (R,) float32, (d, b, free) still
     cell-sharded); d/b/free are copied, not modified."""
-    R = q_inst.shape[0]
-    b0 = torch.clamp_min(b, 1.0)          # snapshot batch (TPOT reference)
-    d, b, free = d.clone(), b.clone(), free.clone()
-    if row_valid is None:
-        row_valid = torch.ones(R, dtype=torch.bool, device=q_inst.device)
-    q_o, c_o, l_o = q_inst[order], c_hat[order], l_inst[order]
-    a_o, v_o = allowed[order], row_valid[order]
-    aff_o = None if affinity is None else affinity[order]
-    picks, ests = [], []
-    for t in range(R):
-        d, b, free, i, est = cell_greedy_step(
-            d, b, free, q=q_o[t], c=c_o[t], l=l_o[t], tpot=tpot,
-            nominal_tpot=nominal_tpot, b0=b0, max_batch=max_batch,
-            weights=weights, allowed=a_o[t], latency_mode=latency_mode,
-            valid=v_o[t], affinity=None if aff_o is None else aff_o[t],
-            offs=offs, gmax=gmax, gmin=gmin, gsum=gsum)
-        picks.append(i)
-        ests.append(est)
-    choice = torch.empty(R, dtype=torch.int64, device=q_inst.device)
-    est_T = torch.empty(R, dtype=torch.float32, device=q_inst.device)
-    if R:
-        choice.index_copy_(0, order, torch.cat(picks))
-        est_T.index_copy_(0, order, torch.cat(ests))
-    return choice, est_T, (d, b, free)
+    return _scan(cell_greedy_step, order, q_inst, c_hat, l_inst, tpot,
+                 nominal_tpot, d, b, free, max_batch, weights, allowed,
+                 latency_mode, row_valid, affinity, offs=offs, gmax=gmax,
+                 gmin=gmin, gsum=gsum)
 
 
 def sharded_greedy_scan(order, q_inst, c_hat, l_inst, tpot, nominal_tpot,
@@ -470,6 +466,31 @@ def greedy_core(order, q_inst, c_hat, l_inst, tpot, nominal_tpot, d, b,
     return choice, est_T
 
 
+def lpt_admission(pred_len_max, l_inst, budgets, len_in, price_in,
+                  price_out, lpt: bool = True, budget_filter: bool = True,
+                  valid=None):
+    """The stages ahead of the scan, on float32 tensors of one device:
+    the scan order (descending `pred_len_max`, stable, with `lpt`;
+    arrival order without) and Eq. 2 admission with the cost matrix
+    (without `budget_filter`, every column `valid` admits; `valid`
+    None admits every column). Returns (order (R,) int64, allowed
+    (R, I) bool, c_hat (R, I))."""
+    if lpt:
+        order = torch.argsort(-pred_len_max, stable=True)
+    else:
+        order = torch.arange(l_inst.shape[0], device=l_inst.device)
+    if budget_filter:
+        allowed, c_hat = admission_math(budgets, len_in, l_inst, price_in,
+                                        price_out, valid=valid)
+    else:
+        c_hat = cost_matrix(len_in, l_inst, price_in, price_out)
+        allowed = torch.ones(c_hat.shape, dtype=torch.bool,
+                             device=c_hat.device)
+        if valid is not None:
+            allowed = allowed & valid[None, :]
+    return order, allowed, c_hat
+
+
 def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
                  free, max_batch, budgets, len_in, price_in, price_out,
                  weights, latency_mode: str = "full", lpt: bool = True,
@@ -487,20 +508,9 @@ def decide_batch(q_inst, l_inst, pred_len_max, tpot, nominal_tpot, d, b,
     n_cells > 1 runs the cell-sharded scan, over the ranks of `mesh`
     when one is given. Returns (choice (R,), est_T (R,), c_hat (R, I),
     allowed (R, I))."""
-    R = q_inst.shape[0]
-    if lpt:
-        order = torch.argsort(-pred_len_max, stable=True)
-    else:
-        order = torch.arange(R, device=q_inst.device)
-    if budget_filter:
-        allowed, c_hat = admission_math(budgets, len_in, l_inst, price_in,
-                                        price_out, valid=valid)
-    else:
-        c_hat = cost_matrix(len_in, l_inst, price_in, price_out)
-        allowed = torch.ones(c_hat.shape, dtype=torch.bool,
-                             device=c_hat.device)
-        if valid is not None:
-            allowed = allowed & valid[None, :]
+    order, allowed, c_hat = lpt_admission(
+        pred_len_max, l_inst, budgets, len_in, price_in, price_out, lpt,
+        budget_filter, valid)
     choice, est_T = greedy_core(order, q_inst, c_hat, l_inst, tpot,
                                 nominal_tpot, d, b, free, max_batch,
                                 weights, allowed, latency_mode, affinity,

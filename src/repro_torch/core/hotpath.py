@@ -133,38 +133,10 @@ class LazyDecision:
 
 
 class FusedHotPath:
-    """Built once per (bundle, roster signature, decision config); one
-    call = one scheduler batch = one kernel call."""
-
-    @staticmethod
-    def for_bundle(bundle, instances, cfg) -> "FusedHotPath":
-        """Cached constructor: repeated cells over the same bundle with
-        an equivalent roster and config reuse the uploaded constants.
-        The cache lives on the bundle; carried state is reset on every
-        cache hit. `shard_cells` and `cell_tag` are in the key: the
-        hierarchy's cell engines each need their own carried mirror,
-        stats and shape count, even where two cells' rosters are equal."""
-        roster = tuple((i.tier.name, i.model_idx, i.tier.max_batch,
-                        i.tier.price_in, i.tier.price_out)
-                       for i in instances)
-        key = (roster, cfg.latency_mode, bool(cfg.lpt),
-               bool(cfg.budget_filter), bool(cfg.learned_tpot),
-               tuple(float(w) for w in cfg.weights),
-               float(cfg.affinity_weight), cfg.shard_cells, cfg.cell_tag)
-        cache = bundle.__dict__.setdefault("_fused_cache", {})
-        runner = cache.get(key)
-        if runner is None:
-            runner = cache[key] = FusedHotPath(bundle, instances, cfg)
-        else:
-            runner.reset()
-        return runner
-
-    @staticmethod
-    def clear_cache(bundle) -> None:
-        """Drop the runners cached on `bundle`, so that the next cell
-        builds a fresh hot path: `reset` keeps a runner's shape count,
-        which a cell that counts its own shapes must start at 0."""
-        bundle.__dict__.pop("_fused_cache", None)
+    """The decision kernel's host side for one attached policy: built at
+    the policy's first decision after `on_attach` over the sim's roster,
+    and dropped at the next attach. One call = one scheduler batch (or K
+    coalesced windows) = one kernel call."""
 
     def __init__(self, bundle, instances, cfg):
         dev = bundle.device
@@ -251,7 +223,14 @@ class FusedHotPath:
         # K bucket -> (device, pinned host) buffers of K1's stamps, made
         # at the first traced call of the bucket on the card
         self._k1_timers: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self.reset()                         # also installs fresh stats
+        # carried device state: the (d, b, free, ctx) mirror and the
+        # alive mask, seeded at the first call
+        self._state: Optional[Tuple[torch.Tensor, ...]] = None
+        self._alive_dev = None
+        self._seen_tel = None
+        self._seen_version = -1
+        self._seen_roster = -1
+        self.stats = _new_stats()
 
     def _host(self, shape, dtype) -> torch.Tensor:
         """A host staging tensor: pinned when the device is CUDA, so the
@@ -273,17 +252,6 @@ class FusedHotPath:
                    for k in ("d", "b", "free", "ctx")}}
 
     # -- host side ----------------------------------------------------------
-    def reset(self):
-        """Forget carried device state (new sim / fresh roster) and start
-        a fresh stats window."""
-        self._state: Optional[Tuple[torch.Tensor, ...]] = None  # d b free ctx
-        self._post_state: Optional[Tuple[torch.Tensor, ...]] = None
-        self._alive_dev = None
-        self._seen_tel = None
-        self._seen_version = -1
-        self._seen_roster = -1
-        self.stats = _new_stats()
-
     def shape_variants(self) -> int:
         """Distinct (K bucket, R bucket) shapes the kernel has been called
         at. Roster events (fail/recover, quarantine, autoscale) flip the
@@ -345,12 +313,12 @@ class FusedHotPath:
         """Refresh the device telemetry mirror from `tel` and return
         (d, b, free, ctx, alive) on the device.
 
-        A full reseed happens on the first batch, after `reset()`, on
-        roster events (`tel.roster_version` moved), when `tel` is a new
-        object, or when most of the roster is dirty. Otherwise only the
-        rows with ``tel.last_write > seen_version`` are shipped and
-        written into the mirror in place. Either way the mirror equals
-        a fresh host read of `tel` bit for bit."""
+        A full reseed happens on the first batch, on roster events
+        (`tel.roster_version` moved), when `tel` is a new object, or when
+        most of the roster is dirty. Otherwise only the rows with
+        ``tel.last_write > seen_version`` are shipped and written into the
+        mirror in place. Either way the mirror equals a fresh host read of
+        `tel` bit for bit."""
         st = self.stats
         rows = None
         if self._state is not None and tel is self._seen_tel:
@@ -395,20 +363,16 @@ class FusedHotPath:
 
     def decide_cols(self, cols, rows: np.ndarray, tel) -> LazyDecision:
         """One scheduler batch as a row slice into the SoA ingest columns:
-        stage into the pinned double-buffered host set, sync the device
-        telemetry mirror, call the kernel once, and queue the copy of
-        its answer back to the host behind an event."""
-        self.stats["calls"] += 1
-        sp = tracing.begin("rb.stage", True) if tracing.ON else None
-        t0 = time.perf_counter()
-        s = self._stage_buffers(1, bucket_pow2(len(rows)))
-        self._stage_window(s, 0, cols, rows)
-        return self._dispatch(s, tel, t0, [len(rows)], sp)[0]
+        `decide_cols_multi` with one window."""
+        return self.decide_cols_multi([(cols, rows)], tel)[0]
 
     def decide_cols_multi(self, batches, tel) -> List[LazyDecision]:
         """K scheduler windows sharing ONE kernel call. `batches` is a list
         of (cols, rows) window slices; returns one `LazyDecision` per
-        window, in order.
+        window, in order. The windows are staged into the pinned
+        double-buffered host set, the device telemetry mirror is synced,
+        the kernel is called once, and the copy of its answers back to
+        the host is queued behind an event.
 
         All windows decide from the same telemetry snapshot — exactly
         what K back-to-back `decide_cols` calls produce when telemetry
@@ -418,12 +382,10 @@ class FusedHotPath:
         mirror sync and one staging pass for the K windows. Window count
         and row count both bucket to powers of two (pad windows hold only
         invalid rows), keeping shape variants at O(log K · log R)."""
-        if len(batches) == 1:
-            cols, rows = batches[0]
-            return [self.decide_cols(cols, rows, tel)]
         K = len(batches)
         self.stats["calls"] += K
-        self.stats["multi_dispatch"] += 1
+        if K > 1:
+            self.stats["multi_dispatch"] += 1
         sp = tracing.begin("rb.stage", True) if tracing.ON else None
         t0 = time.perf_counter()
         Kb = bucket_pow2(K, lo=1)
@@ -438,7 +400,7 @@ class FusedHotPath:
 
     def _dispatch(self, s, tel, t0: float, sizes,
                   sp: Optional[tracing.Span] = None) -> List[LazyDecision]:
-        """The shared tail of a decision call on the staged set `s` (Kb
+        """The tail of a decision call on the staged set `s` (Kb
         windows of Rb rows): stage the affinity plane, sync the device
         mirror, call the kernel once, and queue the copy of its answer
         back behind an event. One `LazyDecision` per real window, of
@@ -467,7 +429,7 @@ class FusedHotPath:
             sp = tracing.begin("rb.launch", True)
             timers = self._timers(Kb)
         t2 = time.perf_counter()
-        choice, est_T, l_chosen, d1, b1, f1 = k1.decision_megakernel(
+        choice, _, l_chosen, *_ = k1.decision_megakernel(
             self._up(s["emb"]), self._up(s["rv"]), self._up(s["budgets"]),
             self._up(s["len_in"]), psig_d, d, b, free, ctx, alive,
             self._x, self._xsq, self._qual, self._leng,
@@ -479,12 +441,6 @@ class FusedHotPath:
             use_gbm=self._use_gbm, depth=self._depth, lr=self._lr,
             timers=None if timers is None else timers[0])
         self._variants.add(tuple(s["rv"].shape))
-        # post-scan dead-reckoned view of the last real window, kept for
-        # diagnostics only (windows are independent, pad windows update
-        # nothing): the next call reseeds from telemetry like the staged
-        # backends
-        last = len(sizes) - 1
-        self._post_state = (d1[last], b1[last], f1[last])
         event = stamps = None
         if self._cuda:
             s["choice"].copy_(choice, non_blocking=True)

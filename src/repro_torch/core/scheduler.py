@@ -19,10 +19,8 @@ The staged paths take their estimates from one KNN query per batch,
 through the bundle's KNN backend or `RBConfig.knn_backend` ("numpy",
 "torch", or "kernel" — the K2 kernel). `assign_windows` decides K
 scheduler windows in one kernel call on the megakernel backend; the
-engine does not call it, as in the reference. `RBConfig.window_coalesce`
-is accepted and validated (>= 1, > 1 only on the megakernel) to match
-the reference's API, and, as there, nothing reads it: a caller groups
-the windows itself and passes them to `assign_windows`. The megakernel
+engine does not call it, as in the reference: a caller groups the
+windows itself and passes them to `assign_windows`. The megakernel
 decides a roster of any size as one controller, as the reference's
 "fused" does (the hierarchy, `serving.hierarchy`, can split a fleet
 into cells instead). `RBConfig.shard_cells > 1` (the hierarchy's span
@@ -31,10 +29,11 @@ unsharded scan:
 over the ranks of a ``("cell",)`` mesh when there is one (a mesh pinned
 with `distributed.shardctx.sharding_rules` whose "cell" dimension has
 `shard_cells` ranks, else `launch.mesh.make_cell_mesh`; this process is
-then rank 0), else as the single-program emulation; `cell_tag` keys the
-hot-path cache per cell engine. The reference's
-names "fused", "jax" and "pallas" raise ValueError naming the port's
-counterpart.
+then rank 0), else as the single-program emulation. The megakernel's
+host side, `core.hotpath.FusedHotPath`, is one per attached policy:
+built at its first decision after `on_attach`, dropped at the next
+attach. The reference's names "fused", "jax" and "pallas" raise
+ValueError naming the port's counterpart.
 """
 from __future__ import annotations
 
@@ -77,9 +76,6 @@ class RBConfig:
     knn_k: int = 10
     charge_compute: bool = True        # charge measured decision time
     decision_backend: str = "megakernel"   # | numpy | torch (staged)
-    window_coalesce: int = 1           # validated, read by nothing (as
-    #                                    in the reference): a caller
-    #                                    groups windows for assign_windows
     knn_backend: Optional[str] = None  # override the bundle's KNN backend
     #                                    (numpy | torch | kernel); staged
     #                                    backends only — the megakernel
@@ -94,11 +90,6 @@ class RBConfig:
     #                                    cells (a power of two), combined
     #                                    with exact reductions: bitwise
     #                                    the unsharded decision
-    cell_tag: Optional[int] = None     # per-cell engine identity under
-    #                                    balanced routing: keys the
-    #                                    FusedHotPath cache, so cells
-    #                                    with equal rosters still get
-    #                                    their own carried mirrors
 
     def __post_init__(self):
         if self.decision_backend in _REFERENCE_BACKENDS:
@@ -111,11 +102,6 @@ class RBConfig:
                              f"not in {DECISION_BACKENDS}")
         if self.knn_backend is not None:
             check_backend(self.knn_backend)
-        if self.window_coalesce < 1:
-            raise ValueError(f"window_coalesce={self.window_coalesce} < 1")
-        if self.window_coalesce > 1 and self.decision_backend != "megakernel":
-            raise ValueError("window_coalesce > 1 needs decision_backend="
-                             "'megakernel'")
         sc = self.shard_cells
         if sc < 0 or sc & (sc - 1):
             raise ValueError(f"shard_cells={self.shard_cells} must be 0 or "
@@ -225,7 +211,7 @@ class RouteBalancePolicy(SchedulingPolicy):
         if not 0.0 <= cfg.affinity_weight <= 1.0:
             raise ValueError(f"affinity_weight={cfg.affinity_weight}")
         self.bundle = None
-        self._fused = None                    # lazily-built FusedHotPath
+        self._fused = None                    # this attach's FusedHotPath
         self._cell_mesh = None                # the span scan's mesh
 
     def engine_overrides(self) -> dict:
@@ -304,8 +290,7 @@ class RouteBalancePolicy(SchedulingPolicy):
             raise RuntimeError("no alive instances to schedule onto")
         if self._fused is None:
             from .hotpath import FusedHotPath
-            self._fused = FusedHotPath.for_bundle(
-                self.bundle, sim.instances, self.cfg)
+            self._fused = FusedHotPath(self.bundle, sim.instances, self.cfg)
         return self._fused
 
     def _decide_staged(self, batch: BatchView, sim: ClusterSim):

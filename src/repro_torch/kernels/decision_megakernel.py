@@ -73,8 +73,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.budget import admission_math, cost_matrix
-from ..core.decision import LATENCY_MODES, greedy_scan
+from ..core.decision import LATENCY_MODES, greedy_scan, lpt_admission
 from ..estimators.gbm import predict_packed_gathered
 from ..estimators.knn import topk_soft_lookup
 from ..serving.affinity import hit_fraction
@@ -134,8 +133,7 @@ def decision_megakernel_plain(emb, row_valid, budgets, len_in, psig,
     """The kernel's function in plain torch, stage by stage, on any
     device: the KNN lookup, the packed GBM, Eq. 2 admission, the
     affinity hit and the greedy scan of the port's core modules."""
-    K, R, _ = emb.shape
-    I = d.shape[0]
+    K = emb.shape[0]
     m_idx = m_of_i.long()
     # the state-dependent TPOT is window-invariant: every window scans
     # from the same telemetry snapshot
@@ -155,20 +153,13 @@ def decision_megakernel_plain(emb, row_valid, budgets, len_in, psig,
         qmix, lmix = topk_soft_lookup(emb[wi], x, xsq, qual, leng, k, eps)
         q_inst, l_inst = qmix[:, m_idx], lmix[:, m_idx]
         pred_len_max = torch.where(rv, lmix.amax(dim=1), -1e30)
-        if budget_filter:
-            allowed, c_hat = admission_math(budgets[wi], len_in[wi], l_inst,
-                                            price_in, price_out, valid=alive)
-        else:
-            c_hat = cost_matrix(len_in[wi], l_inst, price_in, price_out)
-            allowed = alive[None, :].expand(R, I)
+        order, allowed, c_hat = lpt_admission(
+            pred_len_max, l_inst, budgets[wi], len_in[wi], price_in,
+            price_out, lpt, budget_filter, valid=alive)
         aff = None
         if w_aff > 0.0:
             hit = hit_fraction(psig[wi], len_in[wi], sig_plane)
             aff = w_aff * torch.where(alive[None, :], hit, 0.0)
-        if lpt:
-            order = torch.argsort(-pred_len_max, stable=True)
-        else:
-            order = torch.arange(R, device=emb.device)
         choice, est_T, (d1, b1, f1) = greedy_scan(
             order, q_inst, c_hat, l_inst, tpot, nominal, d, b_eff, free,
             maxb, weights, allowed, latency_mode, row_valid=rv,

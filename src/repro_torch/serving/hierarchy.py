@@ -513,8 +513,8 @@ class GlobalBalancer:
 class HierarchicalScheduler:
     """Balanced two-level scheduling with the single controller's
     `repro_torch.core.run_cell` contract: partition the roster at
-    attach, run one RouteBalance engine per cell (each with its own hot
-    path, keyed by ``cell_tag``, and, when the sim is recovery-armed,
+    attach, run one RouteBalance engine per cell (each with its own
+    policy and so its own hot path, and, when the sim is recovery-armed,
     its own `CellRecovery`), and place each arrival through the
     `GlobalBalancer`. Cell engines park their fire loops on the global
     expected count (`_CellEngine`)."""
@@ -553,9 +553,7 @@ class HierarchicalScheduler:
                 mgr = CellRecovery(_CellScope(sim, insts), parent_mgr.cfg)
                 cs.recovery = mgr
                 managers.append(mgr)
-            eng = _make_cell_engine(
-                dataclasses.replace(self.cfg, cell_tag=ci),
-                self.bundle, self.tiers, self)
+            eng = _make_cell_engine(self.cfg, self.bundle, self.tiers, self)
             eng.cell_id = ci
             eng.attach(cs)             # binds the cell's manager too
             self.engines.append(eng)

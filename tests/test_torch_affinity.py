@@ -411,7 +411,8 @@ def test_zero_shape_variants_through_session_churn(chat_pair):
     """Session traffic (multi-turn prefix churn, sketch writes every
     dispatch) runs the decision kernel at one shape per pow2 R bucket,
     as the reference's zero recompiles; a second cell over fresh
-    sessions adds none; completions and metrics are the reference's."""
+    sessions runs on its own hot path, at one shape per bucket of its
+    own; completions and metrics are the reference's."""
     from repro_torch.core.decision import bucket_pow2
     from torch_scenario_parity import assert_metrics_equal
     rrun, prun = chat_pair
@@ -429,9 +430,9 @@ def test_zero_shape_variants_through_session_churn(chat_pair):
                                     charge_compute=False),
                          prun.bundle(), prun.tiers)
     prun.run_cell(pb2, reqs2, seed=0)
-    assert pb2._fused is hp                  # the bundle's one hot path
-    buckets |= {bucket_pow2(s) for s, _ in pb2.compute_log}
-    assert hp.shape_variants() == len(buckets)
+    assert pb2._fused is not hp              # one hot path an engine
+    buckets2 = {bucket_pow2(s) for s, _ in pb2.compute_log}
+    assert pb2._fused.shape_variants() == len(buckets2)
 
 
 def test_session_chat_turns_share_prefixes(chat_pair):

@@ -18,7 +18,8 @@ case for case, and adding the parity checks:
     version on the CPU) with `charge_compute=False` and the port's
     bundle bridged from the reference's weights;
   * `encode_digest` bytes equal to the reference's in both codecs;
-  * signature-twin cells each get their own hot-path runner.
+  * signature-twin cells each get their own hot-path runner, and a
+    scheduler attached again, flat or in cells, decides on new ones.
 """
 import dataclasses
 
@@ -357,8 +358,6 @@ def test_balanced_matches_reference(n_cells, recovery):
                        rrun.tiers, RefHC(n_cells=n_cells))
         rm = rrun.run_cell(rs, rreqs, seed=1)
         preqs = _requests(run, 80, 1, like=rreqs)
-        from repro_torch.core.hotpath import FusedHotPath
-        FusedHotPath.clear_cache(run.bundle())
         ps = build_scheduler(P.RBConfig(charge_compute=False), run.bundle(),
                              run.tiers, HierarchyConfig(n_cells=n_cells))
         pm = run.run_cell(ps, preqs, seed=1)
@@ -384,8 +383,8 @@ def test_balanced_matches_reference(n_cells, recovery):
 
 def test_signature_twin_cells_get_distinct_runners():
     """Cells with equal roster signatures each get their own hot-path
-    runner (`cell_tag` keys the cache): each carries its own mirror and
-    sees only delta syncs after its first batch."""
+    runner (each cell engine has its own policy): each carries its own
+    mirror and sees only delta syncs after its first batch."""
     import repro_torch.core as P
     from repro_torch.serving.hierarchy import HierarchyConfig, build_scheduler
     run = _port()
@@ -413,6 +412,40 @@ def test_signature_twin_cells_get_distinct_runners():
     assert eng.expected == (len(reqs) - sched.decisions + eng.decisions
                             - sched.shed_count + eng.shed_count)
     assert eng.checkpoint_tree()["counters"][3] == eng.expected
+
+
+@pytest.mark.parametrize("n_cells", [0, 2])
+def test_reattach_builds_fresh_runners(n_cells):
+    """A scheduler attached again, to a fresh sim with the same roster,
+    decides on new hot-path runners: none of the first attach's, no
+    kernel shape counted yet, and the mirror seeded in full at the first
+    decision. Flat (`n_cells` 0) and in 2 cells, on one shared bundle."""
+    import repro_torch.core as P
+    from repro_torch.core.engine import BatchView
+    from repro_torch.serving.cluster import ClusterSim
+    from repro_torch.serving.hierarchy import HierarchyConfig, build_scheduler
+    run = _port()
+    cfg = P.RBConfig(charge_compute=False)
+    if n_cells:
+        sched = build_scheduler(cfg, run.bundle(), run.tiers,
+                                HierarchyConfig(n_cells=n_cells))
+    else:
+        sched = P.RouteBalance(cfg, run.bundle(), run.tiers)
+
+    def engines():
+        return sched.engines if n_cells else [sched]
+    P.run_cell(sched, run.tiers, run.names, run.requests(40, seed=3), seed=0)
+    first = [e._fused for e in engines()]
+    assert len(first) == max(n_cells, 1)
+    assert all(hp.shape_variants() > 0 for hp in first)
+    sched.attach(ClusterSim(run.tiers, run.names, seed=0))
+    reqs = run.requests(8, seed=4)
+    for e in engines():
+        hp = e.policy._fused_runner(e.sim)
+        assert all(hp is not old for old in first)
+        assert hp.shape_variants() == 0
+        e.policy.assign(BatchView(reqs), e.sim).fetch()
+        assert e._fused is hp and hp.stats["full_reseed"] == 1
 
 
 # -- digests and the balancer's staleness discipline --------------------------

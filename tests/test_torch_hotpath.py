@@ -1,7 +1,7 @@
 """The port's hot path (`repro_torch.core.hotpath.FusedHotPath` on the
 megakernel backend, the decision kernel's plain version on the CPU)
 against the JAX reference's (`repro.core.hotpath`, its default "fused"
-backend): the runner cache across sims, the dead-roster refusal, and
+backend): one runner a cell across sims, the dead-roster refusal, and
 the hot path at `hyperfleet_10k`'s roster bucket (10,000 instances, I =
 16,384: the delta lanes' capacity of 8,192 and the 16,384-row sketch
 staging of the affinity term).
@@ -31,9 +31,10 @@ def port(small_ctx):
 
 
 def test_fused_runner_cached_across_sims(small_ctx, port):
-    """Repeated cells over one bundle, roster and config reuse one
-    runner (its carried state reset) and repeat the trajectory, which
-    is the reference's."""
+    """Repeated cells over one bundle, roster and config each build their
+    own runner (the reference caches one on the bundle; the port, which
+    compiles nothing per shape, keeps none) and repeat the trajectory,
+    which is the reference's."""
     from repro.core import RBConfig, RouteBalance, make_requests, run_cell
     from repro.serving.workload import poisson_arrivals as r_arrivals
     from repro_torch.serving.workload import poisson_arrivals
@@ -52,9 +53,9 @@ def test_fused_runner_cached_across_sims(small_ctx, port):
                             port["bundle"], port["tiers"])
         P.run_cell(rb, port["tiers"], port["names"], reqs)
         out.append((rb._fused, [r.instance for r in reqs]))
-    assert out[0][0] is out[1][0]           # the same runner
+    assert out[0][0] is not out[1][0]       # a runner a cell
     assert out[0][1] == out[1][1] == [r.instance for r in rreqs]
-    assert out[1][0].stats["calls"] == len(rb.compute_log)   # reset
+    assert out[1][0].stats["calls"] == len(rb.compute_log)   # this cell's
 
 
 def test_fused_raises_on_dead_roster(small_ctx, port):

@@ -64,8 +64,8 @@ def _batches(small_ctx, port, R, seed=5, with_budgets=True):
 
 
 def _runners(small_ctx, port, rsim, psim):
-    """A private FusedHotPath in each package (not the for_bundle
-    cache)."""
+    """A FusedHotPath in each package, built directly (not through a
+    policy)."""
     from repro.core import RBConfig
     from repro.core.hotpath import FusedHotPath as RHot
     from repro_torch.core.hotpath import FusedHotPath

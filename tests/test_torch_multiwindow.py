@@ -9,7 +9,7 @@ the power of two above the largest window."""
 import numpy as np
 import pytest
 
-from torch_scenario_parity import port_bundle
+from torch_scenario_parity import k1_scan_states, port_bundle
 
 CUTS = {2: (0, 12, 21), 3: (0, 12, 24, 35), 4: (0, 12, 24, 35, 42)}
 
@@ -49,8 +49,6 @@ def _sim(pkg, ctx, seed=9):
 
 def _policy(ctx, sim, **cfg_kw):
     from repro_torch.core import RBConfig, RouteBalancePolicy
-    from repro_torch.core.hotpath import FusedHotPath
-    FusedHotPath.clear_cache(ctx["bundle"])   # a fresh hot path
     pol = RouteBalancePolicy(RBConfig(**cfg_kw))
     pol.prepare(ctx["bundle"], ctx["tiers"])
     pol.on_attach(sim)
@@ -86,7 +84,7 @@ def test_multi_window_matches_separate_and_reference(small_ctx, port, K):
     reqs[0].cols.emb = rreqs[0].cols.emb
     sim = _sim("repro_torch", port)
     views = [BatchView(reqs[a:b]) for a, b in zip(cut, cut[1:])]
-    pol = _policy(port, sim, window_coalesce=K)
+    pol = _policy(port, sim)
     plain = mk.decision_megakernel.plain_calls
     multi = [r.fetch() for r in pol.assign_windows(views, sim)]
     assert mk.decision_megakernel.plain_calls == plain + 1
@@ -106,8 +104,8 @@ def test_multi_window_matches_separate_and_reference(small_ctx, port, K):
 
 def test_pad_windows_and_post_state(port):
     """A pad window (K = 3 -> 4) holds only invalid rows and changes no
-    window's answer; the post-scan state kept is the last real
-    window's, and a single window goes through `decide_cols`."""
+    window's answer; each real window's post-scan state is its single
+    call's, and a single window goes through `decide_cols`."""
     from repro_torch.core.hotpath import FusedHotPath
     from repro_torch.core import RBConfig
     reqs = _batch("repro_torch", port["ds"], 20, seed=3)
@@ -116,14 +114,15 @@ def test_pad_windows_and_post_state(port):
     sim = _sim("repro_torch", port, seed=4)
     hp = FusedHotPath(port["bundle"], sim.instances, RBConfig())
     rows = [np.arange(0, 5), np.arange(5, 12), np.arange(12, 20)]
-    multi = hp.decide_cols_multi([(cols, r) for r in rows], sim.tel)
-    post = hp._post_state
-    for r, lazy in zip(rows, multi):
-        want = hp.decide_cols(cols, r, sim.tel).fetch()
-        for a, b in zip(lazy.fetch(), want):
-            np.testing.assert_array_equal(a, b)
-    for a, b in zip(post, hp._post_state):        # last window: rows[2]
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    with k1_scan_states() as post:
+        multi = hp.decide_cols_multi([(cols, r) for r in rows], sim.tel)
+        for r, lazy in zip(rows, multi):
+            want = hp.decide_cols(cols, r, sim.tel).fetch()
+            for a, b in zip(lazy.fetch(), want):
+                np.testing.assert_array_equal(a, b)
+    for w in range(len(rows)):          # call 0: the K = 4 call
+        for a, b in zip(post[0], post[1 + w]):
+            np.testing.assert_array_equal(a[w].numpy(), b[0].numpy())
     n = hp.stats["calls"]
     assert len(hp.decide_cols_multi([(cols, rows[0])], sim.tel)) == 1
     assert hp.stats["multi_dispatch"] == 1 and hp.stats["calls"] == n + 1
@@ -190,11 +189,3 @@ def test_assign_windows_falls_back_per_window(small_ctx, port, backend):
         np.testing.assert_array_equal(cm, cs)
         np.testing.assert_array_equal(lm, ls)
 
-
-def test_window_coalesce_config():
-    from repro_torch.core import RBConfig
-    assert RBConfig(window_coalesce=4).window_coalesce == 4
-    with pytest.raises(ValueError, match="megakernel"):
-        RBConfig(window_coalesce=2, decision_backend="numpy")
-    with pytest.raises(ValueError):
-        RBConfig(window_coalesce=0)

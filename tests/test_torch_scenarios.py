@@ -264,8 +264,6 @@ def test_megakernel_serves_a_roster_past_the_shared_carry(wide_pair, fail):
     preqs = P.make_requests(w["ds"], "test",
                             poisson_arrivals(200.0, 40, seed=0))
     preqs[0].cols.emb = rreqs[0].cols.emb   # the reference's ingest rows
-    from repro_torch.core.hotpath import FusedHotPath
-    FusedHotPath.clear_cache(w["bundle"])
     rb = P.RouteBalance(P.RBConfig(charge_compute=False), w["bundle"],
                         w["tiers"])
     calls = mk.decision_megakernel.plain_calls

@@ -125,19 +125,16 @@ def test_delta_sync_equals_reseed(port):
 
 
 def test_unported_options_refuse():
-    """The hierarchy's options are ported: `cell_tag` is accepted, and
-    `shard_cells > 1` (a power of two) needs the staged torch backend,
-    refused by name on any other; the reference's backend names name
-    the port's counterpart; window coalescing is ported."""
-    assert P.RBConfig(cell_tag=3).cell_tag == 3
-    assert P.RBConfig(shard_cells=2, cell_tag=1,
+    """The hierarchy's options are ported: `shard_cells > 1` (a power of
+    two) needs the staged torch backend, refused by name on any other;
+    the reference's backend names name the port's counterpart."""
+    assert P.RBConfig(shard_cells=2,
                       decision_backend="torch").shard_cells == 2
     for backend in ("megakernel", "numpy"):
         with pytest.raises(ValueError, match="'torch'"):
             P.RBConfig(shard_cells=2, decision_backend=backend)
     with pytest.raises(ValueError, match="power of two"):
         P.RBConfig(shard_cells=3, decision_backend="torch")
-    assert P.RBConfig(window_coalesce=2).window_coalesce == 2
     for kw, counterpart in ((dict(decision_backend="fused"), "megakernel"),
                             (dict(decision_backend="jax"), "torch"),
                             (dict(knn_backend="pallas"), "kernel"),

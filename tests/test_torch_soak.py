@@ -40,7 +40,7 @@ import pytest
 import repro.core as R
 import repro_torch.core as P
 from torch_scenario_parity import arm_scenario, assert_metrics_equal, \
-    build_pair, completions, run_pair
+    build_pair, completions, k1_scan_states, run_pair
 
 try:
     from hypothesis import given, settings, strategies as st
@@ -124,12 +124,13 @@ def _decision_parity(rrun, prun, seed, R_, kill_frac=0.0,
         _, rb.sim = _loaded_sims(rrun, prun, seed, kill_frac,
                                  affinity_weight, rreqs[0].cols,
                                  preqs[0].cols)
-        res = rb.policy.assign(BatchView(preqs), rb.sim)
-        choice, l_chosen = res.fetch()
+        with k1_scan_states() as calls:
+            res = rb.policy.assign(BatchView(preqs), rb.sim)
+            choice, l_chosen = res.fetch()
         dead = {inst.iid for inst in rb.sim.instances if not inst.alive}
         picked = [res.instances[int(i)].iid for i in choice]
         assert not dead.intersection(picked), (be, dead & set(picked))
-        post = rb._fused._post_state if be == "megakernel" else None
+        post = [x[0] for x in calls[-1]] if be == "megakernel" else None
         got[be] = (picked, np.asarray(l_chosen, np.float64), post)
     for be in port:
         assert got[be][0] == want[0], be
@@ -191,8 +192,6 @@ def _port_cell(prun, be, rreqs, n, seed, **kw):
     reference's `rreqs` (the run's schedule and recovery as they stand)."""
     preqs = prun.requests(n, seed=seed)
     preqs[0].cols.emb = rreqs[0].cols.emb
-    from repro_torch.core.hotpath import FusedHotPath
-    FusedHotPath.clear_cache(prun.bundle())
     rb = P.RouteBalance(P.RBConfig(decision_backend=be,
                                    charge_compute=False, **kw),
                         prun.bundle(), prun.tiers)
@@ -374,7 +373,8 @@ def test_carried_state_stays_physical(monkeypatch):
     from repro_torch.serving.cluster import Instance
     _guard_dead_dispatch(monkeypatch, Instance)
     rrun, prun = _pair_for(1, **SMALL)
-    (rreqs, _), (preqs, _, rb) = run_pair(rrun, prun, n=60, seed=4)
+    with k1_scan_states() as post:
+        (rreqs, _), (preqs, _, rb) = run_pair(rrun, prun, n=60, seed=4)
     assert completions(preqs) == completions(rreqs)
     hp = rb._fused
     st_ = hp.stats
@@ -386,7 +386,7 @@ def test_carried_state_stays_physical(monkeypatch):
     assert len(d) >= I
     assert np.all(d >= 0) and np.all(free >= 0) and np.all(ctx >= 0)
     assert np.all(b[:I] <= maxb[:I] + 1e-6)
-    d1, b1, f1 = (np.asarray(x, np.float64) for x in hp._post_state)
+    d1, b1, f1 = (np.asarray(x[0], np.float64) for x in post[-1])
     assert np.all(d1 >= 0) and np.all(f1 >= 0)
     assert np.all(b1 <= maxb + 1e-6)
     pad = slice(I, None)

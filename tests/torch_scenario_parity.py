@@ -7,6 +7,7 @@ The reference decides on its "fused" backend, the port on "megakernel"
 `charge_compute=False`, so the simulated clock never reads the wall
 clock. The port's request stream takes the reference's ingest
 embeddings, so a difference is the decision's or the simulator's."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -116,13 +117,36 @@ def run_pair(rrun, prun, schedule=None, recovery="scenario", n=120,
     preqs = prun.requests(n, lam_scale=lam_scale, seed=seed)
     assert preqs[0].cols.emb is None
     preqs[0].cols.emb = rreqs[0].cols.emb   # the reference's ingest rows
-    # a fresh FusedHotPath per cell, so its shape count is this cell's
-    from repro_torch.core.hotpath import FusedHotPath
-    FusedHotPath.clear_cache(prun.bundle())
     pb = P.RouteBalance(P.RBConfig(charge_compute=False, **rb_kw),
                         prun.bundle(), prun.tiers)
     pm = prun.run_cell(pb, preqs, seed=0)
     return (rreqs, rm), (preqs, pm, pb)
+
+
+@contextlib.contextmanager
+def k1_scan_states():
+    """Record the post-scan state of every decision-kernel call the
+    port's hot path makes inside the block: one (d1, b1, f1) triple of
+    (K, I) tensors per call, in call order. The wrapper reads its tap
+    and counts off its module's name, so the recorder carries them
+    while it stands in, and hands its counts back."""
+    from repro_torch.core import hotpath
+    real = hotpath.k1.decision_megakernel
+    seen = []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[3:])
+        return out
+    record.tap = real.tap
+    record.launches = record.plain_calls = 0
+    hotpath.k1.decision_megakernel = record
+    try:
+        yield seen
+    finally:
+        hotpath.k1.decision_megakernel = real
+        real.launches += record.launches
+        real.plain_calls += record.plain_calls
 
 
 def assert_kernel_calls(pm, pb):
