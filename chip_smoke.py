@@ -12,7 +12,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      four 60-tree depth-3 TPOT heads, I=16 with 13 alive, R in
      {8, 64, 256}, and one request in the R=8 bucket) plus I=128,
      I=4096 (the shared carry's largest), I=4097 and I=16,384 (the
-     global carry), K=2 windows, the affinity term, the four latency modes,
+     cluster carry), K=2 windows, the affinity term, the four latency modes,
      LPT and the budget filter on and off, the GBM off:
      on dyadic inputs (multiples of 1/8, so every distance is exact)
      choice/b1/f1 must be identical and est_T/l_chosen/d1 within rtol
@@ -140,7 +140,7 @@ Phases, each printing one JSON line; any failed check exits nonzero
      disk: completions identical to the uncrashed run's. Then
      `hyperfleet_10k`: 500 of its requests on the staged torch backend
      with one K2 launch per scoring call, then as one controller
-     through K1 (10,000 instances, bucket 16,384: the global carry;
+     through K1 (10,000 instances, bucket 16,384: the cluster carry;
      launches = fired batches less degraded ones, no plain call, shape
      variants = R buckets, completions identical to the staged run; at
      most 8 recorded calls held against the plain version as above);
@@ -629,7 +629,7 @@ def phase_check(mk):
         dict(R=64, I=16, n_alive=13, K=2),
         dict(R=64, I=16, n_alive=13, w_aff=0.5),
         # one request in the R = 8 bucket; the shared carry's largest
-        # roster; the global carry one past it and at hyperfleet_10k's
+        # roster; the cluster carry one past it and at hyperfleet_10k's
         # bucket (one window, and two with the affinity term)
         dict(R=8, I=16, n_alive=13, valid=1),
         dict(R=64, I=4096, n_alive=4000),
@@ -665,7 +665,7 @@ def phase_check(mk):
         emit("check", inputs="normal", R=R, I=16, choice_agreement=frac,
              est_T_max_rel_err_on_agreeing_rows=rel_max)
         check(frac >= 0.99, f"R={R}: choice agreement {frac} < 0.99")
-    # the global carry on random normal inputs: choices on >= 99% of the
+    # the cluster carry on random normal inputs: choices on >= 99% of the
     # rows, est_T and l_chosen within rtol 1e-5 where they agree
     tensors, statics = make_case(116, R=16, I=16384, n_alive=10000,
                                  dyadic=False)
@@ -708,7 +708,7 @@ def phase_times(mk):
 
 def phase_times_wide(mk):
     """K1 at hyperfleet_10k's roster bucket (I = 16,384 with 10,000
-    alive: the global carry) for R = 8 and 16, timed as phase 4 times
+    alive: the cluster carry) for R = 8 and 16, timed as phase 4 times
     it (call, device, plain, bound), with the device time once more
     without the TPOT heads' trees (their share: a warp an instance)."""
     rows = {}
@@ -742,42 +742,52 @@ def phase_times_wide(mk):
 
 
 def phase_carry_boundary(mk):
-    """Where the scan's carry moves from shared to global memory: K1 on
-    the same random-normal inputs with each carry, at rosters about
-    `MAX_SHARED_I` (the hierarchy's cell bucket 1,024, 4,096, and 8,192,
-    where the shared carry still fits up to R = 16). The wrapper picks
-    the carry by `MAX_SHARED_I`, which is set around each timing: 0 for
-    the global carry, past any roster for the shared one. The two
-    carries' outputs must be bitwise equal; device ms (profiler, 20
-    calls) are taken in turns shared, global, global, shared."""
+    """Where the scan's carry moves between its homes: K1 on the same
+    random-normal inputs with two carries in turns (a, b, b, a; device
+    ms, profiler, 20 calls each), the outputs bitwise equal. The shared
+    against the global carry about `MAX_SHARED_I` (the hierarchy's cell
+    bucket 1,024, 4,096, and 8,192, where the shared carry still fits up
+    to R = 16), and the cluster carry against the global one past it
+    (4,097, 8,192 and hyperfleet_10k's 16,384 at R = 16 and 64). The
+    wrapper picks the carry by its constants, set around each timing:
+    `MAX_SHARED_I` 0 for the global carry, past any roster for the
+    shared one; as they stand for the cluster."""
     rows = {}
     saved = mk.MAX_SHARED_I
-    for I, R in ((1024, 8), (1024, 64), (4096, 8), (4096, 16), (4096, 64),
-                 (8192, 8), (8192, 16)):
+    force = {"shared": 1 << 30, "global": 0, "cluster": saved}
+    pairs = [(("shared", "global"), I, R) for I, R in (
+        (1024, 8), (1024, 64), (4096, 8), (4096, 16), (4096, 64), (8192, 8),
+        (8192, 16))]
+    pairs += [(("cluster", "global"), I, R)
+              for I in (4097, 8192, 16384) for R in (16, 64)]
+    for (a, b), I, R in pairs:
         tensors, statics = make_case(950 + I + R, R=R, I=I,
                                      n_alive=I * 5 // 8, dyadic=False)
 
         def kernel():
             return mk.decision_megakernel(*tensors, **statics)
-        times, outs = {"shared": [], "global": []}, {}
+        times, outs, kinds = {a: [], b: []}, {}, {}
         try:
-            for carry in ("shared", "global", "global", "shared"):
-                mk.MAX_SHARED_I = 0 if carry == "global" else 1 << 30
+            for carry in (a, b, b, a):
+                mk.MAX_SHARED_I = force[carry]
+                kinds[carry] = mk.carry_on(torch.device("cuda"), 1, R, E, M,
+                                           I)
                 outs.setdefault(carry, [o.cpu() for o in kernel()])
                 times[carry].append(required_split(
                     kernel, (K1_FUNCTION,), f"K1 I={I} R={R} {carry}")
                     [K1_FUNCTION])
         finally:
             mk.MAX_SHARED_I = saved
-        check(all(torch.equal(a, b)
-                  for a, b in zip(outs["shared"], outs["global"])),
-              f"K1 I={I} R={R}: the global carry differs from the shared")
-        row = dict(I=I, R=R, device_ms_shared=times["shared"],
-                   device_ms_global=times["global"],
-                   global_over_shared=sum(times["global"])
-                   / sum(times["shared"]),
-                   runs=("shared" if I <= saved else "global"))
-        rows[f"I={I},R={R}"] = row
+        check(all(kinds[c][0] == c for c in (a, b)),
+              f"K1 I={I} R={R}: carries {kinds}, not {a} and {b}")
+        check(all(torch.equal(x, y) for x, y in zip(outs[a], outs[b])),
+              f"K1 I={I} R={R}: the {b} carry differs from the {a}")
+        row = {"I": I, "R": R, f"device_ms_{a}": times[a],
+               f"device_ms_{b}": times[b],
+               f"{b}_over_{a}": sum(times[b]) / sum(times[a]),
+               "cluster_ctas": kinds.get("cluster", (None, None))[1],
+               "runs": mk.carry_on(torch.device("cuda"), 1, R, E, M, I)[0]}
+        rows[f"I={I},R={R},{a}"] = row
         emit("carry_boundary", bitwise_equal=True, **row)
     return rows
 
@@ -1633,7 +1643,7 @@ def phase_hyperfleet(mk, kt):
     backend with the KNN kernel (one K2 launch per scoring call, the
     recorded lookups held against the plain version), then the same
     requests as one controller through K1 (`RBConfig()`, I bucket
-    16,384: the global carry), counted (launches = fired batches less
+    16,384: the cluster carry), counted (launches = fired batches less
     degraded ones, no plain call, shape variants = R buckets, completions
     identical to the staged run) and once more tapped (at most 8
     recorded calls held against the plain version). Returns (row, the
@@ -4297,7 +4307,7 @@ def main():
         "shape": {"K": 1, "R": 8, "I": 16, "N": N_INDEX,
                                       "E": E, "M": M},
         "by_R": {str(R): v for R, v in times.items()},
-        "global_carry": times_wide, "carry_boundary": carry_split}, {
+        "wide_roster": times_wide, "carry_boundary": carry_split}, {
         "name": "knn_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/knn_topk.cu",
         "replaces": "src/repro/kernels/knn_topk.py:83",

@@ -73,13 +73,19 @@ class _K1Stamps:
     (K R with the term on, 0 off); per window `k1.stage1`, from there to
     the scan's start (the rest of stage 1, the KNN lookup and label
     mixes, which ran beside the preamble on the grid), `k1.scan`, the
-    scan CTA's preamble and greedy loop, and `k1.scan_a`, pass A's part
-    of that loop; `k1.call` from the entry to the last window's end."""
+    scan's preamble and greedy loop as rank 0 of the scanning CTAs saw
+    it, with `steps`, the steps its loop ran (the call's R bucket), and
+    `ctas`, the CTAs that ran it (the cluster's C on the cluster carry, 1
+    on the others: `kernels.decision_megakernel.carry_on`), and
+    `k1.scan_a`, pass A's part of that loop; `k1.call` from the entry to
+    the last window's end."""
 
-    __slots__ = ("host", "K", "aff_rows", "done")
+    __slots__ = ("host", "K", "aff_rows", "steps", "ctas", "done")
 
-    def __init__(self, host: torch.Tensor, K: int, aff_rows: int):
-        self.host, self.K, self.aff_rows, self.done = host, K, aff_rows, False
+    def __init__(self, host: torch.Tensor, K: int, aff_rows: int,
+                 steps: int, ctas: int):
+        self.host, self.K, self.aff_rows = host, K, aff_rows
+        self.steps, self.ctas, self.done = steps, ctas, False
 
     def store(self):
         if self.done:
@@ -92,7 +98,8 @@ class _K1Stamps:
         for w in range(self.K):
             s1, s2, s3, scan_a = t[1 + 4 * w:5 + 4 * w]
             tracing.add("k1.stage1", s2 - s1, batch=batch)
-            tracing.add("k1.scan", s3 - s2, batch=batch)
+            tracing.add("k1.scan", s3 - s2, batch=batch, steps=self.steps,
+                        ctas=self.ctas)
             tracing.add("k1.scan_a", scan_a, batch=batch)
         tracing.add("k1.call", max(t[3::4]) - t[0], batch=batch)
 
@@ -447,8 +454,12 @@ class FusedHotPath:
             s["l"].copy_(l_chosen, non_blocking=True)
             if timers is not None:
                 timers[1].copy_(timers[0], non_blocking=True)
-                stamps = _K1Stamps(timers[1], Kb, Kb * s["rv"].shape[1]
-                                   if self._w_aff > 0.0 else 0)
+                Rb = s["rv"].shape[1]
+                _, ctas = k1.carry_on(self.device, Kb, Rb, self._x.shape[1],
+                                      self._qual.shape[1], self._Itot)
+                stamps = _K1Stamps(timers[1], Kb,
+                                   Kb * Rb if self._w_aff > 0.0 else 0, Rb,
+                                   ctas)
             event = torch.cuda.Event()
             event.record()
             choice, l_chosen = s["choice"], s["l"]

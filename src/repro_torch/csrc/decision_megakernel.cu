@@ -50,7 +50,8 @@
 //      scratch; no k list is kept.
 //   2. Each window has a second ticket, drawn once by every row tile
 //      that holds rows of it and once for the trees. The CTA that draws a
-//      window's last ticket runs that window's scan: the LPT order and
+//      window's last ticket (on the cluster carry, its cluster, after
+//      stage 1) runs that window's scan: the LPT order and
 //      the greedy loop over the TPOT the grid wrote. With I <= 32 (the
 //      main path) one warp runs the loop, lane i holding instance i's
 //      constants and its (d, b, free) carry in registers, so a step is
@@ -58,43 +59,70 @@
 //      the columns i = t (mod blockDim.x). Eq. 2 admission and Eq. 1 are
 //      evaluated for one row over I on the fly; with the affinity term a
 //      step reads the row's factors the grid wrote, one float a column.
-// No CTA waits on another: every hand-over is a last ticket, and every
-// ticket is left at 0.
+// No CTA waits on a CTA outside its cluster: every hand-over is a last
+// ticket, and every ticket is left at 0.
 // The block's per-instance arrays (the carry d/b/free, b0, the TPOT, and
-// a step's cost and latency: 28 B an instance) have two homes. The
-// shared carry keeps them in shared memory, up to I = 4096 (MAX_SHARED_I
-// in the wrapper) where they fit beside the R-length arrays, and copies
-// the TPOT in. Past that, or where they do not fit, the global carry
-// keeps d/b/free in the window's rows of the outputs d1/b1/f1 (no copy
-// at the end), the TPOT in its (I,) scratch, and b0 and, per window, a
-// step's cost and latency in a ((1 + 2K), I) scratch, L2-resident (about
-// 330 KB at I = 16,384, K = 1). Only the owner of a column writes it in
-// the scan, so the two carries run the same operations in the same
-// order: the global one is bitwise the shared one. What other CTAs wrote
-// (the label mixes, the TPOT, the global carry's rows) is read through
+// a step's cost and latency: 28 B an instance) have three homes, chosen
+// by the wrapper from the shapes alone (`carry_of`):
+//   * The shared carry keeps them in the scanning CTA's shared memory,
+//     up to I = 4096 (MAX_SHARED_I in the wrapper) where they fit beside
+//     the R-length arrays, and copies the TPOT in.
+//   * The cluster carry, past that up to 16 x 4096 instances, spreads
+//     them over a thread-block cluster of C CTAs (2 to 16, the wrapper's
+//     choice: at most 1,024 columns a CTA where C allows), rank r holding
+//     the contiguous slice of ceil(I / C) columns from r ceil(I / C) in
+//     its own shared memory. The grid's x is padded to whole clusters;
+//     the pad CTAs take slices of the preamble but no index split. A CTA
+//     that draws a window's last ticket only records it; after stage 1
+//     every CTA of the cluster meets at a cluster barrier, reads which
+//     windows its siblings completed through distributed shared memory
+//     and the whole cluster scans each in window order. Every CTA runs
+//     the R-length preamble (the LPT order) itself; each step's passes
+//     run over a CTA's own columns, and each reduction folds every CTA's
+//     result, posted to a slot in its shared memory, after one cluster
+//     barrier (`cluster_reduce`); pass A's also takes the normalizers,
+//     so a step has two (three in the off modes). A CTA still
+//     waits only on CTAs of its own cluster, which the hardware
+//     co-schedules. A last barrier keeps every CTA's shared memory alive
+//     while the others may read it.
+//   * The global carry, past the cluster's reach or where the slices do
+//     not fit, keeps d/b/free in the window's rows of the outputs
+//     d1/b1/f1 (no copy at the end), the TPOT in its (I,) scratch, and b0
+//     and, per window, a step's cost and latency in a ((1 + 2K), I)
+//     scratch, L2-resident (about 330 KB at I = 16,384, K = 1).
+// Only the owner of a column writes it in the scan, every column's
+// arithmetic is the same, and every per-step reduction is a max, an any
+// or a lexicographic arg-max / arg-min, exact in any grouping: the three
+// carries are bitwise equal. What other CTAs wrote (the label mixes, the
+// TPOT, the affinity factors, the global carry's rows) is read through
 // L2 (__ldcg).
 // The dynamic shared memory is the larger of stage 1's need and the
 // scan's, and every CTA gets it. At the main path's I = 16 that is stage
 // 1's (43 KB at the 4-row tile), and registers (128 a thread, for the
 // scan) hold the kernel to two CTAs an SM; at I = 4096 the shared carry
 // makes it about 115 KB, one CTA an SM, so stage 1 runs in about twice
-// the waves there; with the global carry it is stage 1's again. The
-// boundary is measured, not the opt-in limit: the global carry's reads
-// from L2 cost the scan more than stage 1's second CTA an SM gains at
-// I = 4096 for R >= 16, and less at I = 8192 (chip_smoke.py times both).
+// the waves there; with the global carry it is stage 1's again, and with
+// the cluster carry's 1,024 columns a CTA (28 KB) it is about stage 1's
+// (32 KB at R = 16, M = 16). The shared carry's boundary is measured, not
+// the opt-in limit: the global carry's reads from L2 cost the scan more
+// than stage 1's second CTA an SM gains at I = 4096 for R >= 16, and
+// less at I = 8192 (chip_smoke.py times the carries about the
+// boundaries).
 //
 // Timers. With `timers` set (a traced call), thread 0 of block (0, 0)
 // writes %globaltimer at the kernel's entry (the block dispatched first;
 // the trees end at least one tree walk after it); the CTA that draws the
 // trees' last ticket writes it into 1 + 4w for every window w (the end of
 // the last slice: the trees and, with the term on, the affinity factors);
-// and the CTA that scans window w writes it at 2 + 4w when its scan
-// starts and at 3 + 4w after the greedy loop, and at 4 + 4w the loop's
-// pass A time: over the steps, the sum of each step's start to the end
-// of pass A's admission reduction (cost, latency with its affinity factor
-// read, and Eq. 2 over every instance), read by the scan's thread 0.
-// Where no reduction closes pass A (no budget filter) a traced call adds
-// a barrier there. Null (every untraced call): one branch on the pointer
+// and the CTA that scans window w (on the cluster carry, rank 0 of the
+// scanning cluster) writes it at 2 + 4w when its scan starts and at 3 +
+// 4w after the greedy loop, and at 4 + 4w the loop's pass A time: over
+// the steps, the sum of each step's start to the end of pass A's
+// admission reduction (cost, latency with its affinity factor read, and
+// Eq. 2 over every instance; on the cluster carry the same reduction also
+// takes the normalizers), read by the scan's thread 0.
+// Where no reduction closes pass A (no budget filter, off the cluster
+// carry) a traced call adds a barrier there. Null (every untraced call): one branch on the pointer
 // a step. Nothing reads the buffer and a barrier changes no
 // value, so the outputs are the same either way.
 //
@@ -109,9 +137,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <climits>
 
 #include "knn_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -267,22 +299,22 @@ __device__ __forceinline__ float ld(const float* a, int i) {
   return GL ? __ldcg(a + i) : a[i];
 }
 
-// Shared-memory words of the scan: with the shared carry the seven
-// I-length arrays too, with the global carry the R-length ones and the
-// reduction words only.
-__host__ __device__ inline size_t scan_smem_words(int R, int M, int I,
-                                                  bool shared_carry) {
-  return (size_t)2 * R * M + (size_t)7 * R
-         + (shared_carry ? (size_t)7 * I : 0) + 96;
+// Shared-memory words of the scan: the R-length arrays, the reduction
+// words and the seven per-instance arrays of the `cols` columns a CTA
+// holds there: I with the shared carry, ceil(I / C) with the cluster
+// carry, 0 with the global carry. (The wrapper's `scan_smem_bytes`.)
+__host__ __device__ inline size_t scan_smem_words(int R, int M, int cols) {
+  return (size_t)2 * R * M + (size_t)7 * R + (size_t)7 * cols + 96;
 }
 
 // The scan's arrays for window w: the R-length ones and the reduction
-// words from shared memory; the I-length ones from shared memory too
-// (shared carry), or (global carry) the carry d/b/free in the window's
-// rows of the outputs d1/b1/f1, the TPOT in its scratch, b0 in the
-// carry's first scratch row and a step's cost and latency in the
-// window's two.
-__device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w) {
+// words from shared memory; the per-instance ones from shared memory too,
+// `cols` of each (shared and cluster carry), or (global carry) the carry
+// d/b/free in the window's rows of the outputs d1/b1/f1, the TPOT in its
+// scratch, b0 in the carry's first scratch row and a step's cost and
+// latency in the window's two.
+__device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w,
+                          int cols) {
   const int R = prm.R, M = prm.M, I = prm.I;
   ScanSmem s;
   float* p = base;
@@ -296,13 +328,13 @@ __device__ ScanSmem carve(float* base, const RtDecisionParams& prm, int w) {
   s.pick = reinterpret_cast<int*>(p); p += R;
   s.est = p; p += R;
   if (prm.scan_i == nullptr) {
-    s.d = p; p += I;
-    s.b = p; p += I;
-    s.fr = p; p += I;
-    s.b0 = p; p += I;
-    s.tpot = p; p += I;
-    s.tc = p; p += I;
-    s.tt = p; p += I;
+    s.d = p; p += cols;
+    s.b = p; p += cols;
+    s.fr = p; p += cols;
+    s.b0 = p; p += cols;
+    s.tpot = p; p += cols;
+    s.tc = p; p += cols;
+    s.tt = p; p += cols;
   } else {
     const size_t o = (size_t)w * I;
     s.d = prm.d1 + o;
@@ -648,6 +680,233 @@ __device__ void run_scan_block(const RtDecisionParams& p, ScanSmem& s, int w) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster carry's reductions: a partial a warp, folded under one of
+// the exact operations below, so that no grouping changes a bit.
+
+struct Part {
+  float v, u;   // a value, and a second value
+  int i;        // a column
+};
+
+// A step's admission and normalizers, folded in one reduction: the
+// cheapest alive column (v its cost, or inf where none is alive, i the
+// column) with its cost c and latency t as they are; whether any column
+// is admitted; and the max cost and latency over the admitted columns
+// (over the alive ones without the budget filter).
+struct Adm {
+  float v, c, t, any, cm, tm;
+  int i;
+};
+
+struct ArgMax {       // the highest v, the lowest column on ties
+  __device__ Part operator()(const Part& a, const Part& b) const {
+    return lex_greater(b.v, b.i, a.v, a.i) ? b : a;
+  }
+};
+struct ArgMin {       // the lowest v, the lowest column on ties
+  __device__ Part operator()(const Part& a, const Part& b) const {
+    return lex_less(b.v, b.i, a.v, a.i) ? b : a;
+  }
+};
+struct Max2 {         // the max of v and the max of u
+  __device__ Part operator()(const Part& a, const Part& b) const {
+    return Part{fmaxf(a.v, b.v), fmaxf(a.u, b.u), 0};
+  }
+};
+struct AdmOp {        // ArgMin of (v, i) with its (c, t); any; the maxes
+  __device__ Adm operator()(const Adm& a, const Adm& b) const {
+    Adm r = lex_less(b.v, b.i, a.v, a.i) ? b : a;
+    r.any = fmaxf(a.any, b.any);
+    r.cm = fmaxf(a.cm, b.cm);
+    r.tm = fmaxf(a.tm, b.tm);
+    return r;
+  }
+};
+
+__device__ __forceinline__ Part shfl_xor(const Part& x, int off) {
+  return Part{__shfl_xor_sync(FULL, x.v, off), __shfl_xor_sync(FULL, x.u, off),
+              __shfl_xor_sync(FULL, x.i, off)};
+}
+__device__ __forceinline__ Adm shfl_xor(const Adm& x, int off) {
+  return Adm{__shfl_xor_sync(FULL, x.v, off), __shfl_xor_sync(FULL, x.c, off),
+             __shfl_xor_sync(FULL, x.t, off), __shfl_xor_sync(FULL, x.any, off),
+             __shfl_xor_sync(FULL, x.cm, off), __shfl_xor_sync(FULL, x.tm, off),
+             __shfl_xor_sync(FULL, x.i, off)};
+}
+
+template <class T, class Op>
+__device__ __forceinline__ T warp_fold(T x, const Op& op) {
+  for (int off = 16; off; off >>= 1) x = op(x, shfl_xor(x, off));
+  return x;
+}
+
+constexpr int WARPS = THREADS / 32;
+
+// One reduction over the cluster, in two levels: each warp folds its
+// lanes, warp 0 folds the warps' results into the CTA's, posted to buffer
+// `buf` in its shared memory; after one cluster barrier each warp reads
+// the C CTAs' results through distributed shared memory, one a lane, and
+// folds them. Every thread returns the result. (Every warp reading every
+// warp's result of every CTA moved 8 times the remote words and cost the
+// step more than the block barrier that this saves.) `buf` flips at every
+// reduction, whatever its type, so two reductions in a row never share a
+// buffer and one cluster barrier a reduction is enough: a buffer is
+// written again only after the next reduction's barrier, which every
+// reader of its last value passes only once it has read it.
+template <class T, class Op>
+__device__ T cluster_reduce(T x, T id, const Op& op, T (*slots)[WARPS + 1],
+                            int& buf, cg::cluster_group& cl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* sl = slots[buf];                       // the warps' results, the CTA's
+  x = warp_fold(x, op);
+  if (lane == 0) sl[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = warp_fold(lane < WARPS ? sl[lane] : id, op);
+    if (lane == 0) sl[WARPS] = x;
+  }
+  cl.sync();
+  x = lane < (int)cl.num_blocks() ? cl.map_shared_rank(sl, lane)[WARPS] : id;
+  buf ^= 1;
+  return warp_fold(x, op);
+}
+
+// The R-step greedy loop on the cluster carry: this CTA holds columns
+// [i0, i0 + n) of the roster in its shared memory (local column j is
+// instance i0 + j) and thread `tid` owns the local columns j = tid (mod
+// blockDim.x). Each pass runs over the CTA's own columns with the block
+// scan's operations, indices global; its reduction spans the cluster, and
+// pass A's also takes the normalizers that the block scan's pass B finds
+// (so a step has two reductions, three in the off modes). The CTA that
+// owns the winning column dead-reckons it and keeps its latency; every
+// CTA records the pick. Each CTA writes its slice of d1/b1/f1.
+template <bool AFF>
+__device__ void run_scan_cluster(const RtDecisionParams& p, ScanSmem& s,
+                                 int w, int i0, int n) {
+  __shared__ Part slots[2][WARPS + 1];
+  __shared__ Adm aslots[2][WARPS + 1];
+  cg::cluster_group cl = cg::this_cluster();
+  const int I = p.I, M = p.M, tid = threadIdx.x, nthr = blockDim.x;
+  const bool off = p.mode == OFF_REACTIVE || p.mode == OFF_PREDICTIVE;
+  const float wl = off ? 0.f : p.wl;
+  const bool stamp = p.timers != nullptr && tid == 0 && cl.block_rank() == 0;
+  const Part lo{-INFINITY, -INFINITY, INT_MAX}, hi{INFINITY, 0.f, INT_MAX};
+  const Adm none{INFINITY, 0.f, 0.f, 0.f, -INFINITY, -INFINITY, INT_MAX};
+  int buf = 0;
+  long long pass_a = 0;                     // traced: pass A's time
+  for (int t = 0; t < p.R; ++t) {
+    const long long ta = stamp ? global_timer() : 0;
+    const int rr = s.order[t];
+    const float lin = s.lin[rr];
+    const float bud = s.bud[rr];
+    const bool has_budget = !isnan(bud);
+    const float* arow = AFF ? p.aff + ((size_t)w * p.R + rr) * I : nullptr;
+
+    // pass A: cost and latency per instance; admission and, in the same
+    // reduction, the normalizers over the allowed candidates: the
+    // admitted columns' maxes where any is admitted, else the cheapest
+    // alive column's own cost and latency (the block scan's pass B)
+    Adm a = none;
+    for (int j = tid; j < n; j += nthr) {
+      const int i = i0 + j;
+      const float l = s.lmix[rr * M + p.m_of_i[i]];
+      const bool al = p.alive[i] != 0;
+      const Inst in{p.price_in[i], p.price_out[i], p.nominal[i], s.tpot[j],
+                    s.b0[j]};
+      float c, T;
+      cost_latency<AFF>(p, arow, i, in, lin, l, s.d[j], s.b[j], s.fr[j], c,
+                        T);
+      s.tc[j] = c;
+      s.tt[j] = T;
+      const bool adm = al && (!has_budget || c <= bud);
+      if (adm) a.any = 1.f;
+      if (p.budget_filter ? adm : al) {
+        a.cm = fmaxf(a.cm, c);
+        a.tm = fmaxf(a.tm, T);
+      }
+      const float csel = al ? c : INFINITY;
+      if (lex_less(csel, i, a.v, a.i)) {
+        a.v = csel; a.i = i; a.c = c; a.t = T;
+      }
+    }
+    a = cluster_reduce(a, none, AdmOp{}, aslots, buf, cl);
+    if (stamp) pass_a += global_timer() - ta;
+    const bool any_c = a.any != 0.f;
+    const int cs_i = a.i;
+    const bool one = p.budget_filter && !any_c;
+    const float cmax = fmaxf(one ? a.c : a.cm, 1e-12f);
+    const float tmax = fmaxf(one ? a.t : a.tm, 1e-12f);
+
+    // pass C: Eq. 1 scores, quantized; argmax, or (off modes) the score
+    // max and the tie metric's max over ALL columns
+    float best_v = -INFINITY, tie_max = -INFINITY;
+    int best_i = INT_MAX;
+    for (int j = tid; j < n; j += nthr) {
+      const int i = i0 + j;
+      const bool al = p.alive[i] != 0;
+      const float c = s.tc[j], T = s.tt[j];
+      bool allowed = al;
+      if (p.budget_filter)
+        allowed = any_c ? (al && (!has_budget || c <= bud)) : (i == cs_i);
+      const float q = s.qmix[rr * M + p.m_of_i[i]];
+      const float sc =
+          allowed ? score(p, wl, q, c, T, cmax, tmax) : -INFINITY;
+      if (off) {
+        s.tc[j] = sc;
+        best_v = fmaxf(best_v, sc);
+        const float tie = (p.mode == OFF_REACTIVE)
+                              ? __fadd_rn(s.d[j], s.b[j]) : T;
+        tie_max = fmaxf(tie_max, tie);
+      } else if (lex_greater(sc, i, best_v, best_i)) {
+        best_v = sc; best_i = i;
+      }
+    }
+    int win;
+    if (off) {
+      const Part bt = cluster_reduce(Part{best_v, tie_max, 0}, lo, Max2{},
+                                     slots, buf, cl);
+      const float den = fmaxf(bt.u, 1e-9f);
+      float v = INFINITY;
+      int vi = INT_MAX;
+      for (int j = tid; j < n; j += nthr) {
+        const int i = i0 + j;
+        const float tie = (p.mode == OFF_REACTIVE)
+                              ? __fadd_rn(s.d[j], s.b[j]) : s.tt[j];
+        const float cand = (s.tc[j] >= bt.v) ? __fdiv_rn(tie, den)
+                                             : INFINITY;
+        if (lex_less(cand, i, v, vi)) { v = cand; vi = i; }
+      }
+      win = cluster_reduce(Part{v, 0.f, vi}, hi, ArgMin{}, slots, buf, cl).i;
+    } else {
+      win = cluster_reduce(Part{best_v, 0.f, best_i}, lo, ArgMax{}, slots,
+                           buf, cl).i;
+    }
+
+    // every CTA records the pick; the owner of the winning column keeps
+    // its latency and dead-reckons it
+    if (tid == 0) s.pick[rr] = win;
+    const int j = win - i0;
+    if (j >= 0 && j < n && j % nthr == tid) {
+      s.est[rr] = s.tt[j];
+      const bool v = s.rv[rr] != 0;
+      const float l = s.lmix[rr * M + p.m_of_i[win]];
+      s.d[j] = __fadd_rn(s.d[j], v ? l : 0.f);
+      const float fr = s.fr[j];
+      const bool has_free = (fr > 0.f) && v;
+      s.fr[j] = __fadd_rn(fr, has_free ? -1.f : -0.f);
+      if (has_free) s.b[j] = fminf(__fadd_rn(s.b[j], 1.f), p.maxb[win]);
+    }
+  }
+  if (stamp) p.timers[4 + 4 * w] = pass_a;
+  for (int j = tid; j < n; j += nthr) {
+    const size_t o = (size_t)w * I + i0 + j;
+    p.d1[o] = s.d[j];
+    p.b1[o] = s.b[j];
+    p.f1[o] = s.fr[j];
+  }
+}
+
 // Instance i's TPOT (window-invariant), by one warp: a lane per tree,
 // the leaf values summed in tree order by shuffles. Every lane returns it.
 __device__ float tpot_of(const RtDecisionParams& p, int i, int lane) {
@@ -807,11 +1066,25 @@ __device__ void run_scan(const RtDecisionParams& p, ScanSmem& s, int w) {
   }
 }
 
+// Window w's scan by this CTA, or (CL) by this CTA's share of its
+// cluster: the rows, the LPT order, the greedy loop and the outputs. On
+// the cluster carry the CTA holds columns [i0, i0 + n) and writes the
+// rows whose pick it owns.
+template <bool CL>
 __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   const int R = p.R, M = p.M, I = p.I;
   const int tid = threadIdx.x;
-  if (p.timers != nullptr && tid == 0) p.timers[2 + 4 * w] = global_timer();
-  ScanSmem s = carve(smem, p, w);
+  int me = 0, C = 1;                        // CL: rank and cluster size
+  if constexpr (CL) {
+    cg::cluster_group cl = cg::this_cluster();
+    me = (int)cl.block_rank();
+    C = (int)cl.num_blocks();
+  }
+  const int cols = (I + C - 1) / C, i0 = me * cols;
+  const int n = max(0, min(I, i0 + cols) - i0);
+  const bool stamp = p.timers != nullptr && tid == 0 && me == 0;
+  if (stamp) p.timers[2 + 4 * w] = global_timer();
+  ScanSmem s = carve(smem, p, w, cols);
 
   // per-row inputs; the mixes and keys other CTAs wrote (L2, not L1)
   for (int r = tid; r < R; r += blockDim.x) {
@@ -825,17 +1098,18 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
     s.qmix[t] = __ldcg(p.qmix + (size_t)w * R * M + t);
     s.lmix[t] = __ldcg(p.lmix + (size_t)w * R * M + t);
   }
-  // the shared carry's per-instance arrays and the TPOT the grid wrote
-  // (the global carry's are in place)
+  // the shared and cluster carries' per-instance arrays and the TPOT the
+  // grid wrote (the global carry's are in place)
   const bool gl = p.scan_i != nullptr;
   if (!gl)
-    for (int i = tid; i < I; i += blockDim.x) {
+    for (int j = tid; j < n; j += blockDim.x) {
+      const int i = i0 + j;
       const float beff = fmaxf(p.b[i], 1.f);
-      s.d[i] = p.d[i];
-      s.b[i] = beff;
-      s.fr[i] = p.free_[i];
-      s.b0[i] = fmaxf(beff, 1.f);
-      s.tpot[i] = __ldcg(p.tpot + i);
+      s.d[j] = p.d[i];
+      s.b[j] = beff;
+      s.fr[j] = p.free_[i];
+      s.b0[j] = fmaxf(beff, 1.f);
+      s.tpot[j] = __ldcg(p.tpot + i);
     }
   __syncthreads();
 
@@ -854,14 +1128,21 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
   }
   __syncthreads();
 
-  if (gl) run_scan<true>(p, s, w);
-  else run_scan<false>(p, s, w);
+  if constexpr (CL) {
+    if (p.use_aff) run_scan_cluster<true>(p, s, w, i0, n);
+    else run_scan_cluster<false>(p, s, w, i0, n);
+  } else if (gl) {
+    run_scan<true>(p, s, w);
+  } else {
+    run_scan<false>(p, s, w);
+  }
   __syncthreads();
-  if (p.timers != nullptr && tid == 0) p.timers[3 + 4 * w] = global_timer();
+  if (stamp) p.timers[3 + 4 * w] = global_timer();
 
   for (int r = tid; r < R; r += blockDim.x) {
     const size_t rw = (size_t)w * R + r;
     const int c = s.pick[r];
+    if (CL && (c < i0 || c >= i0 + n)) continue;
     p.choice[rw] = c;
     p.est[rw] = s.est[r];
     p.lchosen[rw] = s.lmix[r * M + p.m_of_i[c]];
@@ -870,10 +1151,11 @@ __device__ void scan_window(const RtDecisionParams& p, float* smem, int w) {
 
 // ---------------------------------------------------------------------------
 // One of window w's tickets: one for each row tile of RT rows that holds
-// rows of w, and one for the trees. The CTA that draws the last scans w.
-template <int RT>
+// rows of w, and one for the trees. The CTA that draws the last scans w,
+// or (CL) sets bit w of `done` for its cluster to scan after stage 1.
+template <int RT, bool CL>
 __device__ void window_ticket(const RtDecisionParams& p, float* smem, int w,
-                              int* s_last) {
+                              int* s_last, unsigned* done) {
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -883,20 +1165,50 @@ __device__ void window_ticket(const RtDecisionParams& p, float* smem, int w,
   __syncthreads();
   if (!*s_last) return;
   __threadfence();
-  scan_window(p, smem, w);
-  if (threadIdx.x == 0) p.wtickets[w] = 0;
+  if constexpr (CL) {
+    if (threadIdx.x == 0) {
+      *done |= 1u << w;
+      p.wtickets[w] = 0;
+    }
+  } else {
+    scan_window<false>(p, smem, w);
+    if (threadIdx.x == 0) p.wtickets[w] = 0;
+  }
+}
+
+// The cluster carry's scans, by every CTA of the cluster after stage 1:
+// the windows that any of its CTAs completed (`done`, a bit a window),
+// read through distributed shared memory, in window order.
+__device__ void cluster_scans(const RtDecisionParams& p, float* smem,
+                              unsigned* done) {
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();                                // every CTA's `done` is final
+  unsigned todo = 0;
+  for (int r = 0; r < (int)cl.num_blocks(); ++r)
+    todo |= *cl.map_shared_rank(done, r);
+  __threadfence();                          // what other clusters wrote
+  while (todo != 0) {
+    const int w = __ffs(todo) - 1;
+    todo &= todo - 1;
+    scan_window<true>(p, smem, w);
+  }
+  cl.sync();                                // the others have read this CTA
 }
 
 // ---------------------------------------------------------------------------
 // The whole decision: the per-instance preamble in slices over the grid,
 // stage 1 on the grid of (index splits x row tiles of RT rows), then each
-// window's scan in the CTA that completes it.
+// window's scan in the CTA that completes it, or (CL, the cluster carry)
+// in that CTA's cluster. S splits: gridDim.x, or (CL) the first S of a
+// grid padded to whole clusters.
 
-template <int RT, int MR, int MC, int ES>
+template <int RT, int MR, int MC, int ES, bool CL>
 __global__ void __launch_bounds__(THREADS)
 decision_fused(const __grid_constant__ RtDecisionParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_last;
+  __shared__ unsigned s_done;               // CL: the windows completed here
+  if (CL && threadIdx.x == 0) s_done = 0;
   if (p.timers != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
       threadIdx.x == 0)
     p.timers[0] = global_timer();
@@ -922,31 +1234,103 @@ decision_fused(const __grid_constant__ RtDecisionParams p) {
           for (int w = 0; w < p.K; ++w) p.timers[1 + 4 * w] = t;
         }
       }
-      for (int w = 0; w < p.K; ++w) window_ticket<RT>(p, smem, w, &s_last);
+      for (int w = 0; w < p.K; ++w)
+        window_ticket<RT, CL>(p, smem, w, &s_last, &s_done);
       __syncthreads();                          // smem is stage 1's again
     }
   }
   const int KR = p.K * p.R;
-  if (!knn::fused_topk<knn::XSQ_FIRST, RT, MR, MC, ES>(
-          p.emb, nullptr, p.x, p.xsq, KR, p.N, p.E, p.k, p.per_split,
-          p.cand_d, p.cand_i, p.tickets, smem, MixRow{&p}))
-    return;
-  // this CTA merged row tile blockIdx.y: its rows' mixes are in scratch;
-  // one ticket for each window that holds some of them
-  const int row0 = blockIdx.y * RT, row1 = min(KR, row0 + RT);
-  for (int w = row0 / p.R; w <= (row1 - 1) / p.R; ++w)
-    window_ticket<RT>(p, smem, w, &s_last);
+  const int S = CL ? ((p.N + knn::CT - 1) / knn::CT + p.per_split - 1)
+                         / p.per_split
+                   : (int)gridDim.x;
+  if ((!CL || (int)blockIdx.x < S) &&
+      knn::fused_topk<knn::XSQ_FIRST, RT, MR, MC, ES>(
+          p.emb, nullptr, p.x, p.xsq, KR, p.N, p.E, p.k, p.per_split, S,
+          p.cand_d, p.cand_i, p.tickets, smem, MixRow{&p})) {
+    // this CTA merged row tile blockIdx.y: its rows' mixes are in
+    // scratch; one ticket for each window that holds some of them
+    const int row0 = blockIdx.y * RT, row1 = min(KR, row0 + RT);
+    for (int w = row0 / p.R; w <= (row1 - 1) / p.R; ++w)
+      window_ticket<RT, CL>(p, smem, w, &s_last, &s_done);
+  }
+  if constexpr (CL) cluster_scans(p, smem, &s_done);
+}
+
+// Once per device and kernel of the cluster carry: let it take clusters
+// past the portable 8 CTAs and any dynamic shared memory the device
+// allows a block.
+template <class Kern>
+cudaError_t allow_clusters(Kern kern, bool* raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev < knn::MAX_DEVICES && !raised[dev])
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  return knn::allow_optin_smem(kern, raised);
+}
+
+// The launch configuration: a grid of (S, row tiles), or (C > 1) of S
+// padded to whole clusters of (C, 1, 1).
+inline cudaLaunchConfig_t config(const RtDecisionParams& p, int RT, int S,
+                                 int C, size_t smem, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((S + C - 1) / C * C, (p.K * p.R + RT - 1) / RT);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  if (C > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
 }
 
 template <int RT, int MR, int MC, int ES>
-int launch(const RtDecisionParams& p, int S, size_t smem, cudaStream_t st) {
-  auto kern = decision_fused<RT, MR, MC, ES>;
+int launch(const RtDecisionParams& p, int S, int C, size_t smem,
+           cudaStream_t st) {
+  if (C <= 1) {
+    auto kern = decision_fused<RT, MR, MC, ES, false>;
+    static bool raised[knn::MAX_DEVICES] = {};
+    cudaError_t err = knn::allow_optin_smem(kern, raised);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(S, (p.K * p.R + RT - 1) / RT);
+    kern<<<grid, THREADS, smem, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  auto kern = decision_fused<RT, MR, MC, ES, true>;
   static bool raised[knn::MAX_DEVICES] = {};
-  cudaError_t err = knn::allow_optin_smem(kern, raised);
+  cudaError_t err = allow_clusters(kern, raised);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(S, (p.K * p.R + RT - 1) / RT);
-  kern<<<grid, THREADS, smem, st>>>(p);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(p, RT, S, C, smem, st, attr);
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of C CTAs of the cluster-carry kernel at row tile RT
+// with `smem` bytes of dynamic shared memory the device holds at once (0:
+// none can be resident, so such a launch would fail).
+template <int RT, int MR, int MC, int ES>
+int resident(int C, size_t smem) {
+  auto kern = decision_fused<RT, MR, MC, ES, true>;
+  static bool raised[knn::MAX_DEVICES] = {};
+  cudaError_t err = allow_clusters(kern, raised);
+  if (err != cudaSuccess) return -(int)err;
+  RtDecisionParams p = {};
+  p.K = 1;
+  p.R = RT;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(p, RT, C, C, smem, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
@@ -954,37 +1338,53 @@ int launch(const RtDecisionParams& p, int S, size_t smem, cudaStream_t st) {
 extern "C" {
 
 // Dynamic shared memory of the kernel, in bytes: the larger of stage 1's
-// at row tile RT and the scan's, with the shared carry (shared_carry != 0)
-// or the global one.
-size_t rt_decision_smem(int RT, int E, int R, int M, int I,
-                        int shared_carry) {
-  const size_t scan = sizeof(float) * scan_smem_words(R, M, I,
-                                                      shared_carry != 0);
+// at row tile RT and the scan's with `cols` per-instance columns in
+// shared memory (I: shared carry; ceil(I / C): cluster carry; 0: global).
+size_t rt_decision_smem(int RT, int E, int R, int M, int cols) {
+  const size_t scan = sizeof(float) * scan_smem_words(R, M, cols);
   const size_t knn1 = knn::smem_bytes(RT, E);
   return scan > knn1 ? scan : knn1;
 }
 
+// Clusters of C CTAs resident at once for the cluster carry at row tile
+// RT with `smem` bytes of dynamic shared memory; negative: -cudaError_t.
+int rt_decision_resident_clusters(int RT, int C, size_t smem) {
+  switch (RT) {
+    case 1: return resident<1, 1, 1, knn::SMALL_ES>(C, smem);
+    case 2: return resident<2, 2, 1, knn::SMALL_ES>(C, smem);
+    case 4: return resident<4, 4, 1, knn::SMALL_ES>(C, smem);
+    case 8: return resident<8, 8, 1, knn::SMALL_ES>(C, smem);
+    case 16: return resident<16, 1, 4, 1>(C, smem);
+    case 32: return resident<32, 2, 4, 1>(C, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 // One kernel on `stream`, row tiles of RT in {1, 2, 4, 8, 16, 32} rows
-// and S splits of per_split 64-column tiles over the K*R rows; the
-// scratch tickets zero before the first call and left zero by every
-// call. Returns the cudaError_t (0 = success).
-int rt_decision_megakernel(const RtDecisionParams* p, int RT, int S,
+// and S splits of per_split 64-column tiles over the K*R rows; C = 1
+// (the warp, shared and global carries: the global one where scan_i is
+// set) or the cluster carry's C in {2, 4, 8, 16} CTAs (scan_i null, K <=
+// 32); the scratch tickets zero before the first call and left zero by
+// every call. Returns the cudaError_t (0 = success).
+int rt_decision_megakernel(const RtDecisionParams* p, int RT, int S, int C,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_ct = (p->N + knn::CT - 1) / knn::CT;
   if (p->K < 1 || p->R < 1 || p->E % 4 || p->k < 1 || p->k > knn::KMAX ||
       p->k > p->N || p->per_split < 1 ||
-      S != (n_ct + p->per_split - 1) / p->per_split)
+      S != (n_ct + p->per_split - 1) / p->per_split ||
+      (C != 1 && (C < 2 || C > 16 || (C & (C - 1)) != 0 ||
+                  p->scan_i != nullptr || p->K > 32)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = rt_decision_smem(RT, p->E, p->R, p->M, p->I,
-                                       p->scan_i == nullptr);
+  const int cols = p->scan_i != nullptr ? 0 : (p->I + C - 1) / C;
+  const size_t smem = rt_decision_smem(RT, p->E, p->R, p->M, cols);
   switch (RT) {
-    case 1: return launch<1, 1, 1, knn::SMALL_ES>(*p, S, smem, st);
-    case 2: return launch<2, 2, 1, knn::SMALL_ES>(*p, S, smem, st);
-    case 4: return launch<4, 4, 1, knn::SMALL_ES>(*p, S, smem, st);
-    case 8: return launch<8, 8, 1, knn::SMALL_ES>(*p, S, smem, st);
-    case 16: return launch<16, 1, 4, 1>(*p, S, smem, st);
-    case 32: return launch<32, 2, 4, 1>(*p, S, smem, st);
+    case 1: return launch<1, 1, 1, knn::SMALL_ES>(*p, S, C, smem, st);
+    case 2: return launch<2, 2, 1, knn::SMALL_ES>(*p, S, C, smem, st);
+    case 4: return launch<4, 4, 1, knn::SMALL_ES>(*p, S, C, smem, st);
+    case 8: return launch<8, 8, 1, knn::SMALL_ES>(*p, S, C, smem, st);
+    case 16: return launch<16, 1, 4, 1>(*p, S, C, smem, st);
+    case 32: return launch<32, 2, 4, 1>(*p, S, C, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -183,7 +183,8 @@ __device__ __forceinline__ void offer(float v, int j, int k, int lane,
 
 // The body of one CTA of the lookup, launched on a grid of (S splits x
 // ceil(B / RT) row tiles) of THREADS threads with smem_bytes(RT, E) of
-// dynamic shared memory at `smem`. q (B, E), x (N, E) float32; qsq_in
+// dynamic shared memory at `smem` (split blockIdx.x < S: a caller whose
+// grid is wider keeps its other CTAs out). q (B, E), x (N, E) float32; qsq_in
 // (B,) or null (then summed here); xsq (N,); per_split 64-column tiles a
 // split; scratch cand_d/cand_i (B, S, k) and one ticket per row tile.
 // Thread micro-tile MR rows x MC columns over a 1/ES share of e:
@@ -195,7 +196,7 @@ template <int FORM, int RT, int MR, int MC, int ES, class Tail>
 __device__ __forceinline__ bool fused_topk(
     const float* __restrict__ q, const float* __restrict__ qsq_in,
     const float* __restrict__ x, const float* __restrict__ xsq, int B,
-    int N, int E, int k, int per_split, float* __restrict__ cand_d,
+    int N, int E, int k, int per_split, int S, float* __restrict__ cand_d,
     int* __restrict__ cand_i, int* __restrict__ tickets, float* smem,
     const Tail& tail) {
   constexpr int RG = RT / MR, CGN = CT / MC, EW = EK / ES;
@@ -211,7 +212,7 @@ __device__ __forceinline__ bool fused_topk(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int es = tid / (RG * CGN), rem = tid % (RG * CGN);
   const int tr = rem / CGN, tc = rem % CGN;
-  const int S = gridDim.x, split = blockIdx.x, rt = blockIdx.y;
+  const int split = blockIdx.x, rt = blockIdx.y;
   const int row0 = rt * RT;
   const int n_ct = (N + CT - 1) / CT;
   const int ct0 = split * per_split, ct1 = min(n_ct, ct0 + per_split);

@@ -60,8 +60,8 @@ knn_topk_fused(const float* __restrict__ q, const float* __restrict__ qsq_in,
                int* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
   knn::fused_topk<knn::QSQ_FIRST, RT, MR, MC, ES>(
-      q, qsq_in, x, xsq, B, N, E, k, per_split, cand_d, cand_i, tickets, smem,
-      WriteList{out_d, out_i, k});
+      q, qsq_in, x, xsq, B, N, E, k, per_split, gridDim.x, cand_d, cand_i,
+      tickets, smem, WriteList{out_d, out_i, k});
 }
 
 template <int RT, int MR, int MC, int ES>

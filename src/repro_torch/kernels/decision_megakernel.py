@@ -35,13 +35,17 @@ instance's discount factor for every row; the CTA that scans a window
 reads both from scratch. With the term off the factors' scratch is not
 allocated.
 
-Any roster size I is taken. The scan keeps its per-instance arrays in
-shared memory up to `MAX_SHARED_I` instances where they fit there (the
-shared carry); a larger roster, or one whose arrays do not fit beside
-the R-length ones, takes the global carry (the arrays in the outputs
-and in scratch, see csrc/decision_megakernel.cu), which is bitwise the
-shared one. The wrapper raises only when even the R-length arrays do
-not fit in a block's shared memory.
+Any roster size I is taken. `carry_of` chooses where the scan keeps its
+per-instance arrays, from the shapes alone (csrc/decision_megakernel.cu
+says how each runs): up to `MAX_SHARED_I` instances, where they fit, in
+one CTA's shared memory (the shared carry; one warp scans at I <= 32);
+past that, up to `MAX_CLUSTER` x `MAX_SHARED_I`, spread over the shared
+memory of a thread-block cluster of C CTAs (the cluster carry: the
+smallest C that leaves a CTA at most `CLUSTER_COLS` columns, else the
+largest); else in the outputs and in scratch (the global carry). The
+three are bitwise equal. `carry_on` narrows the cluster where the
+device cannot hold one of C CTAs at once. The wrapper raises only when
+even the R-length arrays do not fit in a block's shared memory.
 
 Per-window args carry a leading K axis — emb (K, R, E), row_valid
 (K, R) bool, budgets/len_in (K, R) float32, psig (K, R, SIG_WIDTH)
@@ -59,10 +63,11 @@ what every untraced call passes), is an int64 CUDA tensor of at least
 the last slice of TPOT trees and affinity factors over the grid (the
 same stamp in each); at 2 + 4w the start of window w's scan, the end of
 stage 1 for it; at 3 + 4w the end of its greedy loop, by the CTA that
-scans the window; and at 4 + 4w a duration, not a stamp: the sum over
-the loop's steps of pass A (each step's start to the end of its
-admission reduction: cost, latency with its affinity factor read, and
-Eq. 2 over every instance). Nothing else reads the buffer, so the
+scans the window (rank 0 of the cluster on the cluster carry); and at
+4 + 4w a duration, not a stamp: the sum over the loop's steps of pass A
+(each step's start to the end of its admission reduction: cost, latency
+with its affinity factor read, and Eq. 2 over every instance). Nothing
+else reads the buffer, so the
 outputs are the same with and without it; the plain version has no
 stamps and the tap does not see the keyword.
 """
@@ -80,12 +85,19 @@ from ..serving.affinity import hit_fraction
 from .build import scratch, smem_limit
 from .knn_topk import knn_splits, row_tile
 
-# Largest roster the scan carries in shared memory. A measured choice, not
-# the hardware's limit (the shared carry still fits at I = 8,192 for
-# R <= 16): chip_smoke.py's carry boundary times both carries on the same
-# inputs, and the global one is the faster at I = 8,192, while at 4,096
-# the shared one is the faster for R >= 16 (PERF.md section 6).
+# Largest roster the scan carries in one CTA's shared memory. A measured
+# choice, not the hardware's limit (the shared carry still fits at I =
+# 8,192 for R <= 16): chip_smoke.py's carry boundary times the carries on
+# the same inputs, and the global one is the faster at I = 8,192, while
+# at 4,096 the shared one is the faster for R >= 16 (PERF.md section 6).
 MAX_SHARED_I = 4096
+# The cluster carry: clusters of 2 to MAX_CLUSTER CTAs (16, the H100's
+# non-portable limit), the smallest that leaves a CTA at most
+# CLUSTER_COLS columns (PERF.md section 6 times C = 8 against 16); the
+# windows a call completes are a bit each of a 32-bit word.
+MAX_CLUSTER = 16
+CLUSTER_COLS = 1024
+MAX_CLUSTER_WINDOWS = 32
 MAX_K_NEIGHBOURS = 32   # one lane per neighbour in the merge
 
 
@@ -96,20 +108,55 @@ def layout(rows: int, n_index: int) -> Tuple[int, int, int]:
     return (row_tile(rows), *knn_splits(rows, n_index))
 
 
+def scan_smem_bytes(R: int, M: int, cols: int) -> int:
+    """Shared-memory bytes of the scan of R rows over M models with `cols`
+    per-instance columns in a CTA's shared memory (I on the shared carry,
+    ceil(I / C) on the cluster carry, 0 on the global one): the
+    kernel's `scan_smem_words`, four bytes a word."""
+    return 4 * (2 * R * M + 7 * R + 7 * cols + 96)
+
+
+def carry_of(K: int, I: int, R: int, M: int, limit: int,
+             c_max: int = MAX_CLUSTER) -> Tuple[str, int]:
+    """(kind, C) of the scan of K windows of R rows over I instances, M
+    models, with `limit` bytes of shared memory a block and clusters of at
+    most `c_max` CTAs: ("warp", 1) at I <= 32 and ("shared", 1) up to
+    `MAX_SHARED_I` where the arrays fit; past that ("cluster", C) for the
+    smallest C in 2, 4, ..., c_max that leaves a CTA at most
+    `CLUSTER_COLS` columns, else the largest, while a CTA holds at most
+    `MAX_SHARED_I` columns, the slices fit and K <= 32; else ("global",
+    1)."""
+    if I <= MAX_SHARED_I:
+        if scan_smem_bytes(R, M, I) <= limit:
+            return ("warp" if I <= 32 else "shared"), 1
+        return "global", 1
+    if K <= MAX_CLUSTER_WINDOWS and I <= c_max * MAX_SHARED_I:
+        C = 2
+        while C <= c_max:
+            cols = -(-I // C)
+            if ((cols <= CLUSTER_COLS or 2 * C > c_max)
+                    and cols <= MAX_SHARED_I
+                    and scan_smem_bytes(R, M, cols) <= limit):
+                return "cluster", C
+            C *= 2
+    return "global", 1
+
+
 def scratch_sizes(K: int, R: int, M: int, k: int, n_index: int, I: int,
-                  shared_carry: bool, use_aff: bool
+                  carry: str, use_aff: bool
                   ) -> Tuple[int, int, int, int, int]:
     """(split-list entries, tickets, label-mix floats, per-instance
     floats, affinity factors) of the kernel's scratch for K windows of R
-    rows over I instances: k candidates per row and split, one ticket per
-    row tile, per window and for the trees, each row's two label mixes (M
-    each) and LPT key, and the TPOT heads (I), with the global carry also
-    b0 (I) and per window a step's cost and latency (2 I; the carry
-    itself lives in the outputs); with the affinity term on, each row's
-    factor on each instance (K R I), else none."""
+    rows over I instances on the carry of kind `carry` (`carry_of`): k
+    candidates per row and split, one ticket per row tile, per window and
+    for the trees, each row's two label mixes (M each) and LPT key, and
+    the TPOT heads (I), with the global carry also b0 (I) and per window a
+    step's cost and latency (2 I; the carry itself lives in the outputs);
+    with the affinity term on, each row's factor on each instance (K R I),
+    else none."""
     rt, S, _ = layout(K * R, n_index)
     return (K * R * S * k, -(-K * R // rt) + K + 1, K * R * (2 * M + 1),
-            I if shared_carry else (2 + 2 * K) * I,
+            (2 + 2 * K) * I if carry == "global" else I,
             K * R * I if use_aff else 0)
 
 
@@ -196,6 +243,8 @@ class _Params(ctypes.Structure):
 _lib = None
 # (device, stream) -> (cand_d, cand_i, tickets, mixes, inst, aff)
 _scratch = {}
+# (device, row tile, C, dynamic shared bytes) -> clusters resident at once
+_resident = {}
 
 
 def _library():
@@ -205,12 +254,40 @@ def _library():
         lib = load("decision_megakernel")
         lib.rt_decision_megakernel.argtypes = [ctypes.POINTER(_Params),
                                                ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+                                               ctypes.c_int, ctypes.c_void_p]
         lib.rt_decision_megakernel.restype = ctypes.c_int
-        lib.rt_decision_smem.argtypes = [ctypes.c_int] * 6
+        lib.rt_decision_smem.argtypes = [ctypes.c_int] * 5
         lib.rt_decision_smem.restype = ctypes.c_size_t
+        lib.rt_decision_resident_clusters.argtypes = [ctypes.c_int,
+                                                      ctypes.c_int,
+                                                      ctypes.c_size_t]
+        lib.rt_decision_resident_clusters.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def carry_on(dev, K: int, R: int, E: int, M: int, I: int) -> Tuple[str, int]:
+    """`carry_of` for a call on the CUDA device `dev`: its shared-memory
+    limit, and the cluster halved until the device can hold one of C CTAs
+    of that kernel at once (a global carry if none)."""
+    lib, limit, RT = _library(), smem_limit(dev), row_tile(K * R)
+    c_max = MAX_CLUSTER
+    while True:
+        kind, C = carry_of(K, I, R, M, limit, c_max)
+        if kind != "cluster":
+            return kind, C
+        smem = lib.rt_decision_smem(RT, E, R, M, -(-I // C))
+        key = (dev.index, RT, C, smem)
+        if key not in _resident:
+            with torch.cuda.device(dev):
+                n = lib.rt_decision_resident_clusters(RT, C, smem)
+            if n < 0:
+                raise RuntimeError(f"decision_megakernel: cudaError {-n} "
+                                   f"asking for clusters of {C}")
+            _resident[key] = n
+        if _resident[key] > 0:
+            return kind, C
+        c_max = C // 2
 
 
 def _check(t, name, dtype, shape=None):
@@ -289,15 +366,13 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
             raise ValueError("GBM arrays do not match depth")
     lib = _library()
     RT, S, per = layout(K * R, N)
-    limit = smem_limit(dev)
-    shared = (I <= MAX_SHARED_I
-              and lib.rt_decision_smem(RT, E, R, M, I, 1) <= limit)
-    if lib.rt_decision_smem(RT, E, R, M, I, int(shared)) > limit:
-        raise ValueError(f"(R={R}, M={M}, I={I}, E={E}) needs more shared "
-                         f"memory than a block has ({limit} B)")
+    kind, C = carry_on(dev, K, R, E, M, I)
+    if scan_smem_bytes(R, M, 0) > smem_limit(dev):
+        raise ValueError(f"(R={R}, M={M}) needs more shared memory than a "
+                         f"block has ({smem_limit(dev)} B)")
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_cand, n_tickets, n_mix, n_inst, n_aff = scratch_sizes(
-        K, R, M, k, N, I, shared, use_aff)
+        K, R, M, k, N, I, kind, use_aff)
     cand_d, cand_i, tickets, mix, inst, aff = scratch(
         _scratch, dev, stream, ((n_cand, f32, False), (n_cand, i32, False),
                                 (n_tickets, i32, True), (n_mix, f32, False),
@@ -313,7 +388,7 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         cand_i.data_ptr(), tickets.data_ptr(),
         tickets.data_ptr() + 4 * n_tiles, mix0, mix0 + 4 * K * R * M,
         mix0 + 8 * K * R * M, inst.data_ptr(),
-        None if shared else inst.data_ptr() + 4 * I,
+        inst.data_ptr() + 4 * I if kind == "global" else None,
         aff.data_ptr() if use_aff else None,
         *(o.data_ptr() for o in outs),
         None if timers is None else timers.data_ptr(),
@@ -323,7 +398,7 @@ def _launch(emb, row_valid, budgets, len_in, psig, d, b, free, ctx, alive,
         n_trees, n_internal, n_leaves, depth if use_gbm else 0,
         LATENCY_MODES.index(latency_mode), int(lpt), int(budget_filter),
         int(use_gbm), int(use_aff), eps, wq, wl, wc, w_aff, lr)
-    err = lib.rt_decision_megakernel(ctypes.byref(p), RT, S, stream)
+    err = lib.rt_decision_megakernel(ctypes.byref(p), RT, S, C, stream)
     if err != 0:
         raise RuntimeError(f"decision_megakernel launch failed: cudaError "
                            f"{err}")

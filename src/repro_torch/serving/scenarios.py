@@ -35,8 +35,8 @@ card unless given ``device="cpu"``, and runs cells through the port's
 `run_cell`. `hyperfleet_10k` (10,000 instances, roster bucket 16,384)
 runs on every backend: as one controller through the decision kernel
 (past `kernels.decision_megakernel.MAX_SHARED_I` instances the kernel
-keeps its scan's per-instance arrays in global memory; on the CPU the
-plain version decides), on the staged backends, or in the hierarchy's
+spreads its scan's per-instance arrays over a thread-block cluster; on
+the CPU the plain version decides), on the staged backends, or in the hierarchy's
 cells.
 """
 from __future__ import annotations
@@ -621,7 +621,7 @@ SCENARIOS: Dict[str, Scenario] = {
         )),
     # The 10k-instance world the hierarchical scheduler exists for
     # (`serving.hierarchy`). It runs as one controller on the decision
-    # kernel (I bucket 16,384, the kernel's global carry), in balanced
+    # kernel (I bucket 16,384, the kernel's cluster carry), in balanced
     # cells (16 cells: I bucket 1,024 each, on the kernel) or on the
     # staged backends (span) — a 10k roster is deliberately not tier-1.
     "hyperfleet_10k": Scenario(

@@ -46,8 +46,10 @@ The spans and where they are recorded:
                  grid (`k1.trees`: the TPOT trees and, with the affinity
                  term on, the rows' affinity factors; `aff_rows`, the
                  rows whose factors it wrote) and the call; per window
-                 the rest of stage 1, the scan and its steps' pass A
-                 (cost, latency with its affinity factor read, admission)
+                 the rest of stage 1, the scan (`steps`, the steps its
+                 loop ran; `ctas`, the CTAs that ran it) and its steps'
+                 pass A (cost, latency with its affinity factor read,
+                 admission)
 
 A span left open by an exception is dropped from `summary`. The tracer
 imports nothing from the package, so every layer can import it.

@@ -138,7 +138,7 @@ def test_plain_matches_pallas_reference(case):
     dict(mode="full"), dict(mode="off_reactive"), dict(mode="full", aff=True),
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_plain_matches_pallas_reference_past_the_shared_carry(case):
-    """A roster of MAX_SHARED_I + 1 instances (the kernel's global carry
+    """A roster of MAX_SHARED_I + 1 instances (the kernel's cluster carry
     on the card), every fifth instance dead, K = 2 windows: the plain
     version against the Pallas reference at the same tolerances."""
     case = dict(case)
@@ -191,24 +191,101 @@ def test_layout_follows_the_lookup_table(rows, want):
 def test_scratch_is_split_lists_tickets_and_mixes():
     # K = 2 windows of R = 64 rows (8-row tiles, 30 splits), M = 4, k = 10:
     # a ticket per row tile, per window and the trees'; the TPOT heads
-    assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, True, False) == (
+    assert mk.scratch_sizes(2, 64, 4, 10, 14886, 16, "warp", False) == (
         128 * 30 * 10, 16 + 2 + 1, 128 * 9, 16, 0)
     # the main path's bucket: one window of 8 rows in 4-row tiles
-    assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, True, False) == (
+    assert mk.scratch_sizes(1, 8, 4, 10, 14886, 16, "warp", False) == (
         8 * 117 * 10, 2 + 1 + 1, 8 * 9, 16, 0)
     # the global carry: the TPOT and b0, then a step's cost and latency
     # per window (32 rows take 8-row tiles and 59 splits)
-    assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, False, False) == (
+    assert mk.scratch_sizes(2, 16, 4, 10, 14886, 16384, "global",
+                            False) == (
         32 * 59 * 10, 4 + 2 + 1, 32 * 9, (2 + 2 * 2) * 16384, 0)
-    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, True, False)[3] == 4096
+    assert mk.scratch_sizes(1, 16, 4, 10, 14886, 4096, "shared",
+                            False)[3] == 4096
     # the affinity term: a factor per row of every window and instance,
-    # on both carries, and nothing else moves
-    for K, R, I, shared in ((2, 64, 16, True), (1, 16, 1024, True),
-                            (2, 16, 16384, False), (1, 16, 4097, False)):
-        off = mk.scratch_sizes(K, R, 4, 10, 14886, I, shared, False)
-        on = mk.scratch_sizes(K, R, 4, 10, 14886, I, shared, True)
+    # on every carry, and nothing else moves
+    for K, R, I, carry in ((2, 64, 16, "warp"), (1, 16, 1024, "shared"),
+                           (2, 16, 16384, "global"), (1, 16, 4097, "global"),
+                           (2, 16, 16384, "cluster")):
+        off = mk.scratch_sizes(K, R, 4, 10, 14886, I, carry, False)
+        on = mk.scratch_sizes(K, R, 4, 10, 14886, I, carry, True)
         assert off[4] == 0 and on[4] == K * R * I
         assert on[:4] == off[:4]
+
+
+def test_scratch_of_the_cluster_carry_is_the_tpot_alone():
+    """The cluster carry keeps its per-instance arrays in the cluster's
+    shared memory: its scratch is the shared carry's (the TPOT heads, I
+    floats), not the global carry's b0 and per-window cost and latency;
+    the rest follows the rows alone."""
+    for K, R, I in ((1, 16, 4097), (2, 16, 16384), (1, 128, 65536)):
+        cl = mk.scratch_sizes(K, R, 16, 10, 14886, I, "cluster", False)
+        gl = mk.scratch_sizes(K, R, 16, 10, 14886, I, "global", False)
+        assert cl[3] == I and gl[3] == (2 + 2 * K) * I
+        assert cl[:3] == gl[:3] and cl[4] == gl[4] == 0
+
+
+H100_SMEM = 232448      # bytes a block may opt in to on an H100
+
+
+@pytest.mark.parametrize("I, want", [
+    (16, ("warp", 1)), (32, ("warp", 1)), (33, ("shared", 1)),
+    (1024, ("shared", 1)), (4096, ("shared", 1)), (4097, ("cluster", 8)),
+    (8192, ("cluster", 8)), (8193, ("cluster", 16)),
+    (16384, ("cluster", 16)), (16385, ("cluster", 16)),
+    (16 * 4096, ("cluster", 16)), (16 * 4096 + 1, ("global", 1)),
+    (1 << 20, ("global", 1))])
+def test_carry_of_follows_the_roster(I, want):
+    """The carry a call's scan takes, from the roster alone at the
+    benchmark's R = 16, M = 16, one window: the warp and the shared carry
+    up to MAX_SHARED_I, then the smallest cluster that leaves a CTA at
+    most CLUSTER_COLS columns, then the largest while a CTA holds at most
+    MAX_SHARED_I, then the global carry."""
+    assert (mk.MAX_SHARED_I, mk.MAX_CLUSTER, mk.CLUSTER_COLS) == (
+        4096, 16, 1024)
+    assert mk.carry_of(1, I, 16, 16, H100_SMEM) == want
+    kind, C = want
+    if kind == "cluster":
+        assert C * mk.MAX_SHARED_I >= I > (C - 1) * -(-I // C)
+
+
+def test_carry_of_narrows_with_the_device():
+    """A device that holds no cluster of 16 (c_max 8) takes clusters of 8
+    up to 8 x 4,096 instances, of 2,048 columns a CTA at I = 16,384; one
+    that holds none (c_max 1) the global carry; more windows than the
+    completion word's 32 bits, or slices that do not fit, the global
+    carry; at or below MAX_SHARED_I the paths do not move."""
+    assert mk.carry_of(1, 16384, 16, 16, H100_SMEM, 8) == ("cluster", 8)
+    assert mk.carry_of(1, 8 * 4096 + 1, 16, 16, H100_SMEM, 8) == (
+        "global", 1)
+    assert mk.carry_of(1, 4097, 16, 16, H100_SMEM, 4) == ("cluster", 4)
+    assert mk.carry_of(1, 16384, 16, 16, H100_SMEM, 1) == ("global", 1)
+    assert mk.carry_of(32, 16384, 16, 16, H100_SMEM) == ("cluster", 16)
+    assert mk.carry_of(33, 16384, 16, 16, H100_SMEM) == ("global", 1)
+    for c_max in (1, 8, 16):
+        assert mk.carry_of(1, 4096, 16, 16, H100_SMEM, c_max) == (
+            "shared", 1)
+    # R x M arrays too large for the slices beside them: a larger cluster,
+    # then the global carry
+    big = mk.scan_smem_bytes(4096, 8, 1024) - 1
+    assert mk.carry_of(1, 16384, 4096, 8, big) == ("global", 1)
+    assert mk.carry_of(1, 8192, 4096, 8, big) == ("cluster", 16)
+    # the shared carry's own limit at I <= MAX_SHARED_I keeps today's
+    # global fallback
+    assert mk.carry_of(1, 4096, 16, 16, mk.scan_smem_bytes(16, 16, 4096)
+                       - 1) == ("global", 1)
+
+
+def test_scan_smem_bytes_counts_the_scan_words():
+    """Rows' mixes, the R-length arrays and 96 reduction words, then seven
+    floats a column: at the cells' R = 16, M = 16 the cluster carry's
+    1,024 columns a CTA take 31,552 bytes, under stage 1's 43 KB at the
+    4-row tile."""
+    assert mk.scan_smem_bytes(16, 16, 0) == 4 * (512 + 112 + 96)
+    assert mk.scan_smem_bytes(16, 16, 1024) == 31552
+    assert mk.scan_smem_bytes(64, 16, 4096) - mk.scan_smem_bytes(
+        64, 16, 0) == 7 * 4 * 4096
 
 
 @pytest.fixture
@@ -248,7 +325,7 @@ def test_kernel_matches_plain_on_card(cuda_device, mode, aff):
 @pytest.mark.cuda
 def test_kernel_takes_a_roster_past_the_shared_carry(cuda_device):
     """One instance past the shared carry (I = MAX_SHARED_I + 1) the
-    wrapper launches once, on the global carry, and matches the plain
+    wrapper launches once, on the cluster carry, and matches the plain
     version: choice, b1, f1 exact, est_T/l_chosen/d1 within rtol 1e-5."""
     args = _dyadic_world(0, I=mk.MAX_SHARED_I + 1)
     args["alive"] = np.ones(mk.MAX_SHARED_I + 1, bool)
@@ -278,8 +355,8 @@ def _dyadic_world(seed, **kw):
 def test_kernel_matches_plain_on_card_shapes(cuda_device, case):
     """One request padded to the R = 8 bucket, K = 2 windows whose rows
     share row tiles, and rosters that take the block-wide scan (I = 128),
-    the shared carry's largest (I = 4096) and the global carry (I = 4097
-    and 16,384, K = 2 windows, each with its own scratch rows): exact
+    the shared carry's largest (I = 4096) and the cluster carry (I = 4097
+    and 16,384, K = 2 windows, each scanned by its cluster): exact
     against the plain version."""
     kw = dict(one_row=dict(K=1, R=8), windows=dict(K=2, R=12),
               I128=dict(K=1, R=16, I=128),
@@ -312,7 +389,7 @@ def _tickets(dev):
 def test_kernel_calls_in_a_row_agree(cuda_device):
     """The tickets reset themselves: every ticket (row tiles, windows,
     the trees') is 0 after each call, and a call on the same stream after
-    calls at other shapes (the global carry's among them) repeats the
+    calls at other shapes (the cluster carry's among them) repeats the
     first exactly."""
     gbm, depth, lr = _gbm(True)
     a1 = _dyadic_world(12, K=2, R=8)
@@ -364,7 +441,7 @@ def test_kernel_tpot_over_the_grid_is_bitwise(cuda_device, case):
     I = 16, R = 8 the grid has far more CTAs than instances; at I = 1,024
     (the shared carry) the last 24 instances are dead pads, which the off
     modes still read; at I = 16,384 two windows read one TPOT array on
-    the global carry; at I = 4,097 the slices write the nominal TPOT."""
+    the cluster carry; at I = 4,097 the slices write the nominal TPOT."""
     world, mode, use_gbm = GRID_CASES[case]
     args = _dyadic_world(31, T=4, **world)
     I = world["I"]
@@ -427,7 +504,7 @@ def test_kernel_affinity_over_the_grid_is_bitwise(cuda_device, case):
     reads them and the grid has more CTAs than instances; at I = 1,024
     (the shared carry) the last 24 instances are dead pads, in `full` and
     an off mode; at I = 16,384 two windows read their own factor rows on
-    the global carry; at I = 4,097 the budget filter is off."""
+    the cluster carry; at I = 4,097 the budget filter is off."""
     world, mode, budget_filter = AFF_GRID_CASES[case]
     args = _aff_world(world)
     gbm, depth, lr = _forest(4, 60, 3, seed=2)
@@ -494,3 +571,127 @@ def test_kernel_timers(cuda_device, I, R, trees, depth, aff, budget_filter):
     event_ms = start.elapsed_time(stop)
     assert abs(stamps_ms - event_ms) <= 0.05 * event_ms, (stamps_ms,
                                                            event_ms)
+
+
+def _plain_on_card(args, gbm, depth, lr, use_gbm, dev, **statics):
+    ts = [torch.as_tensor(np.array(a), device=dev)
+          for a in list(args.values()) + list(gbm)]
+    return [o.cpu().numpy() for o in mk.decision_megakernel_plain(
+        *ts, use_gbm=use_gbm, depth=depth, lr=lr, **statics)]
+
+
+# (world, statics, C) of the card cases of the cluster carry: every
+# latency mode, the term on and off, K = 1 and 2, R = 1 to 128, the
+# budget filter with no row admitted, LPT and the filter off
+CLUSTER_CASES = {
+    "I4097_K2_R16": (dict(K=2, R=16, I=4097), dict(), 8),
+    "I4097_K1_R64_aff": (dict(K=1, R=64, I=4097), dict(w_aff=0.35), 8),
+    "I8192_K1_R64_off_reactive": (dict(K=1, R=64, I=8192),
+                                  dict(mode="off_reactive"), 8),
+    "I8192_K2_R16_aff_off_predictive": (
+        dict(K=2, R=16, I=8192), dict(mode="off_predictive", w_aff=0.35),
+        8),
+    "I8192_K1_R16_nolpt": (dict(K=1, R=16, I=8192), dict(lpt=False), 8),
+    "I16384_K2_R16_aff": (dict(K=2, R=16, I=16384), dict(w_aff=0.35), 16),
+    "I16384_K1_R1": (dict(K=1, R=1, I=16384), dict(), 16),
+    "I16384_K1_R128_static_prior": (dict(K=1, R=128, I=16384),
+                                    dict(mode="static_prior"), 16),
+    "I16384_K1_R64_off_reactive_aff": (
+        dict(K=1, R=64, I=16384), dict(mode="off_reactive", w_aff=0.35),
+        16),
+    "I16384_K2_R16_nofilter": (dict(K=2, R=16, I=16384),
+                               dict(budget_filter=False), 16),
+    "I16384_K1_R16_none_admitted": (dict(K=1, R=16, I=16384), dict(), 16),
+    "I4097_K1_R16_none_admitted_off_reactive": (
+        dict(K=1, R=16, I=4097), dict(mode="off_reactive"), 8),
+}
+
+
+def _cluster_world(case):
+    """A case's inputs: dyadic embeddings (with signatures that reach
+    every branch of the affinity hit where the term is on), every
+    seventh instance dead and the last 24 dead pad columns, as the hot
+    path pads its roster; where no row is admitted, budgets below any
+    cost, so that each step takes the cheapest instance (the `cs_i`
+    path)."""
+    world, statics, C = CLUSTER_CASES[case]
+    statics = dict(statics)
+    aff = statics.get("w_aff", 0.0) > 0.0
+    args = (_aff_world(world) if aff
+            else _dyadic_world(51, T=4, **world))
+    I = world["I"]
+    args["alive"] = (np.arange(I) % 7 != 3) & (np.arange(I) < I - 24)
+    if world["R"] == 1:
+        args["row_valid"][:] = True              # the window's one row
+    if "none_admitted" in case:
+        args["budgets"] = np.full_like(args["budgets"], 1e-30)
+    use_gbm = statics.get("mode") != "static_prior"
+    gbm, depth, lr = _forest(4, 60, 3, seed=2) if use_gbm else _gbm(False)
+    return args, (gbm, depth, lr, use_gbm), _statics(**statics), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_cluster_carry_is_bitwise_the_plain_version(cuda_device, case):
+    """Past MAX_SHARED_I the scan runs on a cluster of C CTAs, each holding
+    its slice of the columns in shared memory: one launch, every output
+    bitwise the plain version's, no dead or pad column chosen, every
+    ticket left at 0."""
+    args, (gbm, depth, lr, use_gbm), statics, C = _cluster_world(case)
+    world = CLUSTER_CASES[case][0]
+    assert mk.carry_on(cuda_device, world["K"], world["R"], 8, 3,
+                       world["I"]) == ("cluster", C)
+    launches = mk.decision_megakernel.launches
+    got = _port(args, gbm, depth, lr, use_gbm, device=cuda_device,
+                **statics)
+    assert mk.decision_megakernel.launches == launches + 1
+    _bitwise(got, _plain_on_card(args, gbm, depth, lr, use_gbm,
+                                 cuda_device, **statics))
+    assert args["alive"][got[0]].all()             # dead never chosen
+    assert not _tickets(cuda_device).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["I4097_K2_R16", "I8192_K1_R64_off_reactive",
+                                  "I16384_K2_R16_aff",
+                                  "I16384_K1_R16_none_admitted"])
+def test_cluster_carry_is_bitwise_the_global_carry(cuda_device, case,
+                                                   monkeypatch):
+    """The same inputs with the global carry forced (no cluster allowed):
+    every output bitwise the cluster carry's."""
+    args, (gbm, depth, lr, use_gbm), statics, _ = _cluster_world(case)
+    world = CLUSTER_CASES[case][0]
+    cluster = _port(args, gbm, depth, lr, use_gbm, device=cuda_device,
+                    **statics)
+    monkeypatch.setattr(mk, "MAX_CLUSTER", 1)
+    assert mk.carry_on(cuda_device, world["K"], world["R"], 8, 3,
+                       world["I"]) == ("global", 1)
+    _bitwise(cluster, _port(args, gbm, depth, lr, use_gbm,
+                            device=cuda_device, **statics))
+
+
+@pytest.mark.cuda
+def test_roster_past_the_cluster_reach_takes_the_global_carry(cuda_device):
+    """One instance past MAX_CLUSTER x MAX_SHARED_I the wrapper launches
+    once on the global carry, bitwise the plain version."""
+    I = mk.MAX_CLUSTER * mk.MAX_SHARED_I + 1
+    assert mk.carry_on(cuda_device, 1, 16, 8, 3, I) == ("global", 1)
+    args = _dyadic_world(61, K=1, R=16, I=I)
+    args["alive"] = np.arange(I) % 7 != 3
+    gbm, depth, lr = _gbm(True)
+    launches = mk.decision_megakernel.launches
+    got = _port(args, gbm, depth, lr, True, device=cuda_device, **_statics())
+    assert mk.decision_megakernel.launches == launches + 1
+    _bitwise(got, _plain_on_card(args, gbm, depth, lr, True, cuda_device,
+                                 **_statics()))
+
+
+@pytest.mark.cuda
+def test_scan_smem_bytes_is_the_kernels(cuda_device):
+    """The wrapper's count of the scan's shared memory, which `carry_of`
+    reads, is the kernel's own where the scan's need is the larger."""
+    lib = mk._library()
+    for R, M, cols in ((16, 16, 4096), (128, 16, 2048), (64, 3, 1024)):
+        want = max(mk.scan_smem_bytes(R, M, cols),
+                   lib.rt_decision_smem(8, 128, 1, 1, 0))
+        assert lib.rt_decision_smem(8, 128, R, M, cols) == want

@@ -215,7 +215,7 @@ def test_stamps_become_device_durations(aff_rows):
     tracing.enable()
     try:
         fire = tracing.begin("rb.fire", batch=9)
-        st = _K1Stamps(host, 2, aff_rows)
+        st = _K1Stamps(host, 2, aff_rows, 16, 1)
         st.store()
         st.store()                       # once per call
         tracing.end(fire)
@@ -230,3 +230,29 @@ def test_stamps_become_device_durations(aff_rows):
     assert ns["k1.call"] == 160
     assert s["k1.call"]["sums"] == {"batch": 9}
     assert np.isclose(s["rb.fire"]["self_s"], s["rb.fire"]["total_s"])
+
+
+@pytest.mark.parametrize("K, steps, ctas", [(1, 8, 1), (2, 16, 16),
+                                            (4, 128, 8)],
+                         ids=["warp-R8", "cluster16-R16", "cluster8-R128"])
+def test_stamps_count_scan_steps_and_ctas(K, steps, ctas):
+    """Each window's `k1.scan` record carries the steps its loop ran (the
+    call's R bucket) and the CTAs that ran it, so that the tracer's
+    summary sums them over the windows; nothing else records them. The
+    stamp buffer is a CPU tensor, as the pinned host copy is."""
+    from repro_torch.core.hotpath import _K1Stamps
+    host = torch.tensor([0] + [10, 20, 30, 5] * K, dtype=torch.int64)
+    tracing.enable()
+    try:
+        fire = tracing.begin("rb.fire", batch=3)
+        _K1Stamps(host, K, 0, steps, ctas).store()
+        tracing.end(fire)
+        s = tracing.summary()
+    finally:
+        tracing.disable()
+    assert s["k1.scan"]["count"] == K
+    assert s["k1.scan"]["sums"] == {"batch": 3 * K, "steps": K * steps,
+                                    "ctas": K * ctas}
+    assert round(s["k1.scan"]["total_s"] * 1e9) == 10 * K
+    for name in ("k1.trees", "k1.stage1", "k1.scan_a", "k1.call"):
+        assert not {"steps", "ctas"} & set(s[name]["sums"])

@@ -1,7 +1,7 @@
 """K1's time by stage at the main path's shapes, from its own stamps.
 
     python3 tools/k1_stages.py [--shapes 16x8,1024x16,16384x16] [--calls 20] \
-        [--w-aff 0.35]
+        [--w-aff 0.35] [--clusters 8,16,global]
 
 For each I x R (by default I = 16, 1,024 and 16,384, each at R = 8, 16
 and 64): one K1 call (`decision_fused`) over a synthetic world of the
@@ -17,8 +17,13 @@ LPT scan and, inside it, the steps' pass A (cost, latency with its
 affinity factor, and admission), with the card's name and power limit.
 With `--w-aff` > 0 the prefix-affinity term is on: each row carries 8
 signature columns and each instance a plane of 64 sketch slots, a
-quarter of the instances holding a row's leading columns. Needs one
-NVIDIA GPU.
+quarter of the instances holding a row's leading columns. Each line
+also gives the carry the scan ran on and its CTAs (the cluster's C on
+the cluster carry, `kernels.decision_megakernel.carry_on`) and the
+scan's microseconds a step. With `--clusters`, each shape past the
+shared carry runs once per listed carry in turns (a, b, b, a for two):
+a cluster of that many CTAs (the wrapper's constants set so that it
+takes that C), or `global` for the global carry. Needs one NVIDIA GPU.
 """
 import argparse
 import json
@@ -92,13 +97,25 @@ def measure(I: int, R: int, calls: int, dev, w_aff: float = 0.0) -> dict:
     stop.record()
     torch.cuda.synchronize()
     t = timers.cpu().numpy().astype(np.float64) * 1e-6        # ms
+    kind, ctas = mk.carry_on(dev, 1, R, E, M, I)
+    scan_ms = float((t[:, 3] - t[:, 2]).mean())
     return {"I": I, "R": R, "calls": calls, "w_aff": w_aff,
+            "carry": kind, "ctas": ctas,
             "event_ms_per_call": start.elapsed_time(stop) / calls,
             "stamps_ms_per_call": float((t[:, 3] - t[:, 0]).mean()),
             "trees_ms": float((t[:, 1] - t[:, 0]).mean()),
             "stage1_ms": float((t[:, 2] - t[:, 1]).mean()),
-            "scan_ms": float((t[:, 3] - t[:, 2]).mean()),
+            "scan_ms": scan_ms, "scan_us_per_step": 1e3 * scan_ms / R,
             "scan_a_ms": float(t[:, 4].mean())}
+
+
+def forced(I: int, carry: str):
+    """The wrapper's constants for `carry` at I: a cluster of int(carry)
+    CTAs, or the global carry; restored by the caller."""
+    if carry == "global":
+        return {"MAX_CLUSTER": 1}
+    C = int(carry)
+    return {"MAX_CLUSTER": C, "CLUSTER_COLS": -(-I // C)}
 
 
 def main():
@@ -107,19 +124,32 @@ def main():
         f"{I}x{R}" for I in (16, 1024, 16384) for R in (8, 16, 64)))
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--w-aff", type=float, default=0.0)
+    ap.add_argument("--clusters", default="")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("k1_stages: needs an NVIDIA GPU")
+    from repro_torch.kernels import decision_megakernel as mk
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
+    carries = [c for c in a.clusters.split(",") if c]
     for shape in a.shapes.split(","):
         I, R = (int(v) for v in shape.split("x"))
-        print(json.dumps({**measure(I, R, a.calls, dev, a.w_aff),
-                          "card": card}),
-              flush=True)
+        turns = (carries + carries[::-1]
+                 if carries and I > mk.MAX_SHARED_I else [None])
+        for carry in turns:
+            saved = {k: getattr(mk, k) for k in ("MAX_CLUSTER",
+                                                 "CLUSTER_COLS")}
+            try:
+                for k, v in (forced(I, carry) if carry else {}).items():
+                    setattr(mk, k, v)
+                row = measure(I, R, a.calls, dev, a.w_aff)
+            finally:
+                for k, v in saved.items():
+                    setattr(mk, k, v)
+            print(json.dumps({**row, "card": card}), flush=True)
 
 
 if __name__ == "__main__":
